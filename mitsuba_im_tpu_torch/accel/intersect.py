@@ -1,0 +1,135 @@
+"""Ray-scene intersection over component-SoA rays
+(``mitsuba_im_tpu/accel/intersect.py``), brute-force branch.
+
+Triangles go through :mod:`.cuda_intersect` (the CUDA kernels on the card,
+their plain versions on the CPU); analytic spheres and disks are tested in
+plain torch, one table row at a time at full lane width, and merged with
+the triangle hit exactly as the reference does (:381-518).  Intersection
+inputs are detached: visibility is not differentiated (the reference's
+``stop_gradient``, :457).  Scenes above ``BRUTE_FORCE_MAX`` triangles need
+the two-level hierarchy, which is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.types import Float, Int, INVALID
+from ..core.v3 import V3
+from ..scene.geometry import (Geometry, Hit, KIND_NONE, KIND_TRI,
+                              KIND_SPHERE, KIND_DISK)
+from . import cuda_intersect as ci
+
+BRUTE_FORCE_MAX = 512  # tris; above this the reference uses its hierarchy
+BIG = 3.0e37
+
+
+def _check_small(geom: Geometry):
+    if geom.n_tris > BRUTE_FORCE_MAX:
+        raise NotImplementedError(
+            f"{geom.n_tris} triangles: scenes above {BRUTE_FORCE_MAX} need "
+            "the two-level hierarchy traversal, which is not ported yet")
+
+
+def _detach(w: V3) -> V3:
+    return V3(w.x.detach(), w.y.detach(), w.z.detach())
+
+
+def _sphere_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
+    """Loop over the (tiny) sphere table at full lane width."""
+    R = o.x.shape[0]
+    best_t = torch.full((R,), BIG, dtype=Float, device=o.x.device)
+    best_i = torch.zeros((R,), dtype=Int, device=o.x.device)
+    a = d.dot(d)
+    for k in range(geom.n_spheres):
+        c = V3(geom.sph_center[k, 0], geom.sph_center[k, 1],
+               geom.sph_center[k, 2])
+        radius = geom.sph_radius[k]
+        L = o - c
+        b = 2.0 * d.dot(L)
+        cc = L.dot(L) - radius * radius
+        disc = b * b - 4 * a * cc
+        ok = disc >= 0.0
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sb = torch.where(b >= 0.0, 1.0, -1.0)
+        q = -0.5 * (b + sb * sq)
+        t0 = q / torch.where(a == 0, 1.0, a)
+        t1 = cc / torch.where(q == 0, 1.0, q)
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        t = torch.where((lo > tmin) & (lo < tmax), lo, hi)
+        hit = ok & (t > tmin) & (t < tmax) & (radius > 0) & (t < best_t)
+        best_t = torch.where(hit, t, best_t)
+        best_i = torch.where(hit, k, best_i)
+    return best_i, best_t, best_t < BIG
+
+
+def _disk_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
+    R = o.x.shape[0]
+    best_t = torch.full((R,), BIG, dtype=Float, device=o.x.device)
+    best_i = torch.zeros((R,), dtype=Int, device=o.x.device)
+    for k in range(geom.n_disks):
+        c = V3(geom.disk_center[k, 0], geom.disk_center[k, 1],
+               geom.disk_center[k, 2])
+        n = V3(geom.disk_n[k, 0], geom.disk_n[k, 1], geom.disk_n[k, 2])
+        radius = geom.disk_radius[k]
+        denom = d.dot(n)
+        tt = (c - o).dot(n) / torch.where(denom == 0, 1.0, denom)
+        local = o + d * tt - c
+        r2 = local.dot(local) - local.dot(n) ** 2
+        hit = ((torch.abs(denom) > 1e-12) & (tt > tmin) & (tt < tmax)
+               & (r2 <= radius * radius) & (radius > 0) & (tt < best_t))
+        best_t = torch.where(hit, tt, best_t)
+        best_i = torch.where(hit, k, best_i)
+    return best_i, best_t, best_t < BIG
+
+
+def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
+                active=None, coherent=False) -> Hit:
+    """Closest hit over SoA rays.  ``active`` and ``coherent`` steer the
+    reference's hierarchy path only; brute force tests every lane."""
+    _check_small(geom)
+    o, d = _detach(o), _detach(d)
+    tbest, tu, tv, ti, tvalid = ci.closest_tris_v(
+        geom.tri_p0, geom.tri_e1, geom.tri_e2, o, d, tmin, tmax)
+    si, sbest, _ = _sphere_best_v(geom, o, d, tmin, tmax)
+    di, dbest, _ = _disk_best_v(geom, o, d, tmin, tmax)
+
+    tbest = torch.where(tvalid, tbest, BIG)
+    best = torch.minimum(torch.minimum(tbest, sbest), dbest)
+    kind = torch.where(
+        best >= BIG, KIND_NONE,
+        torch.where(tbest == best, KIND_TRI,
+                    torch.where(sbest == best, KIND_SPHERE, KIND_DISK)),
+    ).to(Int)
+    is_tri = kind == KIND_TRI
+    is_sph = kind == KIND_SPHERE
+    prim = torch.where(is_tri, ti, torch.where(is_sph, si, di))
+    shape = torch.where(
+        is_tri, geom.tri_shape[prim.clamp(0, geom.tri_shape.shape[0] - 1)],
+        torch.where(
+            is_sph, geom.sph_shape[prim.clamp(0, geom.sph_shape.shape[0] - 1)],
+            geom.disk_shape[prim.clamp(0, geom.disk_shape.shape[0] - 1)]),
+    )
+    miss = kind == KIND_NONE
+    return Hit(
+        t=torch.where(miss, BIG, best),
+        kind=kind,
+        prim=torch.where(miss, 0, prim).to(Int),
+        shape=torch.where(miss, INVALID, shape).to(Int),
+        u=torch.where(is_tri, tu, 0.0),
+        v=torch.where(is_tri, tv, 0.0),
+    )
+
+
+def occluded_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
+               active=None) -> torch.Tensor:
+    """Any-hit (shadow ray) query over SoA rays -> (N,) bool."""
+    _check_small(geom)
+    o, d = _detach(o), _detach(d)
+    blocked = ci.anyhit_tris_v(geom.tri_p0, geom.tri_e1, geom.tri_e2,
+                               o, d, tmin, tmax)
+    if geom.n_spheres:
+        blocked = blocked | _sphere_best_v(geom, o, d, tmin, tmax)[2]
+    if geom.n_disks:
+        blocked = blocked | _disk_best_v(geom, o, d, tmin, tmax)[2]
+    return blocked

@@ -1,0 +1,23 @@
+"""Dtype policy and renderer constants (``mitsuba_im_tpu/core/types.py``).
+
+Geometry and accumulation are float32, ids int32, as in the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+Float = torch.float32
+Int = torch.int32
+
+# reference include/mitsuba/core/constants.h (single precision build)
+EPSILON = 1e-4
+SHADOW_EPSILON = 1e-3
+
+INVALID = -1  # sentinel index (no shape / no emitter / no texture)
+
+
+def host_tensor(a, dtype, device="cpu") -> torch.Tensor:
+    """A numpy value (any rank, 0-d included) copied to a tensor of the
+    numpy ``dtype`` on ``device``."""
+    return torch.from_numpy(np.array(a, dtype)).to(device)
