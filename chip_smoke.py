@@ -9,21 +9,38 @@ Phases, in order; any failure raises and the run exits non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off;
-2. build: compile ``csrc/tri_intersect.cu`` with nvcc (timed);
-3. kernels vs their plain PyTorch versions on the card: 2^20 camera rays
-   into the Cornell soup and 2^20 random rays into a random 512-triangle
-   soup; found/prim exact except exact-t ties (< 1e-4 of rays), t/u/v to
-   rel 1e-5, blocked exact except < 1e-4 edge flips; both timed at the main
-   path's shape (2^20 rays x 12 triangles);
-4. the main path: ``render_film`` on the Cornell box at 1024^2, depth 5,
-   4 spp; the launch counters must show 5 closest-hit and 4 any-hit
-   launches per pass; the image must be finite, non-negative, of plausible
-   brightness, red on the left and green on the right; the pass time comes
-   from differencing two pass counts (as bench.py does) with CUDA events;
-5. card vs CPU: the 128^2 Cornell render (and its skip_direct variant) on
-   CUDA (kernels) and on the CPU (plain versions) must pass parity_check.py's
-   gate: sum rel < 5e-3, p999 per-pixel rel < 1e-3, bad-pixel fraction
-   < 2e-3.
+2. build: compile ``csrc/tri_intersect.cu`` and ``csrc/hier_traverse.cu``
+   with nvcc and ``csrc/bvh_build.cpp`` with the host C++ compiler, all
+   three at once (each timed; ptxas register and spill report);
+3. brute-force kernels vs their plain PyTorch versions on the card: 2^20
+   camera rays into the Cornell soup and 2^20 random rays into a random
+   512-triangle soup; found/prim exact except exact-t ties (< 1e-4 of
+   rays), t/u/v to rel 1e-5, blocked exact except < 1e-4 edge flips; both
+   timed at the Cornell path's shape (2^20 rays x 12 triangles);
+4. the Cornell path: ``render_film`` at 1024^2, depth 5, 4 spp; 5
+   closest-hit and 4 any-hit launches per pass; the image finite,
+   non-negative, of plausible brightness, red on the left and green on the
+   right; the pass time from differencing two pass counts;
+5. card vs CPU on the Cornell box at 128^2 (and its skip_direct variant):
+   parity_check.py's gate (sum rel < 5e-3, p999 per-pixel rel < 1e-3,
+   bad-pixel fraction < 2e-3);
+6. hierarchy kernels vs their plain version on the card, on the
+   1,120,504-triangle large scene: the 768^2 camera rays of sample 0 and as
+   many random rays from inside the scene's bounding sphere (closest hit),
+   shadow rays from the camera hits toward the environment (any hit,
+   finite tmax), both again with half the lanes masked off, and a small
+   instanced hierarchy (3 instances of a random soup): found, prim, inst,
+   t, u, v and blocked must agree bit for bit.  Both kernels are timed at
+   768^2 (CUDA events, kernel and plain version in turns, median of 11),
+   and their bounds computed from the plain version's work counters;
+7. the large-scene path: ``render_film`` on ``scenes.large_scene("cuda")``
+   at 768^2, depth 3, 2 spp; 3 ``hier_closest`` and 2 ``hier_anyhit``
+   launches per pass and no brute-force launch; the image finite,
+   non-negative, the mesh in the centre distinct from the unit
+   environment in the corners; the pass time from differencing two pass
+   counts (2,949,120 rays per pass); peak device memory;
+8. card vs CPU on the same 1.12M-triangle scene at 64^2, depth 3:
+   parity_check.py's gate.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -31,19 +48,25 @@ The next-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from mitsuba_im_tpu_torch.accel import bvh
+from mitsuba_im_tpu_torch.accel import cuda_hierarchy as ch
 from mitsuba_im_tpu_torch.accel import cuda_intersect as ci
+from mitsuba_im_tpu_torch.accel import hierarchy as hy
 from mitsuba_im_tpu_torch.core import rng
+from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON
 from mitsuba_im_tpu_torch.core.v3 import V3
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
-from mitsuba_im_tpu_torch.scenes import tiny_cornell
+from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
 from mitsuba_im_tpu_torch.sensor.table import sample_ray_v
 
 RES = 1024
@@ -52,7 +75,21 @@ SPP = 4
 N_RAYS = 1 << 20
 TIE_FRAC = 1e-4  # rays allowed to differ in found/prim (exact-t ties, edges)
 RTOL = 1e-5  # t/u/v agreement (rel; abs for |x| < 1)
-SOURCE = "mitsuba_im_tpu_torch/csrc/tri_intersect.cu"
+TRI_SOURCE = "mitsuba_im_tpu_torch/csrc/tri_intersect.cu"
+HIER_SOURCE = "mitsuba_im_tpu_torch/csrc/hier_traverse.cu"
+HIER_REPLACES = ("mitsuba_im_tpu/accel/hier_kernel.py:81, "
+                 "mitsuba_im_tpu/accel/hier_kernel.py:285, "
+                 "mitsuba_im_tpu/accel/hier_kernel.py:439")
+L_RES = 768  # the large scene
+L_DEPTH = 3
+L_SPP = 2
+
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): memory rate
+# and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+FLOP_TRI = 40  # one Moeller-Trumbore test
+FLOP_BOX = 12  # one slab test
 
 
 def log(msg):
@@ -75,13 +112,19 @@ def device_phase():
 
 
 def build_phase():
+    libs = {"tri_intersect.cu": ci.LIBRARY, "hier_traverse.cu": ch.LIBRARY,
+            "bvh_build.cpp": bvh.LIBRARY}
     t0 = time.perf_counter()
-    ci.load_library()
-    log(f"[build] {ci.library_path().name} ready in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {ci.build_seconds:.2f} s)")
-    for line in ci.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.load) for lib in libs.values()]:
+            f.result()
+    log(f"[build] all libraries ready in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        log(f"[build] {name}: {lib.path().name}, compiler "
+            f"{lib.seconds:.2f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def cuda_ms(fn, reps):
@@ -96,6 +139,32 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def median_ms_in_turns(fns, reps):
+    """{name: median ms of one call}: each fn timed once per round with
+    CUDA events, the functions in turns, ``reps`` rounds after a warm-up."""
+    times = {k: [] for k in fns}
+    for k, fn in fns.items():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(stop))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by) on the H100 from bytes moved and flops done."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOP_PER_S * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 def camera_rays(scene, n_side, sample=0):
@@ -181,7 +250,7 @@ def kernel_phase(dev):
         torch.cuda.synchronize()
         err_a = max(err_a, compare_anyhit(name, k, p))
 
-    # timings at the main path's shape: 2^20 rays x 12 triangles
+    # timings at the Cornell path's shape: 2^20 rays x 12 triangles
     timing = {}
     for key, fn in (
             ("closest", lambda: ci.closest_tris_v(*tris, o, d, 1e-4, 1e30)),
@@ -191,24 +260,36 @@ def kernel_phase(dev):
             ("anyhit_plain",
              lambda: ci.anyhit_tris_plain(*tris, o, d, 1e-4, tmax_any))):
         timing[key] = cuda_ms(fn, 20)
-    # the kernels at the largest soup they take
-    for key, fn in (
-            ("closest512", lambda: ci.closest_tris_v(*soup, o_r, d_r, 1e-4,
-                                                     1e30)),
-            ("anyhit512", lambda: ci.anyhit_tris_v(*soup, o_r, d_r, 1e-4,
-                                                   1e30))):
-        timing[key] = cuda_ms(fn, 5)
     log("[kernels] ms per call at 2^20 rays x 12 tris: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()
-                    if "512" not in k)
-        + f"; at 2^20 random rays x 512 tris: closest "
-          f"{timing['closest512']:.4f}, anyhit {timing['anyhit512']:.4f}")
+        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()))
+    # bounds: each ray reads 8 f32 and writes 4 x 4 B + 1 B (closest) or
+    # 1 B (any hit); 40 flops per ray-triangle pair
+    T = tris[0].shape[0]
+    timing["closest_bound"] = bound(N_RAYS * (32 + 17) + T * 36,
+                                    N_RAYS * T * FLOP_TRI)
+    timing["anyhit_bound"] = bound(N_RAYS * (32 + 1) + T * 36,
+                                   N_RAYS * T * FLOP_TRI)
     return err_c, err_a, timing
 
 
 def luminance(img):
     return 0.212671 * img[..., 0] + 0.715160 * img[..., 1] \
         + 0.072169 * img[..., 2]
+
+
+def pass_time(scene, settings, k_lo, k_hi, rays):
+    """Per-pass ms from differencing two pass counts (cancels the fixed
+    costs), as bench.py does."""
+    def run(k):
+        return lambda: render_film(scene, settings, spp=k)
+
+    t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
+    t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
+    per_pass = (t_hi - t_lo) / (k_hi - k_lo)
+    log(f"[main] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
+        f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
+        f"{rays / (per_pass * 1e-3):.4e} rays/s")
+    return per_pass
 
 
 def main_path_phase(dev):
@@ -218,6 +299,7 @@ def main_path_phase(dev):
     settings.integrator_props = dict(max_depth=DEPTH)
 
     ci.reset_launch_counts()
+    ch.reset_launch_counts()
     film = render_film(scene, settings)
     torch.cuda.synchronize()
     launches = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
@@ -226,6 +308,8 @@ def main_path_phase(dev):
     if launches != (DEPTH * SPP, (DEPTH - 1) * SPP):
         raise AssertionError(f"expected {DEPTH} closest and {DEPTH - 1} "
                              f"any-hit launches per pass, got {launches}")
+    if ch.hier_closest.launches or ch.hier_anyhit.launches:
+        raise AssertionError("the Cornell box launched hierarchy kernels")
 
     img = develop(film).cpu().numpy()
     lum = luminance(img)
@@ -243,26 +327,29 @@ def main_path_phase(dev):
         raise AssertionError(f"implausible mean luminance {lum.mean()}")
     if not (left[0] > left[1] and right[1] > right[0]):
         raise AssertionError("red wall not on the left / green not on right")
-
-    # pass time: difference of two pass counts cancels the fixed costs
-    def run(k):
-        return lambda: render_film(scene, settings, spp=k)
-
-    k_lo, k_hi = 2, 6
-    t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
-    t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
-    per_pass = (t_hi - t_lo) / (k_hi - k_lo)
-    rays = RES * RES * (1 + 2 * (DEPTH - 1))
-    log(f"[main] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
-        f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
-        f"{rays / (per_pass * 1e-3):.4e} rays/s")
+    pass_time(scene, settings, 2, 6, RES * RES * (1 + 2 * (DEPTH - 1)))
     return launches
 
 
-def cornell_luminance(scene, n_side, skip_direct):
+def parity_gate(name, a, b):
+    rel_sum = abs(float(a.sum()) - float(b.sum())) / max(abs(float(
+        b.sum())), 1e-30)
+    scale = max(float(np.abs(b).mean()), 1e-12)
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * scale)
+    p999 = float(np.quantile(rel, 0.999))
+    frac_bad = float((rel > 1e-3).mean())
+    ok = rel_sum < 5e-3 and p999 < 1e-3 and frac_bad < 2e-3
+    log(f"[parity] {name}: cuda {a.sum():.6e} cpu {b.sum():.6e} rel "
+        f"{rel_sum:.2e} p999 {p999:.2e} frac_bad {frac_bad:.2e} max_rel "
+        f"{rel.max():.2e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("card vs CPU parity gate failed")
+
+
+def path_luminance(scene, n_side, depth, skip_direct=False):
     """parity_check._render_cornell on the port: per-pixel Li sum."""
     s, o, d = camera_rays(scene, n_side, sample=7)
-    cfg = PathConfig(max_depth=DEPTH, remat=False, skip_direct=skip_direct)
+    cfg = PathConfig(max_depth=depth, remat=False, skip_direct=skip_direct)
     li, _ = path_li_v(scene, s, o, d, cfg)
     return (li.x + li.y + li.z).cpu().numpy()
 
@@ -271,21 +358,216 @@ def parity_phase(dev):
     cuda_scene, _ = tiny_cornell(dev)
     cpu_scene, _ = tiny_cornell("cpu")
     for skip in (False, True):
-        a = cornell_luminance(cuda_scene, 128, skip)
-        b = cornell_luminance(cpu_scene, 128, skip)
-        rel_sum = abs(float(a.sum()) - float(b.sum())) / max(abs(float(
-            b.sum())), 1e-30)
-        scale = max(float(np.abs(b).mean()), 1e-12)
-        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * scale)
-        p999 = float(np.quantile(rel, 0.999))
-        frac_bad = float((rel > 1e-3).mean())
-        ok = rel_sum < 5e-3 and p999 < 1e-3 and frac_bad < 2e-3
-        log(f"[parity] 128^2 skip_direct={skip}: cuda {a.sum():.6e} cpu "
-            f"{b.sum():.6e} rel {rel_sum:.2e} p999 {p999:.2e} "
-            f"frac_bad {frac_bad:.2e} max_rel {rel.max():.2e} "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("card vs CPU parity gate failed")
+        parity_gate(f"cornell 128^2 skip_direct={skip}",
+                    path_luminance(cuda_scene, 128, DEPTH, skip),
+                    path_luminance(cpu_scene, 128, DEPTH, skip))
+
+
+# ---------------------------------------------------------------------------
+# the large scene
+# ---------------------------------------------------------------------------
+
+def check_hier(name, h, o, d, tmin, tmax, active=None):
+    """Both hierarchy kernels against the plain version, bit for bit.
+    Returns (max |t| error, blocked flips, plain counters of closest)."""
+    k = ch.hier_closest(h, o, d, tmin, tmax, active=active)
+    p, counts = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax,
+                                             active=active)
+    kb = ch.hier_anyhit(h, o, d, tmin, tmax, active=active)
+    pb = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax, any_hit=True,
+                                      active=active)[0].found
+    torch.cuda.synchronize()
+    mism = {f: int((a != b).sum()) for f, a, b in zip(
+        ("t", "u", "v", "prim", "inst", "found"), k, p)}
+    t_err = float((k[0] - p[0]).abs().max()) if p[0].numel() else 0.0
+    flips = int((kb != pb).sum())
+    log(f"[hier] {name}: {p.found.shape[0]} rays, found {int(p.found.sum())}"
+        f", blocked {int(pb.sum())}; mismatches "
+        + " ".join(f"{f} {m}" for f, m in mism.items())
+        + f", max |t err| {t_err:.3e}, blocked flips {flips}; clusters per "
+          f"ray {counts.clusters.float().mean().item():.4f}")
+    if any(mism.values()) or flips:
+        raise AssertionError(f"hierarchy kernels disagree on {name}")
+    return t_err, flips, counts
+
+
+def shadow_rays(scene, o, d, t, found, gen):
+    """NEE toward the constant environment from the camera hits: origin at
+    the hit, a uniform direction, tmax = far (1 - SHADOW_EPSILON) as
+    path_li_v asks."""
+    n = t.shape[0]
+    p = o + d * torch.where(found, t, 0.0)
+    u1, u2 = (torch.rand(n, generator=gen, device=t.device) for _ in "ab")
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * np.pi * u2
+    w = V3(r * torch.cos(phi), r * torch.sin(phi), z)
+    far = float(2.0 * scene.emitters.bsphere_radius + 1.0)
+    tmax = torch.full((n,), far * (1.0 - SHADOW_EPSILON), device=t.device)
+    return p, w, tmax
+
+
+def hier_table_bytes(h):
+    return sum(t.numel() * t.element_size() for t in (
+        h.swp_lo, h.swp_hi, h.childs, h.blocks, h.sup_inst, h.root))
+
+
+def hier_flops(h, counts):
+    return (int(counts.sweeps.sum()) * h.n_supers * FLOP_BOX
+            + int(counts.child_rows.sum()) * hy.SUP * FLOP_BOX
+            + int(counts.clusters.sum()) * hy.LEAF * FLOP_TRI)
+
+
+def work_spread(h, counts):
+    """Per-ray flops of a traversal: (p50, p99, max, warp factor), the warp
+    factor being the flops of 32 x each warp's heaviest ray over the total
+    (1 when the rays of every warp do equal work)."""
+    w = (counts.sweeps * h.n_supers * FLOP_BOX
+         + counts.child_rows * hy.SUP * FLOP_BOX
+         + counts.clusters * hy.LEAF * FLOP_TRI).double()
+    q = torch.quantile(w, torch.tensor([0.5, 0.99], dtype=w.dtype,
+                                       device=w.device))
+    pad = (-w.numel()) % 32
+    wmax = torch.cat([w, w.new_zeros(pad)]).view(-1, 32).amax(1)
+    return (float(q[0]), float(q[1]), float(w.max()),
+            float(32 * wmax.sum() / w.sum().clamp_min(1)))
+
+
+def hier_phase(dev, scene):
+    h = scene.clusters
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n = L_RES * L_RES
+    log(f"[hier] large scene: {scene.geom.n_tris} triangles, "
+        f"{h.n_supers} supers, {h.blocks.shape[0]} cluster rows, "
+        f"tables {hier_table_bytes(h) / 2**20:.1f} MiB")
+
+    _, o, d = camera_rays(scene, L_RES)
+    c = scene.emitters.bsphere_center
+    rad = float(scene.emitters.bsphere_radius)
+    dirs = torch.randn(n, 3, generator=gen, device=dev)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    pts = torch.randn(n, 3, generator=gen, device=dev)
+    pts = pts / pts.norm(dim=1, keepdim=True) * rad * torch.rand(
+        n, 1, generator=gen, device=dev) ** (1 / 3) + c
+    o_r, d_r = V3.from_array(pts.contiguous()), V3.from_array(
+        dirs.contiguous())
+    half = torch.rand(n, generator=gen, device=dev) < 0.5
+
+    err_t, flips, cam_counts = check_hier("camera 768^2", h, o, d, EPSILON,
+                                          1e30)
+    check_hier("random in bounding sphere", h, o_r, d_r, EPSILON, 1e30)
+    check_hier("camera 768^2, half masked", h, o, d, EPSILON, 1e30, half)
+    t, _, _, _, _, found = ch.hier_closest(h, o, d, EPSILON, 1e30)
+    p, w, tmax = shadow_rays(scene, o, d, t, found, gen)
+    e2, f2, _ = check_hier("shadow rays", h, p, w, EPSILON, tmax, found)
+    e3, f3, _ = check_hier("shadow rays, half masked", h, p, w, EPSILON,
+                           tmax, found & half)
+    err_t, flips = max(err_t, e2, e3), flips + f2 + f3
+
+    soup_gen = np.random.default_rng(5)
+    tri = [soup_gen.uniform(-s, s, (20000, 3)).astype(np.float32)
+           for s in (1.0, 0.3, 0.3)]
+    rot = np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], np.float32)
+    mats = [np.concatenate([np.eye(3, dtype=np.float32),
+                            np.zeros((3, 1), np.float32)], 1),
+            np.concatenate([rot * 1.3, [[2.5], [0.2], [-0.4]]], 1),
+            np.concatenate([rot.T, [[-2.0], [1.0], [1.5]]], 1)]
+    hi_ = hy.build_hierarchy_instanced(
+        [(*tri, np.arange(20000))], [(0, m) for m in mats], dev)
+    o_i = V3.from_array((torch.rand(n, 3, generator=gen, device=dev) * 8
+                         - 4).contiguous())
+    e4, _, _ = check_hier("instanced (3 x 20000 tris)", hi_, o_i, d_r,
+                          EPSILON, 1e30)
+    err_t = max(err_t, e4)
+
+    # timings at the main path's width: 768^2 camera rays (closest) and
+    # their shadow rays (any hit)
+    timing = median_ms_in_turns({
+        "closest": lambda: ch.hier_closest(h, o, d, EPSILON, 1e30),
+        "anyhit": lambda: ch.hier_anyhit(h, p, w, EPSILON, tmax, found),
+    }, 11)
+    timing.update(median_ms_in_turns({
+        "closest_plain": lambda: hy.intersect_hierarchy_plain(
+            h, o, d, EPSILON, 1e30),
+        "anyhit_plain": lambda: hy.intersect_hierarchy_plain(
+            h, p, w, EPSILON, tmax, any_hit=True, active=found),
+    }, 3))
+    sh_counts = hy.intersect_hierarchy_plain(h, p, w, EPSILON, tmax,
+                                             any_hit=True, active=found)[1]
+    tables = hier_table_bytes(h)
+    timing["closest_bound"] = bound(n * (32 + 21) + tables,
+                                    hier_flops(h, cam_counts))
+    timing["anyhit_bound"] = bound(n * (32 + 1 + 1) + tables,
+                                   hier_flops(h, sh_counts))
+    for name, cnt in (("camera", cam_counts), ("shadow", sh_counts)):
+        p50, p99, wmax, warp = work_spread(h, cnt)
+        log(f"[hier] work per {name} ray: sweeps "
+            f"{cnt.sweeps.float().mean().item():.4f} (max "
+            f"{int(cnt.sweeps.max())}), child picks "
+            f"{cnt.child_rows.float().mean().item():.4f} (max "
+            f"{int(cnt.child_rows.max())}), clusters "
+            f"{cnt.clusters.float().mean().item():.4f} (max "
+            f"{int(cnt.clusters.max())}); flops p50 {p50:.0f}, p99 "
+            f"{p99:.0f}, max {wmax:.0f}, warp factor {warp:.3f}")
+    log("[hier] ms per call at 768^2 (median): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()
+                    if not k.endswith("bound"))
+        + "; bounds "
+        + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in timing.items()
+                    if k.endswith("bound")))
+    return err_t, float(flips > 0), timing
+
+
+def large_path_phase(scene, settings):
+    settings.spp = L_SPP
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    launches = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    log(f"[large] render_film {L_RES}x{L_RES} depth {L_DEPTH} spp {L_SPP}: "
+        f"hier_closest launches {launches[0]}, hier_anyhit launches "
+        f"{launches[1]}, brute-force launches {brute}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if launches != (L_DEPTH * L_SPP, (L_DEPTH - 1) * L_SPP) or any(brute):
+        raise AssertionError(f"expected {L_DEPTH} hier_closest, "
+                             f"{L_DEPTH - 1} hier_anyhit and no brute-force "
+                             f"launches per pass, got {launches}, {brute}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    q = L_RES // 8
+    centre = lum[3 * q:5 * q, 3 * q:5 * q].mean()
+    corners = np.mean([lum[:q, :q].mean(), lum[:q, -q:].mean(),
+                       lum[-q:, :q].mean(), lum[-q:, -q:].mean()])
+    log(f"[large] image mean luminance {lum.mean():.5f}, centre "
+        f"{centre:.5f}, corners {corners:.5f}")
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    if abs(corners - 1.0) > 1e-3:
+        raise AssertionError("the corners do not see the unit environment")
+    if abs(centre - corners) < 0.05:
+        raise AssertionError("the mesh does not show in the image centre")
+    if not 0.2 < lum.mean() < 1.5:
+        raise AssertionError(f"implausible mean luminance {lum.mean()}")
+    pass_time(scene, settings, 1, 3,
+              L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)))
+    return launches
+
+
+def large_parity_phase(cuda_scene):
+    cpu_scene, _ = large_scene("cpu")
+    parity_gate(f"large scene ({cpu_scene.geom.n_tris} tris) 64^2 depth "
+                f"{L_DEPTH}", path_luminance(cuda_scene, 64, L_DEPTH),
+                path_luminance(cpu_scene, 64, L_DEPTH))
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                  bnd):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
 def main():
@@ -295,15 +577,30 @@ def main():
     err_c, err_a, timing = kernel_phase(dev)
     launches = main_path_phase(dev)
     parity_phase(dev)
+
+    t0 = time.perf_counter()
+    scene, settings = large_scene(dev)
+    log(f"[large] scene built on the host in {time.perf_counter() - t0:.2f} "
+        f"s: {scene.geom.n_tris} triangles")
+    err_h, err_ha, htiming = hier_phase(dev, scene)
+    hlaunches = large_path_phase(scene, settings)
+    large_parity_phase(scene)
+
     kernels = [
-        dict(name="tri_closest", route="cuda", source=SOURCE,
-             replaces="mitsuba_im_tpu/accel/pallas_intersect.py:79",
-             launches=launches[0], max_abs_err=err_c,
-             ms=timing["closest"], plain_ms=timing["closest_plain"]),
-        dict(name="tri_anyhit", route="cuda", source=SOURCE,
-             replaces="mitsuba_im_tpu/accel/pallas_intersect.py:130",
-             launches=launches[1], max_abs_err=err_a,
-             ms=timing["anyhit"], plain_ms=timing["anyhit_plain"]),
+        kernel_record("tri_closest", TRI_SOURCE,
+                      "mitsuba_im_tpu/accel/pallas_intersect.py:79",
+                      launches[0], err_c, timing["closest"],
+                      timing["closest_plain"], timing["closest_bound"]),
+        kernel_record("tri_anyhit", TRI_SOURCE,
+                      "mitsuba_im_tpu/accel/pallas_intersect.py:130",
+                      launches[1], err_a, timing["anyhit"],
+                      timing["anyhit_plain"], timing["anyhit_bound"]),
+        kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
+                      hlaunches[0], err_h, htiming["closest"],
+                      htiming["closest_plain"], htiming["closest_bound"]),
+        kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
+                      hlaunches[1], err_ha, htiming["anyhit"],
+                      htiming["anyhit_plain"], htiming["anyhit_bound"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,114 @@
+"""Hierarchy traversal: the CUDA kernels of ``csrc/hier_traverse.cu`` and
+their plain PyTorch version (:func:`.hierarchy.intersect_hierarchy_plain`).
+
+Replaces ``mitsuba_im_tpu/accel/hier_kernel.py``: both ``hier_closest`` and
+``hier_anyhit`` stand for ``_step_kernel`` (:81, reached from ``_round``
+:588), ``_step_kernel2`` (:285, ``_round2`` :553) and ``_advance_kernel``
+(:439, ``_advance_all`` :522), and for the driver around them: one launch
+runs the whole traversal of every ray.
+
+Dispatch, as in :mod:`.cuda_intersect`: a CPU tensor goes to the plain
+version; a CUDA tensor goes to the kernel, or the wrapper raises.  Each
+wrapper counts its kernel launches in a plain integer attribute
+(``hier_closest.launches``).  The library is built at first use with
+``nvcc`` (sm_90a, -O3, -fmad=false) by :mod:`.shared_lib`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.types import Float, Int
+from .cuda_intersect import NVCC_FLAGS, _check, _ptrs, _rays
+from .hierarchy import Hierarchy, intersect_hierarchy_plain
+from .shared_lib import SharedLibrary, nvcc
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = [p] * 9 + [i] + [p, p, i, i] + [p] * 6 + [i, i]
+    lib.hier_closest.argtypes = args + [p] * 6 + [p]
+    lib.hier_closest.restype = i
+    lib.hier_anyhit.argtypes = args + [p] + [p]
+    lib.hier_anyhit.restype = i
+
+
+LIBRARY = SharedLibrary("hier_traverse.cu", nvcc, NVCC_FLAGS, _bind)
+
+
+def _kernel_args(h: Hierarchy, o, d, tmin, tmax, active):
+    comps, n, dev = _rays(o, d, tmin, tmax)
+    if h.device != dev:
+        raise ValueError("the hierarchy must lie on the rays' device")
+    if active is not None and (active.shape != (n,) or active.dtype
+                               != torch.bool or active.device != dev):
+        raise ValueError("active must be an (N,) bool tensor on the rays' "
+                         "device")
+    comps = [c.contiguous() for c in comps]
+    act = None if active is None else active.contiguous()
+    tabs = [h.swp_lo, h.swp_hi, h.childs, h.blocks, h.sup_inst, h.inst_inv,
+            h.sup_blas, h.root]
+    if not all(t.is_contiguous() for t in tabs):
+        raise ValueError("hierarchy tables must be contiguous")
+    args = [*_ptrs(comps), None if act is None else act.data_ptr(), n,
+            h.swp_lo.data_ptr(), h.swp_hi.data_ptr(), h.swp_lo.shape[1],
+            h.n_supers, *_ptrs(tabs[2:]), int(h.instanced), int(h.indirect)]
+    # keep the contiguous copies alive until the launch is queued
+    return args, (comps, act), n, dev
+
+
+def _device(o):
+    if o.x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {o.x.device}")
+    return o.x.device.type
+
+
+def hier_closest(h: Hierarchy, o, d, tmin, tmax, active=None):
+    """Closest hit of SoA rays over the hierarchy -> (t, u, v, prim, inst,
+    found) as in :class:`.hierarchy.HierHits`."""
+    if _device(o) == "cpu":
+        return intersect_hierarchy_plain(h, o, d, tmin, tmax,
+                                         active=active)[0]
+    args, keep, n, dev = _kernel_args(h, o, d, tmin, tmax, active)
+    lib = LIBRARY.load()
+    t = torch.empty(n, dtype=Float, device=dev)
+    u = torch.empty(n, dtype=Float, device=dev)
+    v = torch.empty(n, dtype=Float, device=dev)
+    prim = torch.empty(n, dtype=Int, device=dev)
+    inst = torch.empty(n, dtype=Int, device=dev)
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.hier_closest(*args, *_ptrs((t, u, v, prim, inst,
+                                                  found)), stream)
+        _check(err, "hier_closest")
+        hier_closest.launches += 1
+    return t, u, v, prim, inst, found
+
+
+def hier_anyhit(h: Hierarchy, o, d, tmin, tmax, active=None):
+    """Does anything block each ray within (tmin, tmax)?  (N,) bool."""
+    if _device(o) == "cpu":
+        return intersect_hierarchy_plain(h, o, d, tmin, tmax, any_hit=True,
+                                         active=active)[0].found
+    args, keep, n, dev = _kernel_args(h, o, d, tmin, tmax, active)
+    lib = LIBRARY.load()
+    blocked = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.hier_anyhit(*args, blocked.data_ptr(), stream)
+        _check(err, "hier_anyhit")
+        hier_anyhit.launches += 1
+    return blocked
+
+
+hier_closest.launches = 0
+hier_anyhit.launches = 0
+
+
+def reset_launch_counts():
+    hier_closest.launches = 0
+    hier_anyhit.launches = 0

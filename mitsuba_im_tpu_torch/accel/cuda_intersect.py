@@ -22,80 +22,35 @@ kernel, or the wrapper raises.  Each wrapper counts its kernel launches in
 a plain integer attribute (``closest_tris_v.launches``).
 
 The library is built at first use with ``nvcc`` (sm_90a, -O3, -fmad=false)
-into ``build/mitsuba_im_tpu_torch/`` at the repository root, keyed by a
-hash of the source and flags, and loaded with ``ctypes``.
+by :mod:`.shared_lib` and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from ..core.types import Float, Int
+from .shared_lib import SharedLibrary, nvcc
 
 MAX_TRIS = 512
 BIG = 3.0e37
 _CHUNK_ELEMS = 1 << 22  # rays x tris per plain-version chunk (~16 MB/temp)
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tri_intersect.cu"
-BUILD_DIR = _PKG.parent / "build" / "mitsuba_im_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
-build_log = ""  # nvcc's output (ptxas register / shared memory report)
-build_seconds = 0.0
 
-
-def _nvcc() -> str:
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    path = str(cand) if cand.exists() else shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (/usr/local/cuda/bin/nvcc)")
-    return path
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libtri_intersect_{h.hexdigest()[:16]}.so"
-
-
-def load_library():
-    """Build (if the source hash is new) and load the kernel library."""
-    global _lib, build_log, build_seconds
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tri_closest.argtypes = [p] * 11 + [i, i] + [p] * 5 + [p]
     lib.tri_closest.restype = i
     lib.tri_anyhit.argtypes = [p] * 11 + [i, i] + [p] + [p]
     lib.tri_anyhit.restype = i
-    _lib = lib
-    return lib
+
+
+LIBRARY = SharedLibrary("tri_intersect.cu", nvcc, NVCC_FLAGS, _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +189,7 @@ def closest_tris_v(p0, e1, e2, o, d, tmin, tmax):
     if o.x.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.x.device}")
     comps, tris, n, T, dev = _kernel_inputs(p0, e1, e2, o, d, tmin, tmax)
-    lib = load_library()
+    lib = LIBRARY.load()
     t = torch.empty(n, dtype=Float, device=dev)
     u = torch.empty(n, dtype=Float, device=dev)
     v = torch.empty(n, dtype=Float, device=dev)
@@ -258,7 +213,7 @@ def anyhit_tris_v(p0, e1, e2, o, d, tmin, tmax):
     if o.x.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.x.device}")
     comps, tris, n, T, dev = _kernel_inputs(p0, e1, e2, o, d, tmin, tmax)
-    lib = load_library()
+    lib = LIBRARY.load()
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return blocked

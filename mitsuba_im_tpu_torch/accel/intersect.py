@@ -1,13 +1,20 @@
 """Ray-scene intersection over component-SoA rays
-(``mitsuba_im_tpu/accel/intersect.py``), brute-force branch.
+(``mitsuba_im_tpu/accel/intersect.py``).
 
-Triangles go through :mod:`.cuda_intersect` (the CUDA kernels on the card,
-their plain versions on the CPU); analytic spheres and disks are tested in
-plain torch, one table row at a time at full lane width, and merged with
-the triangle hit exactly as the reference does (:381-518).  Intersection
-inputs are detached: visibility is not differentiated (the reference's
-``stop_gradient``, :457).  Scenes above ``BRUTE_FORCE_MAX`` triangles need
-the two-level hierarchy, which is not ported yet.
+Triangles of scenes up to ``BRUTE_FORCE_MAX`` go through the brute-force
+queries of :mod:`.cuda_intersect`; larger scenes (and instanced tables)
+through their two-level hierarchy, :mod:`.cuda_hierarchy`.  Either runs its
+CUDA kernel on the card and its plain version on the CPU.  Analytic spheres
+and disks are tested in plain torch, one table row at a time at full lane
+width, and merged with the triangle hit exactly as the reference does
+(``intersect`` :336-374, ``intersect_v`` :462-493, ``occluded`` :525-542).
+Intersection inputs are detached: visibility is not differentiated (the
+reference's ``stop_gradient``, :457).
+
+``active`` masks lanes off on the hierarchy path (they report no triangle
+hit), as in the reference; brute force tests every lane.  ``coherent``
+only chose the reference's full-width prologue for camera rays, a TPU
+scheduling choice that does not change results, so it has no effect here.
 """
 from __future__ import annotations
 
@@ -17,17 +24,23 @@ from ..core.types import Float, Int, INVALID
 from ..core.v3 import V3
 from ..scene.geometry import (Geometry, Hit, KIND_NONE, KIND_TRI,
                               KIND_SPHERE, KIND_DISK)
+from . import cuda_hierarchy as ch
 from . import cuda_intersect as ci
+from .hierarchy import Hierarchy
 
 BRUTE_FORCE_MAX = 512  # tris; above this the reference uses its hierarchy
 BIG = 3.0e37
 
 
-def _check_small(geom: Geometry):
+def _use_hierarchy(geom: Geometry, clusters: Hierarchy | None) -> bool:
+    if clusters is not None and (geom.n_tris > BRUTE_FORCE_MAX
+                                 or clusters.indirect):
+        return True
     if geom.n_tris > BRUTE_FORCE_MAX:
-        raise NotImplementedError(
-            f"{geom.n_tris} triangles: scenes above {BRUTE_FORCE_MAX} need "
-            "the two-level hierarchy traversal, which is not ported yet")
+        raise ValueError(
+            f"{geom.n_tris} triangles: scenes above {BRUTE_FORCE_MAX} are "
+            "traversed through their two-level hierarchy, and none was given")
+    return False
 
 
 def _detach(w: V3) -> V3:
@@ -84,13 +97,16 @@ def _disk_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
 
 
 def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
-                active=None, coherent=False) -> Hit:
-    """Closest hit over SoA rays.  ``active`` and ``coherent`` steer the
-    reference's hierarchy path only; brute force tests every lane."""
-    _check_small(geom)
+                clusters: Hierarchy | None = None, active=None,
+                coherent=False) -> Hit:
+    """Closest hit over SoA rays (``coherent``: see the module note)."""
     o, d = _detach(o), _detach(d)
-    tbest, tu, tv, ti, tvalid = ci.closest_tris_v(
-        geom.tri_p0, geom.tri_e1, geom.tri_e2, o, d, tmin, tmax)
+    if _use_hierarchy(geom, clusters):
+        tbest, tu, tv, ti, _, tvalid = ch.hier_closest(
+            clusters, o, d, tmin, tmax, active=active)
+    else:
+        tbest, tu, tv, ti, tvalid = ci.closest_tris_v(
+            geom.tri_p0, geom.tri_e1, geom.tri_e2, o, d, tmin, tmax)
     si, sbest, _ = _sphere_best_v(geom, o, d, tmin, tmax)
     di, dbest, _ = _disk_best_v(geom, o, d, tmin, tmax)
 
@@ -122,12 +138,15 @@ def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
 
 
 def occluded_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
+               clusters: Hierarchy | None = None,
                active=None) -> torch.Tensor:
     """Any-hit (shadow ray) query over SoA rays -> (N,) bool."""
-    _check_small(geom)
     o, d = _detach(o), _detach(d)
-    blocked = ci.anyhit_tris_v(geom.tri_p0, geom.tri_e1, geom.tri_e2,
-                               o, d, tmin, tmax)
+    if _use_hierarchy(geom, clusters):
+        blocked = ch.hier_anyhit(clusters, o, d, tmin, tmax, active=active)
+    else:
+        blocked = ci.anyhit_tris_v(geom.tri_p0, geom.tri_e1, geom.tri_e2,
+                                   o, d, tmin, tmax)
     if geom.n_spheres:
         blocked = blocked | _sphere_best_v(geom, o, d, tmin, tmax)[2]
     if geom.n_disks:

@@ -1,5 +1,6 @@
 """BSDF parameter tables and per-lane resolution
-(``mitsuba_im_tpu/bsdf/common.py``), for untextured records.
+(``mitsuba_im_tpu/bsdf/common.py``), for untextured records, and the
+record factories of the ported types (``mitsuba_im_tpu/bsdf/__init__.py``).
 
 Each scene BSDF is one row of typed parameters; lanes gather their row into
 a :class:`LaneParams3`.  Texture references, MASK/BLEND unwrapping and bump
@@ -15,6 +16,8 @@ import torch
 from ..core.types import INVALID, host_tensor
 from ..core import v3 as v
 from ..core.v3 import V3
+from .ior import lookup_conductor
+from .microfacet import DIST_BECKMANN, DIST_GGX, DIST_PHONG
 
 # Type codes (one per reference bsdf plugin)
 DIFFUSE = 0
@@ -38,8 +41,10 @@ HK = 17
 IRAWAN = 18
 
 BUMP_NONE = 0
-DIST_BECKMANN = 0  # mitsuba_im_tpu/bsdf/microfacet.py
 FLAG_TWOSIDED = 1
+
+_DISTS = {"beckmann": DIST_BECKMANN, "ggx": DIST_GGX, "phong": DIST_PHONG,
+          "as": DIST_BECKMANN}
 
 TEXTURE_COLUMNS = ("refl_tex", "spec_tex", "trans_tex", "alpha_tex",
                    "opacity_tex", "weight_tex", "bump_tex")
@@ -48,10 +53,17 @@ TEXTURE_COLUMNS = ("refl_tex", "spec_tex", "trans_tex", "alpha_tex",
 @dataclasses.dataclass(frozen=True)
 class BSDFTable:
     """The columns the ported BSDFs read; the reference's other columns
-    (specular, IOR, roughness, wrapper links) join with their BSDFs."""
+    (transmittance, dielectric IOR, exponents, wrapper links) join with
+    their BSDFs."""
 
     type: torch.Tensor  # (B,) int32
+    dist: torch.Tensor  # (B,) int32 microfacet distribution
     refl: torch.Tensor  # (B, 3) diffuse reflectance
+    spec: torch.Tensor  # (B, 3) specular reflectance
+    eta: torch.Tensor  # (B, 3) conductor ior (rgb)
+    k: torch.Tensor  # (B, 3) conductor absorption
+    alpha_u: torch.Tensor  # (B,) roughness
+    alpha_v: torch.Tensor  # (B,)
     flags: torch.Tensor  # (B,) int32 (twosided)
     used_types: tuple = (DIFFUSE,)
     unwrap_depth: int = 0  # MASK/BLEND nesting budget
@@ -59,7 +71,9 @@ class BSDFTable:
     textured: bool = False  # some texture column != INVALID
 
 
-BSDF_LEAVES = ("type", "refl", "flags")
+BSDF_LEAVES = ("type", "dist", "refl", "spec", "eta", "k", "alpha_u",
+               "alpha_v", "flags")
+_INT_LEAVES = ("type", "dist", "flags")
 
 
 def default_record() -> dict:
@@ -78,12 +92,34 @@ def default_record() -> dict:
     )
 
 
+def conductor_record(material: str = "Cu", ext_eta: float = 1.000277,
+                     rough: bool = False, alpha: float = 0.1,
+                     alpha_u: float | None = None,
+                     alpha_v: float | None = None,
+                     distribution: str = "beckmann") -> dict:
+    """A ``conductor`` / ``roughconductor`` record, as the reference's
+    plugin factory builds it from its properties (defaults included): eta
+    and k of the named material divided by the exterior IOR, unit
+    specular reflectance."""
+    rec = default_record()
+    rec["type"] = ROUGHCONDUCTOR if rough else CONDUCTOR
+    eta, k = lookup_conductor(material)
+    rec["eta"] = eta / ext_eta
+    rec["k"] = k / ext_eta
+    rec["spec"] = np.ones(3)
+    if rough:
+        rec["alpha_u"] = alpha if alpha_u is None else alpha_u
+        rec["alpha_v"] = alpha if alpha_v is None else alpha_v
+        rec["dist"] = _DISTS.get(distribution, DIST_BECKMANN)
+    return rec
+
+
 def table_from_arrays(arrays: dict, used_types, unwrap_depth: int,
-                      has_bump: bool, device="cpu") -> BSDFTable:
+                      has_bump: bool, device) -> BSDFTable:
     """A BSDFTable from numpy columns (from ``scene/build.py`` or the bridge);
     ``arrays`` also carries the TEXTURE_COLUMNS."""
-    cols = {k: host_tensor(arrays[k], np.float32 if k == "refl" else np.int32,
-                           device) for k in BSDF_LEAVES}
+    cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
+                           else np.float32, device) for k in BSDF_LEAVES}
     textured = any(bool((np.asarray(arrays[k]) != INVALID).any())
                    for k in TEXTURE_COLUMNS)
     return BSDFTable(**cols, used_types=tuple(used_types),
@@ -91,7 +127,7 @@ def table_from_arrays(arrays: dict, used_types, unwrap_depth: int,
                      textured=textured)
 
 
-def build_table(records: list[dict], device="cpu") -> BSDFTable:
+def build_table(records: list[dict], device) -> BSDFTable:
     recs = records or [default_record()]
     types = {int(r["type"]) for r in recs}
     if BLEND in types:
@@ -114,18 +150,30 @@ class LaneParams3:
     scalars flat (N,)."""
 
     type: torch.Tensor
+    dist: torch.Tensor
     refl: V3
+    spec: V3
+    eta: V3
+    k: V3
+    alpha_u: torch.Tensor
+    alpha_v: torch.Tensor
     flags: torch.Tensor
     used_types: tuple = (DIFFUSE,)
 
 
 def resolve_v(table: BSDFTable, bsdf_id: torch.Tensor) -> LaneParams3:
     """Gather each lane's parameter row (no texture or wrapper support, so
-    the reference's mask opacity is 1 and its uv lookups drop out)."""
+    the reference's mask opacity is 1 and its uv lookups drop out).
+    Roughness is clamped to at least 1e-4, as the reference does."""
     if table.textured or table.unwrap_depth > 0:
         raise NotImplementedError(
             "textured BSDF parameters and MASK/BLEND wrappers are not "
             "ported yet")
     bid = torch.where(bsdf_id == INVALID, 0, bsdf_id)
-    return LaneParams3(type=table.type[bid], refl=v.gather_v3(table.refl, bid),
-                       flags=table.flags[bid], used_types=table.used_types)
+    return LaneParams3(
+        type=table.type[bid], dist=table.dist[bid],
+        refl=v.gather_v3(table.refl, bid), spec=v.gather_v3(table.spec, bid),
+        eta=v.gather_v3(table.eta, bid), k=v.gather_v3(table.k, bid),
+        alpha_u=torch.clamp_min(table.alpha_u[bid], 1e-4),
+        alpha_v=torch.clamp_min(table.alpha_v[bid], 1e-4),
+        flags=table.flags[bid], used_types=table.used_types)

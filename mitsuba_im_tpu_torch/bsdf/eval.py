@@ -1,10 +1,10 @@
 """BSDF evaluate / pdf / sample with static type dispatch
-(``mitsuba_im_tpu/bsdf/eval.py``): the DIFFUSE family.
+(``mitsuba_im_tpu/bsdf/eval.py``): DIFFUSE and ROUGHCONDUCTOR.
 
 Conventions as in the reference: directions live in the local shading frame
 (+z = shading normal), ``wi`` points toward the previous vertex, ``eval``
-returns f * |cos_theta_o| and ``sample`` the weight f*cos/pdf.  Every type
-in ``used_types`` other than DIFFUSE raises ``NotImplementedError``.
+returns f * |cos_theta_o| and ``sample`` the weight f*cos/pdf.  Every other
+type in ``used_types`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,8 +14,12 @@ import torch
 
 from ..core.types import Float
 from ..core import v3 as v
-from ..core.v3 import V3, INV_PI
-from .common import LaneParams3, DIFFUSE, FLAG_TWOSIDED
+from ..core.v3 import V3, INV_PI, safe_div
+from . import microfacet as mf
+from .common import LaneParams3, DIFFUSE, ROUGHCONDUCTOR, FLAG_TWOSIDED
+from .fresnel import fresnel_conductor_v
+
+PORTED = (DIFFUSE, ROUGHCONDUCTOR)
 
 
 class BSDFSample3(NamedTuple):
@@ -29,9 +33,9 @@ class BSDFSample3(NamedTuple):
 
 def _check_types(p: LaneParams3):
     for t in p.used_types:
-        if t != DIFFUSE:
+        if t not in PORTED:
             raise NotImplementedError(
-                f"BSDF type {t}: only DIFFUSE is ported")
+                f"BSDF type {t}: only DIFFUSE and ROUGHCONDUCTOR are ported")
 
 
 def _m3(ok, val: V3) -> V3:
@@ -62,13 +66,40 @@ def _pdf_diffuse(p, wi, wo):
     return torch.where(ok, v.square_to_cosine_hemisphere_pdf(wo), 0.0)
 
 
+def _eval_roughconductor(p, wi, wo):
+    """src/bsdfs/roughconductor.cpp: D*G*F/(4 cos_i) (already x cos_o)."""
+    ci, co = wi.z, wo.z
+    ok = (ci > 0) & (co > 0)
+    h = (wi + wo).normalized()
+    D = mf.ndf_v(p.dist, h, p.alpha_u, p.alpha_v)
+    G = mf.smith_g2_v(p.dist, wi, wo, h, p.alpha_u, p.alpha_v)
+    F = fresnel_conductor_v(wi.dot(h), p.eta, p.k)
+    val = p.spec * F * (D * G / torch.clamp_min(4.0 * ci, 1e-8))
+    return _m3(ok & (D > 0), val)
+
+
+def _pdf_roughconductor(p, wi, wo):
+    ci, co = wi.z, wo.z
+    ok = (ci > 0) & (co > 0)
+    h = (wi + wo).normalized()
+    pm = mf.pdf_visible_v(p.dist, wi, h, p.alpha_u, p.alpha_v)
+    return torch.where(
+        ok, pm / torch.clamp_min(4.0 * torch.abs(wo.dot(h)), 1e-8), 0.0)
+
+
+_EVAL = {
+    DIFFUSE: (_eval_diffuse, _pdf_diffuse),
+    ROUGHCONDUCTOR: (_eval_roughconductor, _pdf_roughconductor),
+}
+
+
 def bsdf_eval_v(p: LaneParams3, wi: V3, wo: V3) -> V3:
     """f(wi, wo) * |cos_theta_o| over smooth components."""
     _check_types(p)
     wi, wo, _ = _maybe_flip(p, wi, wo)
     out = v.zeros(p.type.shape, p.type.device)
     for t in p.used_types:
-        out = v.where(p.type == t, _eval_diffuse(p, wi, wo), out)
+        out = v.where(p.type == t, _EVAL[t][0](p, wi, wo), out)
     return out
 
 
@@ -78,12 +109,24 @@ def bsdf_pdf_v(p: LaneParams3, wi: V3, wo: V3) -> torch.Tensor:
     wi, wo, _ = _maybe_flip(p, wi, wo)
     out = torch.zeros(p.type.shape, dtype=Float, device=p.type.device)
     for t in p.used_types:
-        out = torch.where(p.type == t, _pdf_diffuse(p, wi, wo), out)
+        out = torch.where(p.type == t, _EVAL[t][1](p, wi, wo), out)
     return out
 
 
+def _sample_roughconductor(p, wi, u2a, u2b):
+    """Visible-normal sample, weight = eval/pdf (the reference's
+    ``_sample_smooth_family`` branch of this type)."""
+    h, _ = mf.sample_visible_v(p.dist, wi, p.alpha_u, p.alpha_v, u2a, u2b)
+    wo = v.reflect_n(wi, h).normalized()
+    ev = _eval_roughconductor(p, wi, wo)
+    pdf = _pdf_roughconductor(p, wi, wo)
+    w = ev * safe_div(1.0, pdf)
+    return wo, _m3(pdf > 1e-12, w), torch.clamp_min(pdf, 1e-20)
+
+
 def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b) -> BSDFSample3:
-    """Importance-sample the BSDF: (u2a, u2b) drive the cosine warp."""
+    """Importance-sample the BSDF: (u2a, u2b) drive the directional warp
+    (``u_lobe`` picks lobes in the reference; the ported types have one)."""
     _check_types(p)
     wi_f, flip = _maybe_flip(p, wi)
     shape, dev = p.type.shape, p.type.device
@@ -97,9 +140,12 @@ def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b) -> BSDFSample3:
 
     for t in p.used_types:
         sel = p.type == t
-        wo_t = v.square_to_cosine_hemisphere(u2a, u2b)
-        pdf_t = v.square_to_cosine_hemisphere_pdf(wo_t)
-        w_t = _m3(wi_f.z > 0, p.refl)
+        if t == DIFFUSE:
+            wo_t = v.square_to_cosine_hemisphere(u2a, u2b)
+            pdf_t = v.square_to_cosine_hemisphere_pdf(wo_t)
+            w_t = _m3(wi_f.z > 0, p.refl)
+        else:
+            wo_t, w_t, pdf_t = _sample_roughconductor(p, wi_f, u2a, u2b)
         wo = v.where(sel, wo_t, wo)
         weight = v.where(sel, w_t, weight)
         pdf = torch.where(sel, pdf_t, pdf)

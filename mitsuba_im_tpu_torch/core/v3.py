@@ -136,6 +136,24 @@ def safe_div(a, b, fallback=0.0):
     return torch.where(zero, fallback, a / torch.where(zero, 1.0, b))
 
 
+# Local-frame trig (z = cos_theta)
+def sin_theta2(v: V3) -> torch.Tensor:
+    return torch.clamp_min(1.0 - v.z * v.z, 0.0)
+
+
+def tan_theta2(v: V3) -> torch.Tensor:
+    return safe_div(sin_theta2(v), v.z * v.z, fallback=math.inf)
+
+
+def reflect(wi: V3) -> V3:
+    """Mirror reflection about local +z."""
+    return V3(-wi.x, -wi.y, wi.z)
+
+
+def reflect_n(wi: V3, n: V3) -> V3:
+    return n * (2.0 * wi.dot(n)) - wi
+
+
 def spherical_coordinates(d: V3) -> tuple[torch.Tensor, torch.Tensor]:
     theta = torch.arccos(torch.clamp(d.z, -1.0, 1.0))
     phi = torch.atan2(d.y, d.x)
@@ -174,6 +192,13 @@ def square_to_cosine_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> V3:
 
 def square_to_cosine_hemisphere_pdf(d: V3) -> torch.Tensor:
     return torch.clamp_min(d.z, 0.0) * INV_PI
+
+
+def square_to_uniform_sphere(u1: torch.Tensor, u2: torch.Tensor) -> V3:
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * PI * u2
+    return V3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 def square_to_uniform_triangle(u1: torch.Tensor, u2: torch.Tensor):

@@ -1,14 +1,18 @@
 """Emitter tables and next-event-estimation sampling
-(``mitsuba_im_tpu/emitter/table.py``): area emitters on triangle meshes.
+(``mitsuba_im_tpu/emitter/table.py``): area emitters on triangle meshes and
+the constant environment emitter.
 
 Emitter selection follows the reference's Distribution1D (uniform weights
 by default); an area emitter samples a point uniformly by area through its
-triangle CDF and converts to solid angle.  Other emitter types, analytic
-area emitters and environment emitters are not ported yet and raise.
+triangle CDF and converts to solid angle; the constant environment samples
+the uniform sphere and places its point ``2 r + 1`` away (r: the scene's
+bounding-sphere radius).  Point, spot, directional, collimated and envmap
+emitters and analytic area emitters are not ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -31,26 +35,34 @@ AK_TRIMESH = 0
 AK_SPHERE = 1
 AK_DISK = 2
 
+INV_FOURPI = 1.0 / (4.0 * math.pi)
+PORTED = (EM_AREA, EM_CONSTANT)
 
 
 @dataclasses.dataclass(frozen=True)
 class EmitterTable:
-    """The columns triangle-mesh area emitters read (every row is one: see
-    :func:`table_from_arrays`); the reference's type, point/spot/
-    directional/environment and analytic-shape columns join with those
-    emitters."""
+    """The columns that triangle-mesh area emitters and the constant
+    environment read; the reference's point/spot/directional/envmap and
+    analytic-shape columns join with those emitters."""
 
-    radiance: torch.Tensor  # (E, 3)
+    type: torch.Tensor  # (E,) int32 EM_*
+    radiance: torch.Tensor  # (E, 3) area / constant radiance
     total_area: torch.Tensor  # (E,)
     tri_cdf: torch.Tensor  # (E, Tm+1) per-emitter triangle area CDF
     tri_idx: torch.Tensor  # (E, Tm) global triangle ids
     select_pmf: torch.Tensor  # (E,) emitter selection (Distribution1D)
     select_cdf: torch.Tensor  # (E+1,)
+    bsphere_center: torch.Tensor  # (3,) scene bounding sphere
+    bsphere_radius: torch.Tensor  # ()
+    env_index: int = -1  # the environment emitter's row, or -1
     n_emitters: int = 0
+    used_types: tuple = ()
 
 
-EMITTER_LEAVES = ("radiance", "total_area", "tri_cdf", "tri_idx",
-                  "select_pmf", "select_cdf")
+EMITTER_LEAVES = ("type", "radiance", "total_area", "tri_cdf", "tri_idx",
+                  "select_pmf", "select_cdf", "bsphere_center",
+                  "bsphere_radius")
+_INT_LEAVES = ("type", "tri_idx")
 
 
 class DirectSample3(NamedTuple):
@@ -64,26 +76,30 @@ class DirectSample3(NamedTuple):
 
 
 def table_from_arrays(arrays: dict, n_emitters: int, used_types,
-                      used_area_kinds, device="cpu") -> EmitterTable:
+                      used_area_kinds, env_index: int,
+                      device) -> EmitterTable:
     """An EmitterTable from numpy columns (used by ``scene/build.py`` and the
     bridge).  Raises for what the port cannot evaluate yet."""
-    if n_emitters and (set(used_types) != {EM_AREA}
-                       or set(used_area_kinds) != {AK_TRIMESH}):
+    if n_emitters and (not set(used_types) <= set(PORTED)
+                       or not set(used_area_kinds) <= {AK_TRIMESH}):
         raise NotImplementedError(
             f"emitter types {tuple(used_types)}, area kinds "
             f"{tuple(used_area_kinds)}: only triangle-mesh area emitters "
-            "are ported")
-    cols = {k: host_tensor(arrays[k], np.int32 if k == "tri_idx"
+            "and the constant environment are ported")
+    cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                            else np.float32, device)
             for k in EMITTER_LEAVES}
-    return EmitterTable(**cols, n_emitters=int(n_emitters))
+    return EmitterTable(**cols, env_index=int(env_index),
+                        n_emitters=int(n_emitters),
+                        used_types=tuple(used_types))
 
 
-def build_emitters(records: list[dict], geom_host: dict,
-                   device="cpu") -> EmitterTable:
+def build_emitters(records: list[dict], geom_host: dict, bsphere,
+                   device) -> EmitterTable:
     """records: per-emitter host dicts; geom_host holds the numpy triangle
-    arrays (e1/e2/shape) for the area CDFs.  Same arithmetic as the
-    reference's ``build_emitters``, so the tables agree bit for bit."""
+    arrays (e1/e2/shape) for the area CDFs; bsphere is the scene's
+    (center, radius).  Same arithmetic as the reference's
+    ``build_emitters``, so the tables agree bit for bit."""
     E = max(len(records), 1)
     recs = records or [dict(type=EM_POINT, intensity=np.zeros(3),
                             position=np.zeros(3))]
@@ -122,6 +138,12 @@ def build_emitters(records: list[dict], geom_host: dict,
             else:
                 total_area[i] = r.get("surface_area", 1.0)
 
+    env_index = -1
+    for i, r in enumerate(recs):
+        if r.get("type") == EM_ENVMAP or (r.get("type") == EM_CONSTANT
+                                           and env_index < 0):
+            env_index = i
+
     # Distribution1D.from_weights, in float32 as the reference computes it
     w = torch.tensor([r.get("weight", 1.0) for r in recs], dtype=Float)
     total = w.sum()
@@ -129,33 +151,49 @@ def build_emitters(records: list[dict], geom_host: dict,
     cdf = torch.cat([torch.zeros(1, dtype=Float), torch.cumsum(pmf, 0)])
     cdf[-1] = 1.0
 
+    center, radius = bsphere
     arrays = dict(
+        type=np.array([r.get("type", EM_POINT) for r in recs]),
         radiance=np.stack([np.asarray(r.get("radiance", np.zeros(3)),
                                       np.float64) for r in recs]),
         total_area=total_area, tri_cdf=tri_cdf, tri_idx=tri_idx,
         select_pmf=pmf.numpy(), select_cdf=cdf.numpy(),
+        bsphere_center=np.asarray(center), bsphere_radius=np.asarray(radius),
     )
     return table_from_arrays(
         arrays, len(records),
         sorted({int(r["type"]) for r in recs}),
         sorted({int(r.get("area_kind", AK_TRIMESH))
                 for r in recs if r.get("type") == EM_AREA}),
-        device)
+        env_index, device)
 
 
 # ---------------------------------------------------------------------------
-# environment: a table holds none (table_from_arrays rejects them), so
-# escaped rays see zero radiance and zero pdf, as in the reference without
-# an environment emitter
+# environment (the constant emitter; envmaps are refused where a table is
+# built)
 # ---------------------------------------------------------------------------
 
 def eval_environment_v(em: EmitterTable, d_world: V3) -> V3:
     """Radiance of escaped rays (``scene.h`` evalEnvironment)."""
-    return v.zeros(d_world.x.shape, d_world.x.device)
+    shape, dev = d_world.x.shape, d_world.x.device
+    if em.env_index < 0 or em.n_emitters == 0:
+        return v.zeros(shape, dev)
+    rad = em.radiance[em.env_index]
+    return V3(*(c.expand(shape) for c in rad))
+
+
+def env_pdf_sa_v(em: EmitterTable, d_world: V3) -> torch.Tensor:
+    """Solid-angle pdf of sample_direct drawing d toward the environment."""
+    if em.env_index < 0:
+        return torch.zeros_like(d_world.x)
+    return torch.full_like(d_world.x, INV_FOURPI)
 
 
 def pdf_direct_env_v(em: EmitterTable, d_world: V3) -> torch.Tensor:
-    return torch.zeros_like(d_world.x)
+    """Selection-weighted solid-angle pdf of environment directions."""
+    if em.env_index < 0:
+        return torch.zeros_like(d_world.x)
+    return env_pdf_sa_v(em, d_world) * em.select_pmf[em.env_index]
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +212,8 @@ def pdf_direct_area_v(em: EmitterTable, emitter_id, ref_p: V3, p_emit: V3,
     cos_e = n_emit.dot(-du)
     pdf_sa = (1.0 / torch.clamp_min(em.total_area[eid], 1e-12)) * r2 \
         / torch.clamp_min(cos_e, 1e-8)
-    valid = (emitter_id != INVALID) & (cos_e > 1e-6)
+    valid = ((emitter_id != INVALID) & (em.type[eid] == EM_AREA)
+             & (cos_e > 1e-6))
     return torch.where(valid, pdf_sa * em.select_pmf[eid], 0.0)
 
 
@@ -186,7 +225,7 @@ def emitted_radiance_v(em: EmitterTable, shape_emitter_id, n_surf: V3,
     eid = torch.where(shape_emitter_id == INVALID, 0, shape_emitter_id)
     rad = v.gather_v3(em.radiance, eid)
     front = n_surf.dot(wo_world) > 0
-    valid = (shape_emitter_id != INVALID) & front
+    valid = (shape_emitter_id != INVALID) & (em.type[eid] == EM_AREA) & front
     return V3(torch.where(valid, rad.x, 0.0), torch.where(valid, rad.y, 0.0),
               torch.where(valid, rad.z, 0.0))
 
@@ -242,16 +281,37 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
         eid = eid.clamp(0, E - 1).to(Int)
         sel_pmf = em.select_pmf[eid]
 
-    p_s, n_s, pos_pdf_a = _sample_area_position_v(
-        em, geom, eid, u2a, u2b, em.total_area[eid])
-    dvec = p_s - ref_p
-    r2 = torch.clamp_min(dvec.dot(dvec), 1e-12)
-    r = torch.sqrt(r2)
-    du = dvec * (1.0 / r)
-    cos_emit = n_s.dot(-du)
-    front = cos_emit > 1e-6
-    pdf_sa = pos_pdf_a * r2 / torch.clamp_min(cos_emit, 1e-8)
-    value = v.where(front, v.gather_v3(em.radiance, eid), v.zeros(shape, dev))
-    pdf = torch.where(front, pdf_sa, 0.0)
-    return DirectSample3(d=du, dist=r, value=value, pdf=pdf * sel_pmf,
-                         delta=no, n=n_s, emitter=eid)
+    etype = em.type[eid]
+    d, value, n_out = v.zeros(shape, dev), v.zeros(shape, dev), v.zeros(
+        shape, dev)
+    dist = torch.ones(shape, dtype=Float, device=dev)
+    pdf = z
+    for t in em.used_types:
+        sel = etype == t
+        if t == EM_AREA:
+            p_s, n_s, pos_pdf_a = _sample_area_position_v(
+                em, geom, eid, u2a, u2b, em.total_area[eid])
+            dvec = p_s - ref_p
+            r2 = torch.clamp_min(dvec.dot(dvec), 1e-12)
+            r = torch.sqrt(r2)
+            du = dvec * (1.0 / r)
+            cos_emit = n_s.dot(-du)
+            front = cos_emit > 1e-6
+            pdf_sa = pos_pdf_a * r2 / torch.clamp_min(cos_emit, 1e-8)
+            val = v.where(front, v.gather_v3(em.radiance, eid),
+                          v.zeros(shape, dev))
+            pdf_t = torch.where(front, pdf_sa, 0.0)
+            n_t = n_s
+        else:  # EM_CONSTANT
+            du = v.square_to_uniform_sphere(u2a, u2b)
+            r = (2.0 * em.bsphere_radius + 1.0).expand(shape)
+            val = v.gather_v3(em.radiance, eid)
+            pdf_t = torch.full(shape, INV_FOURPI, dtype=Float, device=dev)
+            n_t = -du
+        d = v.where(sel, du, d)
+        dist = torch.where(sel, r, dist)
+        value = v.where(sel, val, value)
+        pdf = torch.where(sel, pdf_t, pdf)
+        n_out = v.where(sel, n_t, n_out)
+    return DirectSample3(d=d, dist=dist, value=value, pdf=pdf * sel_pmf,
+                         delta=no, n=n_out, emitter=eid)

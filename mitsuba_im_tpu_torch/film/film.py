@@ -36,7 +36,7 @@ class Film:
 
 
 def make_film(width: int, height: int, ftype: int = F_BOX,
-              radius: float | None = None, device="cpu") -> Film:
+              radius: float | None = None, *, device) -> Film:
     if radius is None:
         radius = DEFAULT_RADIUS[ftype]
     if ftype != F_BOX or radius > 0.5:

@@ -2,10 +2,12 @@
 torch on a given device.
 
 The subset the ported path needs: BSDF records, shapes, triangle meshes,
-area emitters and a sensor (analytic shapes, media, subsurface and
-instancing are not ported).  The host arithmetic (float64 numpy, then one
-cast to float32) is the reference's, so a scene built here has the same
-tables bit for bit as the same scene built by the JAX package.
+area and constant emitters, a sensor, and the two-level cluster hierarchy
+of scenes above ``BRUTE_FORCE_MAX`` triangles (analytic shapes, media,
+subsurface, motion and instancing are not ported).  The host arithmetic
+(float64 numpy, then one cast to float32) is the reference's, so a scene
+built here has the same tables bit for bit as the same scene built by the
+JAX package.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.types import INVALID
+from ..core.types import INVALID, entry_device
 from ..core.transform import Transform
+from ..accel.hierarchy import build_hierarchy
+from ..accel.intersect import BRUTE_FORCE_MAX
 from ..bsdf import common as bc
 from ..emitter import table as em
 from ..render.job import RenderSettings
@@ -73,17 +77,25 @@ class SceneBuilder:
         self.emitter_records.append(record)
         return len(self.emitter_records) - 1
 
-    def build(self, device="cpu") -> tuple[Scene, RenderSettings]:
+    def build(self, device="cuda") -> tuple[Scene, RenderSettings]:
+        """The Scene on ``device`` (the card unless the CPU is asked for)."""
+        device = entry_device(device)
         tri = None
         if self._tri["p0"]:
             tri = {k: np.concatenate(a, axis=0) for k, a in self._tri.items()}
         geom = make_geometry(tri, device=device)
+        clusters = None
+        if geom.n_tris > BRUTE_FORCE_MAX:
+            clusters = build_hierarchy(
+                *(np.asarray(tri[k], np.float32) for k in ("p0", "e1", "e2")),
+                device=device)
         emitters = em.build_emitters(self.emitter_records,
                                      tri if tri is not None else {},
-                                     device=device)
+                                     bounding_sphere(tri), device=device)
         sensor = self.sensor or make_sensor(
             S_PERSPECTIVE, Transform.look_at([0, 0, -5], [0, 0, 0], [0, 1, 0]),
-            aspect=self.settings.width / max(self.settings.height, 1))
+            aspect=self.settings.width / max(self.settings.height, 1),
+            device=device)
         sensor = dataclasses.replace(
             sensor, **{k: getattr(sensor, k).to(device) for k in SENSOR_LEAVES})
 
@@ -96,5 +108,19 @@ class SceneBuilder:
                                     device=device),
             shape_emitter=torch.tensor(self.shape_emitter or [INVALID],
                                        dtype=torch.int32, device=device),
+            clusters=clusters,
         )
         return scene, self.settings
+
+
+def bounding_sphere(tri: dict | None):
+    """(center, radius) of the scene's bounding sphere, for environment
+    emitters: the reference's host arithmetic (``scene/build.py:384-399``)
+    over the triangle corners (the port's builder adds no other shapes)."""
+    if tri is None:
+        return np.zeros(3), 1.0
+    allp = np.concatenate([tri["p0"], tri["p0"] + tri["e1"],
+                           tri["p0"] + tri["e2"]], axis=0)
+    c = 0.5 * (allp.min(0) + allp.max(0))
+    r = float(np.linalg.norm(allp - c, axis=1).max()) + 1e-3
+    return c, r

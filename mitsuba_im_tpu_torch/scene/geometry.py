@@ -95,7 +95,7 @@ def pack_shading_rows(e1, e2, n0, n1, n2, uv0, uv1, uv2) -> np.ndarray:
     return np.concatenate([e1, e2, n0, n1, n2, uv0, uv1, uv2, pad], axis=1)
 
 
-def make_geometry(tri_data: dict | None, device="cpu") -> Geometry:
+def make_geometry(tri_data: dict | None, device) -> Geometry:
     """Build a Geometry from a host numpy triangle dict (keys p0 e1 e2 n0
     n1 n2 uv0 uv1 uv2 shape).  Every kind is padded to one unhittable entry
     when empty, as in the reference; ``scene/build.py`` adds no spheres or

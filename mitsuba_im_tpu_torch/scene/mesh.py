@@ -17,3 +17,16 @@ class TriMesh:
     indices: np.ndarray  # (F, 3)
     normals: np.ndarray | None = None  # (V, 3)
     uvs: np.ndarray | None = None  # (V, 2)
+
+    def compute_normals(self) -> "TriMesh":
+        """Area-weighted smooth vertex normals (TriMesh::computeNormals),
+        accumulated in the reference's order."""
+        p = self.positions
+        i = self.indices
+        fn = np.cross(p[i[:, 1]] - p[i[:, 0]], p[i[:, 2]] - p[i[:, 0]])
+        n = np.zeros_like(p)
+        for k in range(3):
+            np.add.at(n, i[:, k], fn)
+        ln = np.linalg.norm(n, axis=1, keepdims=True)
+        self.normals = np.divide(n, ln, out=np.zeros_like(n), where=ln > 0)
+        return self

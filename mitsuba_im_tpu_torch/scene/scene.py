@@ -1,9 +1,10 @@
 """Compiled scene: every table the wavefront needs, as torch tensors on one
 device (``mitsuba_im_tpu/scene/scene.py``).
 
-Bump mapping, deformable motion, the large-scene hierarchy, participating
-media and subsurface scattering are not ported; a scene that needs them
-raises where it is built (:mod:`.bridge`) or used.
+Scenes above ``BRUTE_FORCE_MAX`` triangles carry their two-level cluster
+hierarchy (``clusters``).  Bump mapping, deformable motion, instancing,
+participating media and subsurface scattering are not ported; a scene that
+needs them raises where it is built (:mod:`.bridge`) or used.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..core.types import INVALID, EPSILON
 from ..accel import intersect as isect
+from ..accel.hierarchy import Hierarchy
 from ..bsdf.common import BSDFTable, LaneParams3, resolve_v
 from ..emitter.table import EmitterTable
 from ..sensor.table import Sensor
@@ -27,6 +29,7 @@ class Scene:
     sensor: Sensor
     shape_bsdf: torch.Tensor  # (S,) int32
     shape_emitter: torch.Tensor  # (S,) int32
+    clusters: Hierarchy | None = None  # large scenes only
 
     @property
     def device(self) -> torch.device:
@@ -35,11 +38,13 @@ class Scene:
     def ray_intersect_v(self, o, d, tmin=EPSILON, tmax=1e30, active=None,
                         coherent=False) -> Hit:
         """o, d: V3 of flat (N,) components."""
-        return isect.intersect_v(self.geom, o, d, tmin, tmax, active=active,
+        return isect.intersect_v(self.geom, o, d, tmin, tmax,
+                                 clusters=self.clusters, active=active,
                                  coherent=coherent)
 
     def occluded_v(self, o, d, tmin, tmax, active=None) -> torch.Tensor:
-        return isect.occluded_v(self.geom, o, d, tmin, tmax, active=active)
+        return isect.occluded_v(self.geom, o, d, tmin, tmax,
+                                clusters=self.clusters, active=active)
 
     def interaction_v(self, o, d, hit: Hit) -> Interaction3:
         if self.bsdfs.has_bump:

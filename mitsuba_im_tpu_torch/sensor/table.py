@@ -38,7 +38,7 @@ SENSOR_LEAVES = ("to_world", "tan_x", "tan_y")
 
 def make_sensor(stype: int, to_world: Transform, fov_deg: float = 45.0,
                 fov_axis: str = "x", aspect: float = 1.0,
-                device="cpu") -> Sensor:
+                *, device) -> Sensor:
     """aspect = width/height of the crop window."""
     t = np.tan(np.deg2rad(fov_deg) / 2.0)
     if fov_axis == "x":

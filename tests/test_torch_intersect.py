@@ -156,11 +156,13 @@ def test_intersect_and_occluded_v(which):
 
 
 def test_large_scene_raises():
+    """Above the brute-force bound a scene is traversed through its
+    hierarchy; a geometry that comes without one raises."""
     import dataclasses
 
     g = dataclasses.replace(bridged(jax_cornell()[0]).geom, n_tris=513)
     o = V3(*(torch.zeros(2) for _ in range(3)))
-    with pytest.raises(NotImplementedError, match="hierarchy"):
+    with pytest.raises(ValueError, match="hierarchy"):
         tisect.intersect_v(g, o, o, 1e-4, 1e30)
-    with pytest.raises(NotImplementedError, match="hierarchy"):
+    with pytest.raises(ValueError, match="hierarchy"):
         tisect.occluded_v(g, o, o, 1e-4, 1e30)

@@ -34,7 +34,7 @@ def test_box_splat_and_develop():
     active = rng.random(n) < 0.9
     jf = jfilm.splat(jfilm.make_film(W, H, jfilm.F_BOX), jnp.asarray(pos),
                      jnp.asarray(val), jnp.asarray(active))
-    tf = tfilm.splat(tfilm.make_film(W, H, tfilm.F_BOX),
+    tf = tfilm.splat(tfilm.make_film(W, H, tfilm.F_BOX, device="cpu"),
                      torch.from_numpy(pos[:, 0].copy()),
                      torch.from_numpy(pos[:, 1].copy()),
                      V3(*(torch.from_numpy(val[:, k].copy())
@@ -50,7 +50,7 @@ def test_render_film_parity_gate():
     packages' render_film."""
     jscene, jsettings = jax_cornell()
     ref = npy(jfilm.develop(jjob.render_film(jscene, jsettings, spp=2)))
-    tscene, tsettings = tiny_cornell()
+    tscene, tsettings = tiny_cornell("cpu")
     film = tjob.render_film(tscene, tsettings, spp=2)
     out = npy(tfilm.develop(film))
     assert out.shape == ref.shape == (32, 32, 3)
@@ -63,7 +63,7 @@ def test_render_film_parity_gate():
                                          ("sampler", "ldsampler"),
                                          ("rfilter", tfilm.F_GAUSSIAN)])
 def test_unported_render_options_raise(field, value):
-    scene, settings = tiny_cornell()
+    scene, settings = tiny_cornell("cpu")
     setattr(settings, field, value)
     with pytest.raises(NotImplementedError):
         tjob.render_film(scene, settings, spp=1)

@@ -44,7 +44,7 @@ def _leaves(scene):
 def test_bridge_leaves_bit_exact(which):
     jscene = jax_cornell()[0] if which == "cornell" else jax_shapes_scene()
     arrays, statics = export_tables(jscene)
-    tscene = scene_from_numpy(arrays, statics)
+    tscene = scene_from_numpy(arrays, statics, "cpu")
     leaves = {k: t for k, t in _leaves(tscene).items()
               if isinstance(t, torch.Tensor)}
     # the texture columns only decide ``textured``; every other exported
@@ -65,7 +65,7 @@ def test_bridge_leaves_bit_exact(which):
 
 def test_tiny_cornell_matches_bridged_reference():
     ref = _leaves(bridged(jax_cornell()[0]))
-    port = _leaves(tiny_cornell()[0])
+    port = _leaves(tiny_cornell("cpu")[0])
     assert ref.keys() == port.keys()
     for key, a in ref.items():
         b = port[key]
@@ -74,7 +74,7 @@ def test_tiny_cornell_matches_bridged_reference():
             assert torch.equal(a, b), key
         else:
             assert a == b, key
-    settings = tiny_cornell()[1]
+    settings = tiny_cornell("cpu")[1]
     ref_settings = jax_cornell()[1]
     for k in ("width", "height", "spp", "seed", "integrator",
               "integrator_props", "rfilter"):
@@ -121,7 +121,7 @@ def _lane_params(rng, n):
     ids = rng.integers(-1, len(recs), n).astype(np.int32)
     uv = rng.random((2, n), dtype=np.float32)
     jt = jbc.build_table(recs)
-    tt = tbc.build_table(recs)
+    tt = tbc.build_table(recs, "cpu")
     jp = jbc.resolve_v(jt, TextureBuilder().build(), jnp.asarray(ids),
                        *(jnp.asarray(a) for a in uv))
     tp = tbc.resolve_v(tt, torch.from_numpy(ids))
@@ -231,21 +231,22 @@ def test_area_emitters(which):
                                   "textured_bsdf", "other_bsdf_type"])
 def test_unported_features_raise(case):
     if case in ("env_emitter", "point_emitter"):
-        rec = (dict(type=tem.EM_CONSTANT, radiance=np.ones(3))
+        rec = (dict(type=tem.EM_ENVMAP, radiance=np.ones(3))
                if case == "env_emitter"
                else dict(type=tem.EM_POINT, intensity=np.ones(3)))
         with pytest.raises(NotImplementedError):
-            tem.build_emitters([rec], {})
+            tem.build_emitters([rec], {}, (np.zeros(3), 1.0), "cpu")
         return
     rec = tbc.default_record()
     if case == "textured_bsdf":
         rec["refl_tex"] = 0
-        table = tbc.build_table([rec])
+        table = tbc.build_table([rec], "cpu")
         with pytest.raises(NotImplementedError):
             tbc.resolve_v(table, torch.zeros(4, dtype=torch.int32))
         return
-    rec["type"] = tbc.ROUGHCONDUCTOR
-    p = tbc.resolve_v(tbc.build_table([rec]), torch.zeros(4, dtype=torch.int32))
+    rec["type"] = tbc.DIELECTRIC
+    p = tbc.resolve_v(tbc.build_table([rec], "cpu"),
+                      torch.zeros(4, dtype=torch.int32))
     w = tv3(np.tile([[0.0, 0.0, 1.0]], (4, 1)))
     with pytest.raises(NotImplementedError):
         tev.bsdf_eval_v(p, w, w)
