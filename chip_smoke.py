@@ -28,11 +28,17 @@ Phases, in order; any failure raises and the run exits non-zero:
    1,120,504-triangle large scene: the 768^2 camera rays of sample 0 and as
    many random rays from inside the scene's bounding sphere (closest hit),
    shadow rays from the camera hits toward the environment (any hit,
-   finite tmax), both again with half the lanes masked off, and a small
-   instanced hierarchy (3 instances of a random soup): found, prim, inst,
-   t, u, v and blocked must agree bit for bit.  Both kernels are timed at
-   768^2 (CUDA events, kernel and plain version in turns, median of 11),
-   and their bounds computed from the plain version's work counters;
+   finite tmax), both again with half the lanes masked off; a small
+   instanced hierarchy (3 instances of a random soup); 300 instances of a
+   64-triangle soup strung along one axis with rays along it (their first
+   sweep enters more supers than the kernel's per-ray list holds); 3000
+   instances of a 64-triangle soup (3000 supers, 94 runs of 32 for the
+   first sweep's culling boxes): found, prim, inst, t, u, v and blocked must agree bit
+   for bit.  Each case prints the kernel's sweep work (supers tested per
+   ray, list overflows).  Both kernels are timed at 768^2 (CUDA events,
+   kernel and plain version in turns, median of 11), and their bounds
+   computed from the plain version's work counters (and again over the
+   supers the kernel tests);
 7. the large-scene path: ``render_film`` on ``scenes.large_scene("cuda")``
    at 768^2, depth 3, 2 spp; 3 ``hier_closest`` and 2 ``hier_anyhit``
    launches per pass and no brute-force launch; the image finite,
@@ -367,6 +373,46 @@ def parity_phase(dev):
 # the large scene
 # ---------------------------------------------------------------------------
 
+def list_work(h, o, d, tmin, tmax, counts):
+    """The kernel's sweep work, from the plain version's sweep counters and
+    each ray's first sweep: (supers tested per ray, supers tested per ray
+    were every sweep a full one, rays whose first sweep entered
+    more supers than the list holds, mean list length).  A ray's first
+    sweep tests the boxes of the runs of 32 supers (``sweep_groups``) and
+    the supers of the runs it enters; a later one tests its list, or every
+    super when the list overflowed."""
+    comps, n, _ = ci._rays(o, d, tmin, tmax)
+    inv = [hy._safe_inv(c) for c in comps[3:6]]
+    S = h.n_supers
+    gb = h.sweep_groups
+    ng = gb.shape[1]
+    sizes = torch.clamp_max(S - hy.SWEEP_GROUP * torch.arange(
+        ng, device=gb.device), hy.SWEEP_GROUP)
+    tb = torch.clamp_max(comps[7], hy.BIG)  # the best t of the first sweep
+    entered = torch.empty(n, dtype=torch.int64, device=tb.device)
+    first = torch.empty(n, dtype=torch.int64, device=tb.device)
+    step = max(1, (1 << 24) // S)
+    for a in range(0, n, step):
+        r = slice(a, a + step)
+        ray = ([c[r, None] for c in comps[:3]], [c[r, None] for c in inv],
+               comps[6][r, None], tb[r, None])
+        tn, tf = hy._slab([h.swp_lo[k, :S][None] for k in range(3)],
+                          [h.swp_hi[k, :S][None] for k in range(3)], *ray)
+        entered[r] = ((tn <= tf) & (tn < hy.FAR)).sum(1)
+        tn, tf = hy._slab([gb[k][None] for k in range(3)],
+                          [gb[3 + k][None] for k in range(3)], *ray)
+        first[r] = ng + (((tn <= tf) & (tn < hy.FAR)) * sizes).sum(1)
+    sw = counts.sweeps
+    swept = sw > 0
+    over = swept & (entered > ch.LIST_CAPACITY)
+    tested = torch.where(
+        swept, first + (sw - 1) * torch.where(over, S, entered), 0)
+    mean_list = (float(entered[swept].float().mean()) if bool(swept.any())
+                 else 0.0)
+    return (float(tested.double().mean()), float((sw * S).double().mean()),
+            int(over.sum()), mean_list)
+
+
 def check_hier(name, h, o, d, tmin, tmax, active=None):
     """Both hierarchy kernels against the plain version, bit for bit.
     Returns (max |t| error, blocked flips, plain counters of closest)."""
@@ -381,14 +427,63 @@ def check_hier(name, h, o, d, tmin, tmax, active=None):
         ("t", "u", "v", "prim", "inst", "found"), k, p)}
     t_err = float((k[0] - p[0]).abs().max()) if p[0].numel() else 0.0
     flips = int((kb != pb).sum())
-    log(f"[hier] {name}: {p.found.shape[0]} rays, found {int(p.found.sum())}"
-        f", blocked {int(pb.sum())}; mismatches "
+    tested, full, over, mean_list = list_work(h, o, d, tmin, tmax, counts)
+    log(f"[hier] {name}: {p.found.shape[0]} rays, {h.n_supers} supers, "
+        f"found {int(p.found.sum())}, blocked {int(pb.sum())}; mismatches "
         + " ".join(f"{f} {m}" for f, m in mism.items())
         + f", max |t err| {t_err:.3e}, blocked flips {flips}; clusters per "
-          f"ray {counts.clusters.float().mean().item():.4f}")
+          f"ray {counts.clusters.float().mean().item():.4f}; closest: "
+          f"supers tested per ray {tested:.2f} (every sweep full: "
+          f"{full:.2f}), list {mean_list:.2f} entries, list overflows "
+          f"{over}")
     if any(mism.values()) or flips:
         raise AssertionError(f"hierarchy kernels disagree on {name}")
     return t_err, flips, counts
+
+
+def soup64(seed):
+    g = np.random.default_rng(seed)
+    tri = [g.uniform(-s, s, (64, 3)).astype(np.float32)
+           for s in (0.5, 0.3, 0.3)]
+    return (*tri, np.arange(64))
+
+
+def translate(x, y, z):
+    return np.concatenate([np.eye(3), [[x], [y], [z]]], 1).astype(np.float32)
+
+
+def unit(v):
+    return V3.from_array((v / v.norm(dim=1, keepdim=True)).contiguous())
+
+
+def strung_soups(dev, n, gen):
+    """300 instances of a 64-triangle soup strung along x (one super each,
+    boxes overlapping); half the rays run along x through all of them, so
+    their first sweep enters 300 supers, more than the list holds."""
+    h = hy.build_hierarchy_instanced(
+        [soup64(11)], [(0, translate(0.25 * k, 0, 0)) for k in range(300)],
+        dev)
+    o = torch.rand(n, 3, generator=gen, device=dev) * 0.8 - 0.4
+    o[:, 0] = -3.0
+    d = torch.randn(n, 3, generator=gen, device=dev)
+    d[: n // 2, 0] = 1.0
+    d[: n // 2, 1:] *= 0.005
+    tmax = torch.rand(n, generator=gen, device=dev) * 90.0
+    return h, V3.from_array(o.contiguous()), unit(d), tmax
+
+
+def scattered_soups(dev, n, gen):
+    """3000 instances of a 64-triangle soup on a 15 x 15 x 14 grid: 3000
+    supers, whose 94 culling boxes take the first sweep three warp-wide
+    steps."""
+    h = hy.build_hierarchy_instanced(
+        [soup64(12)], [(0, translate(1.2 * (k % 15), 1.2 * (k // 15 % 15),
+                                     1.2 * (k // 225)))
+                       for k in range(3000)], dev)
+    o = torch.rand(n, 3, generator=gen, device=dev) * 18.0
+    d = torch.randn(n, 3, generator=gen, device=dev)
+    tmax = torch.rand(n, generator=gen, device=dev) * 20.0
+    return h, V3.from_array(o.contiguous()), unit(d), tmax
 
 
 def shadow_rays(scene, o, d, t, found, gen):
@@ -412,8 +507,12 @@ def hier_table_bytes(h):
         h.swp_lo, h.swp_hi, h.childs, h.blocks, h.sup_inst, h.root))
 
 
-def hier_flops(h, counts):
-    return (int(counts.sweeps.sum()) * h.n_supers * FLOP_BOX
+def hier_flops(h, counts, supers_tested=None):
+    """Flops of a traversal with the plain version's counters; the sweeps
+    test n_supers boxes each unless ``supers_tested`` (all rays) is given."""
+    if supers_tested is None:
+        supers_tested = int(counts.sweeps.sum()) * h.n_supers
+    return (supers_tested * FLOP_BOX
             + int(counts.child_rows.sum()) * hy.SUP * FLOP_BOX
             + int(counts.clusters.sum()) * hy.LEAF * FLOP_TRI)
 
@@ -479,6 +578,11 @@ def hier_phase(dev, scene):
     e4, _, _ = check_hier("instanced (3 x 20000 tris)", hi_, o_i, d_r,
                           EPSILON, 1e30)
     err_t = max(err_t, e4)
+    for name, make in (("list overflow (300 strung soups)", strung_soups),
+                       ("many supers (3000 soups)", scattered_soups)):
+        hs, o_s, d_s, tmax_s = make(dev, 1 << 16, gen)
+        e5, f5, _ = check_hier(name, hs, o_s, d_s, EPSILON, tmax_s)
+        err_t, flips = max(err_t, e5), flips + f5
 
     # timings at the main path's width: 768^2 camera rays (closest) and
     # their shadow rays (any hit)
@@ -495,12 +599,19 @@ def hier_phase(dev, scene):
     sh_counts = hy.intersect_hierarchy_plain(h, p, w, EPSILON, tmax,
                                              any_hit=True, active=found)[1]
     tables = hier_table_bytes(h)
-    timing["closest_bound"] = bound(n * (32 + 21) + tables,
+    nbytes = {"camera": n * (32 + 21) + tables,
+              "shadow": n * (32 + 1 + 1) + tables}
+    timing["closest_bound"] = bound(nbytes["camera"],
                                     hier_flops(h, cam_counts))
-    timing["anyhit_bound"] = bound(n * (32 + 1 + 1) + tables,
+    timing["anyhit_bound"] = bound(nbytes["shadow"],
                                    hier_flops(h, sh_counts))
-    for name, cnt in (("camera", cam_counts), ("shadow", sh_counts)):
+    for name, cnt, args in (
+            ("camera", cam_counts, (o, d, EPSILON, 1e30)),
+            ("shadow", sh_counts, (p, w, EPSILON, tmax))):
         p50, p99, wmax, warp = work_spread(h, cnt)
+        tested, full, over, mean_list = list_work(h, *args, cnt)
+        # the same bound over the supers this kernel tests
+        own = bound(nbytes[name], hier_flops(h, cnt, round(tested * n)))
         log(f"[hier] work per {name} ray: sweeps "
             f"{cnt.sweeps.float().mean().item():.4f} (max "
             f"{int(cnt.sweeps.max())}), child picks "
@@ -508,7 +619,10 @@ def hier_phase(dev, scene):
             f"{int(cnt.child_rows.max())}), clusters "
             f"{cnt.clusters.float().mean().item():.4f} (max "
             f"{int(cnt.clusters.max())}); flops p50 {p50:.0f}, p99 "
-            f"{p99:.0f}, max {wmax:.0f}, warp factor {warp:.3f}")
+            f"{p99:.0f}, max {wmax:.0f}, warp factor {warp:.3f}; kernel: "
+            f"supers tested {tested:.2f} (every sweep full: {full:.2f}), "
+            f"list {mean_list:.2f} entries, list overflows {over}; bound "
+            f"over the supers it tests {own[0]:.4f} ms ({own[1]})")
     log("[hier] ms per call at 768^2 (median): "
         + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()
                     if not k.endswith("bound"))

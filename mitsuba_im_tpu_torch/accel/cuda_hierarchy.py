@@ -11,7 +11,9 @@ Dispatch, as in :mod:`.cuda_intersect`: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the wrapper raises.  Each
 wrapper counts its kernel launches in a plain integer attribute
 (``hier_closest.launches``).  The library is built at first use with
-``nvcc`` (sm_90a, -O3, -fmad=false) by :mod:`.shared_lib`.
+``nvcc`` (sm_90a, -O3, -fmad=false) by :mod:`.shared_lib`, with the
+list capacity, the culling-box width and the counter size defined here
+(the kernel checks them against its layout at compile time).
 """
 from __future__ import annotations
 
@@ -21,20 +23,38 @@ import torch
 
 from ..core.types import Float, Int
 from .cuda_intersect import NVCC_FLAGS, _check, _ptrs, _rays
-from .hierarchy import Hierarchy, intersect_hierarchy_plain
+from .hierarchy import SWEEP_GROUP, Hierarchy, intersect_hierarchy_plain
 from .shared_lib import SharedLibrary, nvcc
+
+# The version of the C entry points this binding calls (hier_interface).
+INTERFACE = 2
+# Supers a ray's list holds: a ray whose first sweep enters more keeps full
+# sweeps.
+LIST_CAPACITY = 64
+# Words of the kernel's ray counters: 16 counters and the count of the
+# blocks done, one per 128 bytes.
+COUNTER_WORDS = (16 + 1) * 32
 
 
 def _bind(lib):
+    if lib.hier_interface() != INTERFACE:
+        raise RuntimeError(f"hier_traverse: interface {lib.hier_interface()}"
+                           f", this binding calls {INTERFACE}")
     p, i = ctypes.c_void_p, ctypes.c_int
-    args = [p] * 9 + [i] + [p, p, i, i] + [p] * 6 + [i, i]
-    lib.hier_closest.argtypes = args + [p] * 6 + [p]
+    args = [p] * 9 + [i] + [p, p, i, i] + [p] * 7 + [i, i]
+    lib.hier_closest.argtypes = args + [p] * 6 + [p, p]
     lib.hier_closest.restype = i
-    lib.hier_anyhit.argtypes = args + [p] + [p]
+    lib.hier_anyhit.argtypes = args + [p] + [p, p]
     lib.hier_anyhit.restype = i
 
 
-LIBRARY = SharedLibrary("hier_traverse.cu", nvcc, NVCC_FLAGS, _bind)
+BUILD_FLAGS = NVCC_FLAGS + (f"-DKLIST={LIST_CAPACITY}",
+                            f"-DSWEEP_GROUP={SWEEP_GROUP}",
+                            f"-DCOUNTER_WORDS={COUNTER_WORDS}")
+LIBRARY = SharedLibrary("hier_traverse.cu", nvcc, BUILD_FLAGS, _bind)
+# The ray counters of each (device, stream), zeroed once: every launch
+# leaves them zero (its last block resets them).
+_COUNTERS: dict = {}
 
 
 def _kernel_args(h: Hierarchy, o, d, tmin, tmax, active):
@@ -48,9 +68,12 @@ def _kernel_args(h: Hierarchy, o, d, tmin, tmax, active):
     comps = [c.contiguous() for c in comps]
     act = None if active is None else active.contiguous()
     tabs = [h.swp_lo, h.swp_hi, h.childs, h.blocks, h.sup_inst, h.inst_inv,
-            h.sup_blas, h.root]
+            h.sup_blas, h.root, h.sweep_groups]
     if not all(t.is_contiguous() for t in tabs):
         raise ValueError("hierarchy tables must be contiguous")
+    if h.childs.data_ptr() % 8 or h.blocks.data_ptr() % 8:
+        raise ValueError("childs and blocks must be 8-byte aligned (the "
+                         "kernel reads their rows as float2)")
     args = [*_ptrs(comps), None if act is None else act.data_ptr(), n,
             h.swp_lo.data_ptr(), h.swp_hi.data_ptr(), h.swp_lo.shape[1],
             h.n_supers, *_ptrs(tabs[2:]), int(h.instanced), int(h.indirect)]
@@ -64,6 +87,20 @@ def _device(o):
     return o.x.device.type
 
 
+def _launch(entry, args, outs, dev):
+    """Queue the C entry point ``entry`` (of interface INTERFACE) with the
+    kernel arguments, the outputs and the ray counters on the current
+    stream of ``dev``."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _COUNTERS.get((dev, stream))
+    if counters is None:
+        counters = _COUNTERS[dev, stream] = torch.zeros(
+            COUNTER_WORDS, dtype=Int, device=dev)
+    with torch.cuda.device(dev):
+        err = entry(*args, *_ptrs((*outs, counters)), stream)
+    _check(err, entry.__name__)
+
+
 def hier_closest(h: Hierarchy, o, d, tmin, tmax, active=None):
     """Closest hit of SoA rays over the hierarchy -> (t, u, v, prim, inst,
     found) as in :class:`.hierarchy.HierHits`."""
@@ -72,20 +109,12 @@ def hier_closest(h: Hierarchy, o, d, tmin, tmax, active=None):
                                          active=active)[0]
     args, keep, n, dev = _kernel_args(h, o, d, tmin, tmax, active)
     lib = LIBRARY.load()
-    t = torch.empty(n, dtype=Float, device=dev)
-    u = torch.empty(n, dtype=Float, device=dev)
-    v = torch.empty(n, dtype=Float, device=dev)
-    prim = torch.empty(n, dtype=Int, device=dev)
-    inst = torch.empty(n, dtype=Int, device=dev)
-    found = torch.empty(n, dtype=torch.bool, device=dev)
+    out = tuple(torch.empty(n, dtype=dt, device=dev) for dt in (
+        Float, Float, Float, Int, Int, torch.bool))
     if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = lib.hier_closest(*args, *_ptrs((t, u, v, prim, inst,
-                                                  found)), stream)
-        _check(err, "hier_closest")
+        _launch(lib.hier_closest, args, out, dev)
         hier_closest.launches += 1
-    return t, u, v, prim, inst, found
+    return out
 
 
 def hier_anyhit(h: Hierarchy, o, d, tmin, tmax, active=None):
@@ -97,10 +126,7 @@ def hier_anyhit(h: Hierarchy, o, d, tmin, tmax, active=None):
     lib = LIBRARY.load()
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = lib.hier_anyhit(*args, blocked.data_ptr(), stream)
-        _check(err, "hier_anyhit")
+        _launch(lib.hier_anyhit, args, (blocked,), dev)
         hier_anyhit.launches += 1
     return blocked
 

@@ -65,6 +65,7 @@ CROW = SUP * 6  # 384: packed child-AABB row
 BIG = 3.0e37
 FAR = 1.0e30  # degenerate padding box (every slab rejects it)
 SWEEP_ALIGN = 128  # the reference pads S to this multiple
+SWEEP_GROUP = 32  # supers per culling box of the CUDA kernel (one warp)
 IBIG = 2 ** 31 - 1
 _CHUNK_ELEMS = 1 << 22  # lanes x supers per plain sweep chunk
 
@@ -93,6 +94,23 @@ class Hierarchy:
         S = self.n_supers
         return torch.cat([self.swp_lo[:, :S].amin(1),
                           self.swp_hi[:, :S].amax(1)]).contiguous()
+
+    @functools.cached_property
+    def sweep_groups(self) -> torch.Tensor:
+        """(6, ceil(n_supers / SWEEP_GROUP)) boxes of the runs of
+        SWEEP_GROUP consecutive supers: lo xyz, hi xyz, over each super's
+        planes taken in order.  The CUDA kernel's first sweep tests a run's
+        supers only when the ray enters the run's box; a box holding the
+        super's box gives an entry no later and an exit no earlier under
+        rounding, so no super the ray enters is skipped."""
+        S = self.n_supers
+        pad = -S % SWEEP_GROUP
+        lo = torch.minimum(self.swp_lo[:, :S], self.swp_hi[:, :S])
+        hi = torch.maximum(self.swp_lo[:, :S], self.swp_hi[:, :S])
+        lo = torch.nn.functional.pad(lo, (0, pad), value=float("inf"))
+        hi = torch.nn.functional.pad(hi, (0, pad), value=float("-inf"))
+        return torch.cat([lo.view(3, -1, SWEEP_GROUP).amin(2),
+                          hi.view(3, -1, SWEEP_GROUP).amax(2)]).contiguous()
 
     @property
     def device(self) -> torch.device:

@@ -4,7 +4,8 @@ GPU).  Run on a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Kernels against their plain PyTorch versions on the same card tensors
-(brute force, and the hierarchy traversal on plain and instanced tables),
+(brute force, and the hierarchy traversal on plain and instanced tables,
+rays that overflow the kernel's per-ray super list, and 3000 supers),
 and the Cornell and large-scene renders on the card against the CPU
 renders.
 """
@@ -72,6 +73,57 @@ def test_cornell_render_card_vs_cpu(cuda):
     assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
 
 
+def _soup64_instances(seed, offsets, dev):
+    """Instances of one 64-triangle soup (one super each), translated."""
+    rng = np.random.default_rng(seed)
+    p0, e1, e2 = (rng.uniform(-s, s, (64, 3)).astype(np.float32)
+                  for s in (0.5, 0.3, 0.3))
+    mats = [np.concatenate([np.eye(3), np.array(x, np.float32)[:, None]],
+                           1).astype(np.float32) for x in offsets]
+    return hy.build_hierarchy_instanced(
+        [(p0, e1, e2, np.arange(64))], [(0, m) for m in mats], dev)
+
+
+def _case(kind, gen, n, dev):
+    """(hierarchy, origins, directions, any-hit tmax) of a test case."""
+    if kind == "list_overflow":  # rays along a string of 300 soups
+        h = _soup64_instances(82, [(0.25 * k, 0, 0) for k in range(300)],
+                              dev)
+        o = torch.rand(n, 3, generator=gen, device=dev) * 0.8 - 0.4
+        o[:, 0] = -3.0
+        d = torch.randn(n, 3, generator=gen, device=dev)
+        d[: n // 2, 0] = 1.0
+        d[: n // 2, 1:] *= 0.005
+        d = d / d.norm(dim=1, keepdim=True)
+        tmax = torch.rand(n, generator=gen, device=dev) * 90.0
+        return (h, V3.from_array(o.contiguous()),
+                V3.from_array(d.contiguous()), tmax)
+    if kind == "many_supers":  # 3000 soups on a grid
+        h = _soup64_instances(83, [(1.2 * (k % 15), 1.2 * (k // 15 % 15),
+                                    1.2 * (k // 225)) for k in range(3000)],
+                              dev)
+        o, d = _rays(gen, n, dev)
+        o = V3(*(c * 6.0 + 8.4 for c in o))
+        return h, o, d, torch.rand(n, generator=gen, device=dev) * 20.0
+    h = _hierarchy(kind, dev)
+    o, d = _rays(gen, n, dev)
+    o = V3(*(c * 2.5 for c in o))
+    return h, o, d, torch.rand(n, generator=gen, device=dev) * 4.0
+
+
+def _most_supers_entered(h, o, d, tmin, tmax, n=4096):
+    """The most supers the first sweep of one of the first n rays enters:
+    above ch.LIST_CAPACITY the ray's list overflows."""
+    S = h.n_supers
+    inv = [hy._safe_inv(c[:n]) for c in d]
+    tn, tf = hy._slab([h.swp_lo[k, :S][None] for k in range(3)],
+                      [h.swp_hi[k, :S][None] for k in range(3)],
+                      [c[:n, None] for c in o], [c[:, None] for c in inv],
+                      torch.full((1, 1), tmin, device=h.device),
+                      torch.clamp_max(tmax[:n, None], hy.BIG))
+    return int(((tn <= tf) & (tn < hy.FAR)).sum(1).max())
+
+
 def _hierarchy(kind, dev):
     rng = np.random.default_rng(80)
     p0, e1, e2 = (rng.uniform(-s, s, (4000, 3)).astype(np.float32)
@@ -90,16 +142,19 @@ def _hierarchy(kind, dev):
     return hy.build_hierarchy_instanced(blas, [(0, m) for m in mats], dev)
 
 
-@pytest.mark.parametrize("kind", ["plain", "instanced"])
+@pytest.mark.parametrize("kind", ["plain", "instanced", "list_overflow",
+                                  "many_supers"])
 def test_hierarchy_kernels_match_plain_version(cuda, kind):
     """hier_closest / hier_anyhit equal intersect_hierarchy_plain bit for
-    bit: found, prim, inst, t, u, v and blocked, with and without a mask."""
-    h = _hierarchy(kind, cuda)
+    bit: found, prim, inst, t, u, v and blocked, with and without a mask.
+    ``list_overflow``: rays whose first sweep enters more supers than the
+    kernel's per-ray list holds (full sweeps after it); ``many_supers``:
+    3000 supers."""
     gen = torch.Generator(device=cuda).manual_seed(81)
     n = 100_003  # ragged last block
-    o, d = _rays(gen, n, cuda)
-    o = V3(*(c * 2.5 for c in o))
-    tmax = torch.rand(n, generator=gen, device=cuda) * 4.0
+    h, o, d, tmax = _case(kind, gen, n, cuda)
+    if kind == "list_overflow":
+        assert _most_supers_entered(h, o, d, 1e-4, tmax) > ch.LIST_CAPACITY
     act = torch.rand(n, generator=gen, device=cuda) < 0.5
     ch.reset_launch_counts()
     for mask in (None, act):
@@ -115,6 +170,27 @@ def test_hierarchy_kernels_match_plain_version(cuda, kind):
     if kind == "instanced":
         assert len(set(p.inst[p.found].tolist())) == 3
     assert (ch.hier_closest.launches, ch.hier_anyhit.launches) == (2, 2)
+
+
+def test_hierarchy_ray_counters_left_zero(cuda):
+    """Each launch leaves its stream's ray counters zero (the kernel's last
+    block resets them), so launches of different sizes on one stream, and
+    on a second stream with counters of its own, trace every ray."""
+    gen = torch.Generator(device=cuda).manual_seed(82)
+    h = _hierarchy("plain", cuda)
+    streams = (torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda))
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            for n in (100_003, 77, 4096):
+                o, d = _rays(gen, n, cuda)
+                o = V3(*(c * 2.5 for c in o))
+                k = ch.hier_closest(h, o, d, 1e-4, 1e30)
+                p = hy.intersect_hierarchy_plain(h, o, d, 1e-4, 1e30)[0]
+                for a, b in zip(k, p):
+                    assert torch.equal(a, b)
+            counters = ch._COUNTERS[cuda, stream.cuda_stream]
+            assert not bool(counters.any())
+    torch.cuda.synchronize(cuda)
 
 
 def test_large_scene_render_card_vs_cpu(cuda):

@@ -12,6 +12,8 @@ last-bit differences by about 1/|det|.  The port's own arithmetic is held
 exactly: its t, u, v equal a float32 numpy evaluation, one rounding per
 operation, at the hit triangle, bit for bit.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,6 +190,87 @@ def test_plain_traversal_vs_reference(case):
     exact = _mt_numpy(o[found], d[found], *(a[pid] for a in tris))
     for k, a in zip(("t", "u", "v"), exact):
         np.testing.assert_array_equal(out[k][found], a, err_msg=k)
+
+
+def test_super_list_yields_the_sweeps_sequence():
+    """The per-ray super list of ``csrc/hier_traverse.cu``: a numpy model
+    lists every super the first sweep enters ((tn, id) with tn <= tf and
+    tn < FAR at the first best t), then takes the lex-gated minimum over
+    that list among entries with tn <= the current best t.  Repeated full
+    sweeps (``_sweep``) with a shrinking best t give the same sequence of
+    (tn, id).  Duplicate boxes make exact-tn ties; a row of boxes along x
+    makes rays enter more supers than the kernel's list holds."""
+    rng = np.random.default_rng(64)
+    lo = rng.uniform(-2.0, 2.0, (200, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.05, 1.5, (200, 3))).astype(np.float32)
+    dup = rng.choice(200, 40, replace=False)
+    row = np.stack([np.arange(100) * 0.3 - 1.0, np.full(100, -0.5),
+                    np.full(100, -0.5)], 1).astype(np.float32)
+    lo = np.concatenate([lo, lo[dup], row])
+    hi = np.concatenate([hi, hi[dup], row + np.float32(1.0)])
+    S = len(lo)
+    h = SimpleNamespace(n_supers=S, swp_lo=torch.from_numpy(lo.T.copy()),
+                        swp_hi=torch.from_numpy(hi.T.copy()))
+
+    n = 256
+    o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = unit_vectors(rng, n)
+    o[: n // 4] = rng.uniform(-0.3, 0.3, (n // 4, 3))  # along the row
+    o[: n // 4, 0] = -5.0
+    d[: n // 4] = np.array([1.0, 0.0, 0.0], np.float32) + rng.uniform(
+        -0.01, 0.01, (n // 4, 3)).astype(np.float32)
+    tmax = np.where(rng.random(n) < 0.5, np.float32(1e30),
+                    rng.uniform(1.0, 40.0, n)).astype(np.float32)
+    tmax[:8] = 1e30  # these walk the whole row: no cut below
+    tmin = np.full(n, 1e-4, np.float32)
+    inv = np.stack([thy._safe_inv(torch.from_numpy(d[:, k].copy())).numpy()
+                    for k in range(3)], 1)
+
+    # the model: the list of the first sweep, in float32 numpy
+    a0 = (lo[None] - o[:, None]) * inv[:, None]
+    a1 = (hi[None] - o[:, None]) * inv[:, None]
+    mn, mx = np.minimum(a0, a1), np.maximum(a0, a1)
+    tb = np.minimum(np.float32(thy.BIG), tmax)
+    tn = np.maximum(np.maximum(mn[..., 0], mn[..., 1]),
+                    np.maximum(mn[..., 2], tmin[:, None]))
+    tf = np.minimum(np.minimum(mx[..., 0], mx[..., 1]),
+                    np.minimum(mx[..., 2], tb[:, None]))
+    listed = (tn <= tf) & (tn < thy.FAR)
+    assert (listed.sum(1) > ch.LIST_CAPACITY).any()
+    assert (listed[:, 200:240] & listed[:, dup]).any()  # exact-tn ties
+    ids = np.arange(S)
+
+    sg_t = np.full(n, -thy.BIG, np.float32)
+    sg_c = np.full(n, -1, np.int32)
+    live = np.ones(n, bool)
+    steps = 0
+    while live.any():
+        r = np.flatnonzero(live)
+        se, sid = thy._sweep(
+            h, [torch.from_numpy(o[r, k].copy()) for k in range(3)],
+            [torch.from_numpy(inv[r, k].copy()) for k in range(3)],
+            torch.from_numpy(tmin[r]), torch.from_numpy(tb[r]),
+            torch.from_numpy(sg_t[r]), torch.from_numpy(sg_c[r]))
+        se, sid = se.numpy(), sid.numpy()
+        gate = (tn[r] > sg_t[r, None]) | ((tn[r] == sg_t[r, None])
+                                          & (ids > sg_c[r, None]))
+        cand = listed[r] & (tn[r] <= tb[r, None]) & gate
+        e = np.where(cand, tn[r], np.inf)
+        m_t = e.min(1)
+        got = cand.any(1)
+        m_id = np.where(e == m_t[:, None], ids, S).min(1)
+        np.testing.assert_array_equal(se < thy.BIG, got)
+        np.testing.assert_array_equal(se[got], m_t[got])
+        np.testing.assert_array_equal(sid[got], m_id[got])
+        # enter it; sometimes a hit inside shrinks the best t
+        sg_t[r[got]], sg_c[r[got]] = se[got], sid[got]
+        cut = got & (rng.random(len(r)) < 0.3) & (r >= 8)
+        f = rng.random(cut.sum()).astype(np.float32)
+        tb[r[cut]] = np.minimum(tb[r[cut]], se[cut] + (np.minimum(
+            tb[r[cut]], np.float32(50.0)) - se[cut]) * f)
+        live[r[~got]] = False
+        steps += 1
+    assert steps > ch.LIST_CAPACITY
 
 
 def test_wrappers_route_by_device():
