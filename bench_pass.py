@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Large-scene pass time of one checkout of the PyTorch/CUDA port.
+"""Pass time of one checkout of the PyTorch/CUDA port.
 
 Run on a machine with one NVIDIA H100:
 
-    python3 bench_pass.py [--root DIR] [--reps N]
+    python3 bench_pass.py [--scene large|cornell] [--root DIR] [--reps N]
 
 Imports ``mitsuba_im_tpu_torch`` from DIR (default: this script's
 directory), so that two checkouts can be timed by the same code: unpack
 the other one into a directory that ``.gitignore`` lists (``build/``) with
 ``git archive <commit> | tar -x -C DIR`` and run the script for each in
-turns, for example parent, change, change, parent.  Builds
-``scenes.large_scene`` (1,120,504 triangles, 768^2, depth 3), renders a
+turns, for example parent, change, change, parent.  Builds the scene of
+``--scene`` (``profile_pass.scene_of``): ``scenes.large_scene`` (the
+default; 1,120,504 triangles, 768^2, depth 3) or the Cornell box of the
+main path (``scenes.tiny_cornell`` at 1024^2, depth 5), renders a
 warm-up, then ``--reps`` times renders 1 and 3 passes (``render_film``,
 CUDA events around each) and takes the per-pass time from their
 difference, as chip_smoke.py does, so fixed costs cancel.  Prints each
@@ -25,9 +27,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+# imported before --root enters sys.path: scene_of imports the package of
+# --root when it is called
+from profile_pass import scene_of
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("large", "cornell"), default="large")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--reps", type=int, default=7)
     args = ap.parse_args()
@@ -38,7 +45,6 @@ def main():
 
     import mitsuba_im_tpu_torch
     from mitsuba_im_tpu_torch.render.job import render_film
-    from mitsuba_im_tpu_torch.scenes import large_scene
 
     if Path(mitsuba_im_tpu_torch.__file__).resolve().parents[1] != root:
         raise SystemExit(f"imported {mitsuba_im_tpu_torch.__file__}, not "
@@ -51,7 +57,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
 
-    scene, settings = large_scene("cuda")
+    scene, settings = scene_of(args.scene)
     side = settings.width
     depth = settings.integrator_props["max_depth"]
     rays = side * side * (1 + 2 * (depth - 1))
@@ -75,7 +81,8 @@ def main():
           + ", ".join(f"{v:.3f}" for v in per_pass)
           + f"; median {med:.3f} ms, min {min(per_pass):.3f} ms, "
           f"{rays / (med * 1e-3):.4e} rays/s at the median", flush=True)
-    print(json.dumps(dict(device=smi, root=str(root), per_pass_ms=per_pass,
+    print(json.dumps(dict(device=smi, root=str(root), scene=args.scene,
+                          per_pass_ms=per_pass,
                           median_ms=med, min_ms=min(per_pass),
                           rays_per_pass=rays)), flush=True)
 

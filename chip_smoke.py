@@ -12,11 +12,18 @@ Phases, in order; any failure raises and the run exits non-zero:
 2. build: compile ``csrc/tri_intersect.cu`` and ``csrc/hier_traverse.cu``
    with nvcc and ``csrc/bvh_build.cpp`` with the host C++ compiler, all
    three at once (each timed; ptxas register and spill report);
-3. brute-force kernels vs their plain PyTorch versions on the card: 2^20
-   camera rays into the Cornell soup and 2^20 random rays into a random
-   512-triangle soup; found/prim exact except exact-t ties (< 1e-4 of
-   rays), t/u/v to rel 1e-5, blocked exact except < 1e-4 edge flips; both
-   timed at the Cornell path's shape (2^20 rays x 12 triangles);
+3. brute-force kernels vs their plain PyTorch versions on the card, bit
+   for bit: 2^20 camera rays into the Cornell soup and 2^20 random rays
+   into a random 512-triangle soup, with numbers and with tensors for
+   tmin/tmax (a 0-dim tmin, an (N,) tmax with NaN lanes); the closest hit,
+   the hit record (against its plain epilogue and against
+   ``intersect.merge_hits``) and the any hit.  Both kernels timed at the
+   Cornell path's shape (2^20 rays x 12 triangles) as the main path calls
+   them (the hit record; any hit with an (N,) tmax): CUDA events around
+   each call, in turns, median of 21, and the kernel's own device time
+   (torch.profiler, median of 21); bounds from the bytes of that call, and
+   (logged only) the modelled issue floor from the kernel's SASS
+   (``tri_sass.py``, ``cuobjdump``);
 4. the Cornell path: ``render_film`` at 1024^2, depth 5, 4 spp; 5
    closest-hit and 4 any-hit launches per pass; the image finite,
    non-negative, of plausible brightness, red on the left and green on the
@@ -53,6 +60,7 @@ The next-to-last line is the kernels' JSON record, the last line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,21 +74,22 @@ from mitsuba_im_tpu_torch.accel import bvh
 from mitsuba_im_tpu_torch.accel import cuda_hierarchy as ch
 from mitsuba_im_tpu_torch.accel import cuda_intersect as ci
 from mitsuba_im_tpu_torch.accel import hierarchy as hy
+from mitsuba_im_tpu_torch.accel import intersect as isect
 from mitsuba_im_tpu_torch.core import rng
-from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON
+from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON, Int
 from mitsuba_im_tpu_torch.core.v3 import V3
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
 from mitsuba_im_tpu_torch.sensor.table import sample_ray_v
+from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
 
 RES = 1024
 DEPTH = 5
 SPP = 4
 N_RAYS = 1 << 20
-TIE_FRAC = 1e-4  # rays allowed to differ in found/prim (exact-t ties, edges)
-RTOL = 1e-5  # t/u/v agreement (rel; abs for |x| < 1)
+TRI_KERNELS = ("closest_kernel", "anyhit_kernel")
 TRI_SOURCE = "mitsuba_im_tpu_torch/csrc/tri_intersect.cu"
 HIER_SOURCE = "mitsuba_im_tpu_torch/csrc/hier_traverse.cu"
 HIER_REPLACES = ("mitsuba_im_tpu/accel/hier_kernel.py:81, "
@@ -166,11 +175,75 @@ def median_ms_in_turns(fns, reps):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def device_ms_in_turns(fns, reps, names=TRI_KERNELS):
+    """{name: median device ms of the kernel that each fn launches, named
+    with one of ``names``}: torch.profiler's kernel durations, the
+    functions in turns, ``reps`` rounds after a warm-up.  Each round is a
+    profiler session of its own that calls the functions twice: the
+    profiler can miss the first kernels of a session (it did when they
+    ran for milliseconds), so the second pass is timed, its kernels the
+    last ``len(fns)`` recorded, in the order of the calls.  A round is left
+    out (logged) when fewer were recorded, or when the first pass's
+    recorded kernels do not match the second's by name.  None for each
+    function when no round was kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    n = len(fns)
+    times = {k: [] for k in fns}
+    left_out = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                for fn in fns.values():
+                    fn()
+                torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and any(s in e.name for s in names)),
+                    key=lambda e: e.time_range.start)
+        first, timed = ev[:-n], ev[-n:]
+        m = min(len(first), n)
+        if len(ev) < n or any(a.name != b.name for a, b in zip(
+                first[len(first) - m:], timed[n - m:])):
+            left_out.append(len(ev))
+            continue
+        for k, e in zip(fns, timed):
+            times[k].append((e.time_range.end - e.time_range.start) / 1e3)
+    if left_out:
+        log(f"[profile] {len(left_out)} of {reps} rounds left out: the "
+            f"profiler recorded {sorted(set(left_out))} kernels of "
+            f"{2 * n} calls")
+    return {k: statistics.median(v) if v else None
+            for k, v in times.items()}
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bound(nbytes, flops):
     """(bound_ms, bound_by) on the H100 from bytes moved and flops done."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / F32_FLOP_PER_S * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def tri_bounds(n, T):
+    """Bounds of the brute-force queries of n rays against T triangles in
+    the forms the main path calls them (tmin, tmax numbers for the closest
+    hit, an (N,) tmax for the any hit): each ray reads o and d (24 B) and
+    writes (t, u, v, prim, found) (17 B) or the hit record (24 B), or reads
+    tmax and writes blocked (4 B + 1 B); the soup (36 B and a 4 B shape id
+    per triangle) is read once; 40 flops per ray-triangle pair."""
+    flops = n * T * FLOP_TRI
+    return {"closest": bound(n * (24 + 17) + T * 36, flops),
+            "record": bound(n * (24 + 24) + T * 40, flops),
+            "anyhit": bound(n * (24 + 4 + 1) + T * 36, flops)}
 
 
 def camera_rays(scene, n_side, sample=0):
@@ -185,97 +258,159 @@ def camera_rays(scene, n_side, sample=0):
 
 
 def random_soup(gen, n_tris, n_rays, dev):
+    """A random soup of n_tris triangles and n_rays rays from [-1, 1]^3
+    (each ray component a contiguous (N,) tensor, as on the main path)."""
     def u(*shape):
         return torch.rand(*shape, generator=gen, device=dev) * 2.0 - 1.0
+
+    def soa(a):
+        return V3(*(a[:, k].contiguous() for k in range(3)))
 
     p0, e1, e2 = u(n_tris, 3), 0.3 * u(n_tris, 3), 0.3 * u(n_tris, 3)
     d = u(n_rays, 3)
     d = d / d.norm(dim=1, keepdim=True)
-    return (p0, e1, e2), V3.from_array(u(n_rays, 3).contiguous()), \
-        V3.from_array(d.contiguous())
+    return (p0, e1, e2), soa(u(n_rays, 3)), soa(d)
 
 
-def compare_closest(name, k, p):
-    """k, p: (t, u, v, prim, found) from the kernel and the plain version."""
-    n = k[0].shape[0]
-    found_diff = int((k[4] != p[4]).sum())
-    both = k[4] & p[4]
-    prim_diff = both & (k[3] != p[3])
-    t_k, t_p = k[0][both], p[0][both]
-    # a prim mismatch must be a tie: the same t to RTOL
-    tie_ok = bool(torch.all((k[0][prim_diff] - p[0][prim_diff]).abs()
-                            <= RTOL * p[0][prim_diff].abs()))
-    same = both & ~prim_diff
-    errs = []
-    for a, b in zip(k[:3], p[:3]):
-        a, b = a[same], b[same]
-        errs.append(float(((a - b).abs()
-                           / torch.clamp_min(b.abs(), 1.0)).max())
-                    if a.numel() else 0.0)
-    max_abs = float((t_k - t_p).abs().max()) if t_k.numel() else 0.0
-    n_prim = int(prim_diff.sum())
-    log(f"[kernels] closest {name}: {n} rays, found {int(p[4].sum())}, "
-        f"found mismatches {found_diff}, prim mismatches {n_prim} "
-        f"(ties ok: {tie_ok}), max rel err t/u/v "
-        f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
-    if found_diff + n_prim >= TIE_FRAC * n or not tie_ok \
-            or max(errs) > RTOL:
-        raise AssertionError(f"closest-hit kernel disagrees on {name}")
-    return max_abs
+def mismatches(k, ref):
+    """Elements in which the tensors of k and ref differ (a differing
+    count, dtype or shape counts as everything)."""
+    if len(k) != len(ref):
+        return max(1, sum(a.numel() for a in k))
+    n = 0
+    for a, b in zip(k, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            n += max(a.numel(), b.numel(), 1)
+        else:
+            n += int((a != b).sum())
+    return n
 
 
-def compare_anyhit(name, k, p):
-    n = k.shape[0]
-    flips = int((k != p).sum())
-    log(f"[kernels] anyhit {name}: {n} rays, blocked {int(p.sum())}, "
-        f"flips {flips}")
-    if flips >= TIE_FRAC * n:
-        raise AssertionError(f"any-hit kernel disagrees on {name}")
-    return float(flips > 0)
+def max_abs_err(k, ref):
+    """max |a - b| over the paired tensors of k and ref (bools as 0/1; a NaN
+    in both counts as agreement, a NaN in one as an infinite error)."""
+    err = 0.0
+    for a, b in zip(k, ref):
+        if not a.numel():
+            continue
+        a, b = a.double(), b.double()
+        diff = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0,
+                           (a - b).abs().nan_to_num(nan=float("inf")))
+        err = max(err, float(diff.max()))
+    return err
+
+
+def tri_forms(n, gen, dev):
+    """(name, tmin, tmax) of the forms the brute-force kernels are checked
+    in: numbers, and a 0-dim tmin with an (N,) tmax of NaN lanes."""
+    tmax = torch.rand(n, generator=gen, device=dev) * 6.0
+    tmax[::97] = float("nan")
+    return [("numbers", 1e-4, 1e30),
+            ("tensors", torch.tensor(1e-4, device=dev), tmax)]
+
+
+def tri_cases(dev):
+    """{name: dict(geom, o, d, forms, tmax)}: the Cornell box's geometry
+    with the 2^20 camera rays of a 1024^2 image, and a random 512-triangle
+    soup (in the Cornell geometry's place, no sphere or disk) with 2^20
+    random rays; ``tmax`` is the (N,) any-hit tmax timed."""
+    scene, _ = tiny_cornell(dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    _, o, d = camera_rays(scene, RES)
+    (p0, e1, e2), o_r, d_r = random_soup(gen, ci.MAX_TRIS, N_RAYS, dev)
+    soup = dataclasses.replace(
+        scene.geom, tri_p0=p0, tri_e1=e1, tri_e2=e2, n_tris=ci.MAX_TRIS,
+        tri_shape=torch.randint(0, 9, (ci.MAX_TRIS,), generator=gen,
+                                device=dev, dtype=Int))
+    out = {}
+    for name, geom, oo, dd in (("cornell", scene.geom, o, d),
+                               ("random512", soup, o_r, d_r)):
+        out[name] = dict(
+            geom=geom, o=oo, d=dd, forms=tri_forms(N_RAYS, gen, dev),
+            tmax=torch.rand(N_RAYS, generator=gen, device=dev) * 6.0)
+    return out
+
+
+def check_tri(name, case):
+    """Both brute-force kernels against their plain versions, bit for bit,
+    in each tmin/tmax form: the closest hit, the hit record (against its
+    plain epilogue and against intersect.merge_hits) and the any hit.
+    Returns the largest |kernel - plain| of (closest: t, u, v of both
+    queries; anyhit: blocked as 0/1)."""
+    geom, o, d = case["geom"], case["o"], case["d"]
+    tris = (geom.tri_p0, geom.tri_e1, geom.tri_e2)
+    err = {"closest": 0.0, "anyhit": 0.0}
+    for form, tmin, tmax in case["forms"]:
+        p = ci.closest_tris_plain(*tris, o, d, tmin, tmax)
+        k = ci.closest_tris_v(*tris, o, d, tmin, tmax)
+        rec = ci.closest_hit_v(*tris, geom.tri_shape, o, d, tmin, tmax)
+        prec = ci.hit_record_plain(geom.tri_shape, *p)
+        merged = isect.merge_hits(geom, o, d, tmin, tmax, p)
+        pb = ci.anyhit_tris_plain(*tris, o, d, tmin, tmax)
+        kb = ci.anyhit_tris_v(*tris, o, d, tmin, tmax)
+        mism = {
+            "closest": mismatches(k, p),
+            "record": mismatches(rec, prec),
+            "record vs merge": mismatches(rec, [getattr(merged, f) for f in (
+                "t", "kind", "prim", "shape", "u", "v")]),
+            "anyhit": mismatches((kb,), (pb,))}
+        err["closest"] = max(err["closest"], max_abs_err(k[:3], p[:3]),
+                             max_abs_err([rec[i] for i in (0, 4, 5)],
+                                         [prec[i] for i in (0, 4, 5)]))
+        err["anyhit"] = max(err["anyhit"], max_abs_err((kb,), (pb,)))
+        log(f"[kernels] {name}, tmin/tmax {form}: {o.x.shape[0]} rays x "
+            f"{tris[0].shape[0]} triangles, found {int(p[4].sum())}, "
+            f"blocked {int(pb.sum())}; mismatches "
+            + ", ".join(f"{k} {v}" for k, v in mism.items())
+            + f"; max |err| closest {err['closest']}, anyhit "
+              f"{err['anyhit']}")
+        if any(mism.values()):
+            raise AssertionError(f"brute-force kernels disagree on {name}")
+    return err
 
 
 def kernel_phase(dev):
-    scene, _ = tiny_cornell(dev)
-    g = scene.geom
+    cases = tri_cases(dev)
+    err = {"closest": 0.0, "anyhit": 0.0}
+    for name, case in cases.items():
+        for k, e in check_tri(name, case).items():
+            err[k] = max(err[k], e)
+
+    # timings at the Cornell path's shape (2^20 rays x 12 triangles), as
+    # the main path calls the kernels
+    c = cases["cornell"]
+    g, o, d, tmax = c["geom"], c["o"], c["d"], c["tmax"]
     tris = (g.tri_p0, g.tri_e1, g.tri_e2)
-    _, o, d = camera_rays(scene, RES)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    tmax_any = torch.rand(N_RAYS, generator=gen, device=dev) * 6.0
-    cases = [("cornell", tris, o, d)]
-    soup, o_r, d_r = random_soup(gen, ci.MAX_TRIS, N_RAYS, dev)
-    cases.append(("random512", soup, o_r, d_r))
-
-    err_c = err_a = 0.0
-    for name, tr, oo, dd in cases:
-        k = ci.closest_tris_v(*tr, oo, dd, 1e-4, 1e30)
-        p = ci.closest_tris_plain(*tr, oo, dd, 1e-4, 1e30)
-        torch.cuda.synchronize()
-        err_c = max(err_c, compare_closest(name, k, p))
-        k = ci.anyhit_tris_v(*tr, oo, dd, 1e-4, tmax_any)
-        p = ci.anyhit_tris_plain(*tr, oo, dd, 1e-4, tmax_any)
-        torch.cuda.synchronize()
-        err_a = max(err_a, compare_anyhit(name, k, p))
-
-    # timings at the Cornell path's shape: 2^20 rays x 12 triangles
-    timing = {}
-    for key, fn in (
-            ("closest", lambda: ci.closest_tris_v(*tris, o, d, 1e-4, 1e30)),
-            ("closest_plain",
-             lambda: ci.closest_tris_plain(*tris, o, d, 1e-4, 1e30)),
-            ("anyhit", lambda: ci.anyhit_tris_v(*tris, o, d, 1e-4, tmax_any)),
-            ("anyhit_plain",
-             lambda: ci.anyhit_tris_plain(*tris, o, d, 1e-4, tmax_any))):
-        timing[key] = cuda_ms(fn, 20)
-    log("[kernels] ms per call at 2^20 rays x 12 tris: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()))
-    # bounds: each ray reads 8 f32 and writes 4 x 4 B + 1 B (closest) or
-    # 1 B (any hit); 40 flops per ray-triangle pair
+    calls = {
+        "closest": lambda: ci.closest_hit_v(*tris, g.tri_shape, o, d, 1e-4,
+                                            1e30),
+        "anyhit": lambda: ci.anyhit_tris_v(*tris, o, d, 1e-4, tmax)}
+    timing = median_ms_in_turns(calls, 21)
+    device = device_ms_in_turns(calls, 21)
+    timing.update(median_ms_in_turns({
+        "closest_plain": lambda: isect.merge_hits(
+            g, o, d, 1e-4, 1e30, ci.closest_tris_plain(*tris, o, d, 1e-4,
+                                                       1e30)),
+        "anyhit_plain": lambda: ci.anyhit_tris_plain(*tris, o, d, 1e-4,
+                                                     tmax)}, 3))
     T = tris[0].shape[0]
-    timing["closest_bound"] = bound(N_RAYS * (32 + 17) + T * 36,
-                                    N_RAYS * T * FLOP_TRI)
-    timing["anyhit_bound"] = bound(N_RAYS * (32 + 1) + T * 36,
-                                   N_RAYS * T * FLOP_TRI)
-    return err_c, err_a, timing
+    bounds = tri_bounds(N_RAYS, T)
+    costs = kernel_costs(sass_text(ci.LIBRARY.path()))
+    for k, q in (("closest", "record"), ("anyhit", "anyhit")):
+        timing[f"{k}_device"] = device[k]
+        timing[f"{k}_bound"] = bounds[q]
+        timing[f"{k}_err"] = err[k]
+        floor = issue_floor_ms(tris, o, d, 1e-4,
+                               1e30 if k == "closest" else tmax, costs[q],
+                               k == "anyhit")
+        log(f"[kernels] {k} at 2^20 rays x {T} tris: events "
+            f"{timing[k]:.4f} ms, device {fmt(device[k])} ms, plain "
+            f"{timing[k + '_plain']:.4f} ms; bound {bounds[q][0]:.4f} ms "
+            f"({bounds[q][1]}); SASS instructions per pair by stage reached "
+            f"(det, u, v, all) {costs[q]}, issue floor {floor:.4f} ms "
+            f"(a model: these costs at {ISSUE_PER_S:.4e} lane "
+            f"instructions/s)")
+    return timing
 
 
 def luminance(img):
@@ -677,18 +812,20 @@ def large_parity_phase(cuda_scene):
                 path_luminance(cpu_scene, 64, L_DEPTH))
 
 
-def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
-                  bnd):
+def kernel_record(name, source, replaces, launches, err, timing, key,
+                  device_ms=None):
+    bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+                launches=launches, max_abs_err=err, ms=timing[key],
+                plain_ms=timing[key + "_plain"], bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None, device_ms=device_ms)
 
 
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
-    err_c, err_a, timing = kernel_phase(dev)
+    timing = kernel_phase(dev)
     launches = main_path_phase(dev)
     parity_phase(dev)
 
@@ -703,18 +840,16 @@ def main():
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
-                      launches[0], err_c, timing["closest"],
-                      timing["closest_plain"], timing["closest_bound"]),
+                      launches[0], timing["closest_err"], timing, "closest",
+                      timing["closest_device"]),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
-                      launches[1], err_a, timing["anyhit"],
-                      timing["anyhit_plain"], timing["anyhit_bound"]),
+                      launches[1], timing["anyhit_err"], timing, "anyhit",
+                      timing["anyhit_device"]),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[0], err_h, htiming["closest"],
-                      htiming["closest_plain"], htiming["closest_bound"]),
+                      hlaunches[0], err_h, htiming, "closest"),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[1], err_ha, htiming["anyhit"],
-                      htiming["anyhit_plain"], htiming["anyhit_bound"]),
+                      hlaunches[1], err_ha, htiming, "anyhit"),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

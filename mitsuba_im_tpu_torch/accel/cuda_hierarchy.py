@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from ..core.types import Float, Int
-from .cuda_intersect import NVCC_FLAGS, _check, _ptrs, _rays
+from .cuda_intersect import NVCC_FLAGS, _check, _device, _ptrs, _rays
 from .hierarchy import SWEEP_GROUP, Hierarchy, intersect_hierarchy_plain
 from .shared_lib import SharedLibrary, nvcc
 
@@ -79,12 +79,6 @@ def _kernel_args(h: Hierarchy, o, d, tmin, tmax, active):
             h.n_supers, *_ptrs(tabs[2:]), int(h.instanced), int(h.indirect)]
     # keep the contiguous copies alive until the launch is queued
     return args, (comps, act), n, dev
-
-
-def _device(o):
-    if o.x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {o.x.device}")
-    return o.x.device.type
 
 
 def _launch(entry, args, outs, dev):

@@ -2,24 +2,37 @@
 ``csrc/tri_intersect.cu`` and their plain PyTorch versions.
 
 Replaces ``mitsuba_im_tpu/accel/pallas_intersect.py``: ``closest_tris_v``
-stands for ``_closest_planes``/``_closest_kernel`` (:228, :79) and
-``anyhit_tris_v`` for ``_anyhit_planes``/``_anyhit_kernel`` (:251, :130).
+and ``closest_hit_v`` stand for ``_closest_planes``/``_closest_kernel``
+(:228, :79) and ``anyhit_tris_v`` for ``_anyhit_planes``/``_anyhit_kernel``
+(:251, :130).
 
-What bounds them on the H100: each ray reads 8 f32 (32 B) and the closest
-query writes 4 x 4 B + 1 B, about 49 B per ray, so 1M rays move ~50 MB,
-~15 us at 3.35 TB/s.  The arithmetic is ~40 flops per ray-triangle pair:
-at the slice's T = 12 that is ~0.5 GFLOP per 1M rays (~7 us at 67 TFLOP/s
-float32), and at T = 512 ~20 GFLOP (~0.3 ms).  So the kernels are bound by
-memory and launch at the Cornell box and by issue rate on large soups.  The
-soup itself (T <= 512 triangles x 9 f32 = 18 KB) fits in one block's static
-shared memory with room to spare, so each block stages it once and every
-thread reads it as broadcasts: no padded rays, no lane-replicated copies.
+What bounds them on the H100: on the main path each ray reads its origin
+and direction (24 B) and the closest query writes the 24 B hit record (the
+any-hit query reads a 4 B tmax and writes 1 B), ~15 us (~9 us) per 2^20
+rays at 3.35 TB/s.  The arithmetic is ~40 flops per ray-triangle pair, but
+unfused and with an IEEE reciprocal it issues ~80 instructions for a pair
+that passes every test, so the card's issue rate sets the floor at the
+Cornell box's 12 triangles already, and rules at 512.  The kernel stages
+the soup (T <= 512 triangles, 24 KB) in each block's shared memory and
+rejects a pair at the first rounded value that rules it out; the source
+note says how.
 
 Dispatch: a CPU tensor goes to the plain version, which is the broadcast
 Moeller-Trumbore with argmin of ``mitsuba_im_tpu/accel/intersect.py``
 (:147-152, :555-559), evaluated in ray chunks; a CUDA tensor goes to the
-kernel, or the wrapper raises.  Each wrapper counts its kernel launches in
-a plain integer attribute (``closest_tris_v.launches``).
+kernel, or the wrapper raises.  ``closest_tris_v`` returns (t, u, v, prim,
+found); ``closest_hit_v`` the hit record of a scene of triangles only, (t,
+kind, prim, shape, u, v) in the field order of ``scene.geometry.Hit``,
+which the kernel writes itself (plain version: :func:`hit_record_plain`).
+Both launch the closest-hit kernel and count it in
+``closest_tris_v.launches``; ``anyhit_tris_v.launches`` counts the other.
+
+``tmin`` and ``tmax`` may be numbers, 0-dim tensors or (N,) float32
+tensors of any stride.  The kernels take a number as a float32 argument
+(``ctypes.c_float`` rounds to nearest, as ``torch.full`` does for the plain
+version) and a tensor as a pointer with its stride (0 for a 0-dim or
+expanded one): nothing is filled or copied per call.  The outputs of a
+call are views of one buffer.
 
 The library is built at first use with ``nvcc`` (sm_90a, -O3, -fmad=false)
 by :mod:`.shared_lib` and loaded with ``ctypes``.
@@ -30,35 +43,47 @@ import ctypes
 
 import torch
 
-from ..core.types import Float, Int
+from ..core.types import INVALID, Float, Int
+from ..scene.geometry import KIND_NONE, KIND_TRI
 from .shared_lib import SharedLibrary, nvcc
 
 MAX_TRIS = 512
 BIG = 3.0e37
 _CHUNK_ELEMS = 1 << 22  # rays x tris per plain-version chunk (~16 MB/temp)
+# The version of the C entry points this binding calls (tri_interface).
+INTERFACE = 2
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
+BUILD_FLAGS = NVCC_FLAGS + (f"-DKIND_NONE={KIND_NONE}",
+                            f"-DKIND_TRI={KIND_TRI}",
+                            f"-DINVALID_ID={INVALID}")
 
 
 def _bind(lib):
+    if lib.tri_interface() != INTERFACE:
+        raise RuntimeError(f"tri_intersect: interface {lib.tri_interface()}"
+                           f", this binding calls {INTERFACE}")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tri_closest.argtypes = [p] * 11 + [i, i] + [p] * 5 + [p]
+    args = [p] * 6 + [p, ctypes.c_longlong, ctypes.c_float] * 2 + [p] * 3 \
+        + [i, i]
+    lib.tri_closest.argtypes = args + [p] * 8 + [p]
     lib.tri_closest.restype = i
-    lib.tri_anyhit.argtypes = [p] * 11 + [i, i] + [p] + [p]
+    lib.tri_anyhit.argtypes = args + [p] + [p]
     lib.tri_anyhit.restype = i
 
 
-LIBRARY = SharedLibrary("tri_intersect.cu", nvcc, NVCC_FLAGS, _bind)
+LIBRARY = SharedLibrary("tri_intersect.cu", nvcc, BUILD_FLAGS, _bind)
 
 
 # ---------------------------------------------------------------------------
-# argument checks shared by both wrappers
+# argument checks
 # ---------------------------------------------------------------------------
 
 def _rays(o, d, tmin, tmax):
-    """Validate the SoA rays; expand scalar tmin/tmax to (N,) tensors."""
+    """Validate the SoA rays; expand scalar tmin/tmax to (N,) tensors (the
+    plain versions' and the hierarchy kernels' form)."""
     comps = [o.x, o.y, o.z, d.x, d.y, d.z]
     n = comps[0].shape[0]
     dev = comps[0].device
@@ -95,13 +120,20 @@ def _check(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _device(o):
+    if o.x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {o.x.device}")
+    return o.x.device.type
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path, and the kernels' reference on the card)
 # ---------------------------------------------------------------------------
 
 def _moeller_trumbore(r, p0, e1, e2, tlim):
     """(R, 1) ray components against (1, T) triangle components; the same
-    operations in the same order as the kernel."""
+    operations in the same order as the kernel.  Returns (hit, t, u, v,
+    ok), ``ok`` the determinant test."""
     ox, oy, oz, dx, dy, dz, tmin = r
     p0x, p0y, p0z = p0[:, 0], p0[:, 1], p0[:, 2]
     e1x, e1y, e1z = e1[:, 0], e1[:, 1], e1[:, 2]
@@ -123,7 +155,7 @@ def _moeller_trumbore(r, p0, e1, e2, tlim):
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > tmin) & (t < tlim))
-    return hit, t, u, v
+    return hit, t, u, v, ok
 
 
 def _chunks(n, T):
@@ -143,7 +175,7 @@ def closest_tris_plain(p0, e1, e2, o, d, tmin, tmax):
     found = torch.empty(n, dtype=torch.bool, device=dev)
     for a, b in _chunks(n, T):
         r = [c[a:b, None] for c in comps]
-        hit, t, u, v = _moeller_trumbore(r[:7], p0, e1, e2, r[7])
+        hit, t, u, v, _ = _moeller_trumbore(r[:7], p0, e1, e2, r[7])
         tm = torch.where(hit, t, BIG)
         idx = torch.argmin(tm, dim=1)  # first index on ties
         tbest = torch.amin(tm, dim=1)
@@ -156,6 +188,18 @@ def closest_tris_plain(p0, e1, e2, o, d, tmin, tmax):
     return t_out, u_out, v_out, prim, found
 
 
+def hit_record_plain(tri_shape, t, u, v, prim, found):
+    """The closest-hit kernel's record epilogue: (t, kind, prim, shape, u,
+    v) from :func:`closest_tris_plain`'s (t, u, v, prim, found), as
+    ``accel/intersect.py``'s merge makes it when no sphere or disk can be
+    hit (BIG, KIND_NONE, 0, INVALID, 0, 0 on a miss)."""
+    return (torch.where(found, t, BIG),
+            torch.where(found, KIND_TRI, KIND_NONE).to(Int),
+            torch.where(found, prim, 0),
+            torch.where(found, tri_shape[prim], INVALID),
+            torch.where(found, u, 0.0), torch.where(found, v, 0.0))
+
+
 def anyhit_tris_plain(p0, e1, e2, o, d, tmin, tmax):
     """Does any triangle block the ray within (tmin, tmax)?  (N,) bool."""
     comps, n, dev = _rays(o, d, tmin, tmax)
@@ -163,7 +207,7 @@ def anyhit_tris_plain(p0, e1, e2, o, d, tmin, tmax):
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     for a, b in _chunks(n, T):
         r = [c[a:b, None] for c in comps]
-        hit, _, _, _ = _moeller_trumbore(r[:7], p0, e1, e2, r[7])
+        hit = _moeller_trumbore(r[:7], p0, e1, e2, r[7])[0]
         blocked[a:b] = hit.any(dim=1)
     return blocked
 
@@ -172,58 +216,122 @@ def anyhit_tris_plain(p0, e1, e2, o, d, tmin, tmax):
 # wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
 
-def _kernel_inputs(p0, e1, e2, o, d, tmin, tmax):
-    comps, n, dev = _rays(o, d, tmin, tmax)
+def _bound(c, n, dev):
+    """tmin or tmax as the kernels take it: (pointer, stride, value) and
+    the tensor to keep alive until the launch is queued."""
+    if not isinstance(c, torch.Tensor):
+        return (None, 0, float(c)), None
+    if c.dim() == 0:
+        if c.dtype != Float:
+            c = c.to(Float)
+        stride = 0
+    elif c.shape == (n,):
+        stride = c.stride(0)
+    else:
+        stride = None
+    if stride is None or c.dtype != Float or c.device != dev:
+        raise ValueError("tmin/tmax must be numbers, or 0-dim or (N,) "
+                         "float32 tensors on the rays' device")
+    return (c.data_ptr(), stride, 0.0), c
+
+
+def _kernel_args(p0, e1, e2, o, d, tmin, tmax):
+    """The entry points' arguments up to n, the tensors to keep alive, n
+    and the device."""
+    comps = [c.contiguous() for c in (*o, *d)]
+    n, dev = comps[0].shape[0], comps[0].device
+    for c in comps:
+        if c.shape != (n,) or c.dtype != Float or c.device != dev:
+            raise ValueError("rays must be (N,) float32 tensors on one device")
     T = _tris(p0, e1, e2, dev)
-    comps = [c.contiguous() for c in comps]
     tris = [a.contiguous() for a in (p0, e1, e2)]
-    return comps, tris, n, T, dev
+    lo, keep_lo = _bound(tmin, n, dev)
+    hi, keep_hi = _bound(tmax, n, dev)
+    args = [*_ptrs(comps), *lo, *hi, *_ptrs(tris), T, n]
+    return args, (comps, tris, keep_lo, keep_hi), n, dev
+
+
+def _launch(entry, args, dev):
+    """Queue ``entry`` on the current stream of ``dev``."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        err = entry(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = entry(*args, stream)
+    _check(err, entry.__name__)
+
+
+def _closest(lib, p0, e1, e2, tri_shape, o, d, tmin, tmax):
+    """Launch ``lib``'s closest-hit kernel without counting: (t, u, v,
+    prim, found), or with ``tri_shape`` the hit record (t, kind, prim,
+    shape, u, v)."""
+    args, keep, n, dev = _kernel_args(p0, e1, e2, o, d, tmin, tmax)
+    if tri_shape is None:
+        buf = torch.empty(17 * n, dtype=torch.uint8, device=dev)
+        t, u, v, prim = buf[:16 * n].view(Float).view(4, n).unbind(0)
+        prim, found = prim.view(Int), buf[16 * n:].view(torch.bool)
+        outs = (t, u, v, prim, found)
+        ptrs = [None, *_ptrs(outs), None, None]
+    else:
+        if (tri_shape.shape != p0.shape[:1] or tri_shape.dtype != Int
+                or tri_shape.device != dev):
+            raise ValueError("tri_shape must be a (T,) int32 tensor on the "
+                             "rays' device")
+        tri_shape = tri_shape.contiguous()
+        t, u, v, prim, kind, shape = torch.empty(
+            (6, n), dtype=Float, device=dev).unbind(0)
+        prim, kind, shape = prim.view(Int), kind.view(Int), shape.view(Int)
+        outs = (t, kind, prim, shape, u, v)
+        ptrs = [tri_shape.data_ptr(), *_ptrs((t, u, v, prim)), None,
+                *_ptrs((kind, shape))]
+    if n:
+        _launch(lib.tri_closest, args + ptrs, dev)
+    return outs
+
+
+def _anyhit(lib, p0, e1, e2, o, d, tmin, tmax):
+    """Launch ``lib``'s any-hit kernel without counting -> (N,) bool."""
+    args, keep, n, dev = _kernel_args(p0, e1, e2, o, d, tmin, tmax)
+    blocked = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _launch(lib.tri_anyhit, [*args, blocked.data_ptr()], dev)
+    return blocked
 
 
 def closest_tris_v(p0, e1, e2, o, d, tmin, tmax):
     """Closest hit over the soup for SoA rays (o, d: V3 of (N,) tensors).
 
     Returns (t, u, v, prim, found) as in :func:`closest_tris_plain`."""
-    if o.x.device.type == "cpu":
+    if _device(o) == "cpu":
         return closest_tris_plain(p0, e1, e2, o, d, tmin, tmax)
-    if o.x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {o.x.device}")
-    comps, tris, n, T, dev = _kernel_inputs(p0, e1, e2, o, d, tmin, tmax)
-    lib = LIBRARY.load()
-    t = torch.empty(n, dtype=Float, device=dev)
-    u = torch.empty(n, dtype=Float, device=dev)
-    v = torch.empty(n, dtype=Float, device=dev)
-    prim = torch.empty(n, dtype=Int, device=dev)
-    found = torch.empty(n, dtype=torch.bool, device=dev)
-    if n == 0:
-        return t, u, v, prim, found
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.tri_closest(*_ptrs(comps), *_ptrs(tris), n, T,
-                              *_ptrs((t, u, v, prim, found)), stream)
-    _check(err, "tri_closest")
-    closest_tris_v.launches += 1
-    return t, u, v, prim, found
+    out = _closest(LIBRARY.load(), p0, e1, e2, None, o, d, tmin, tmax)
+    if out[0].numel():
+        closest_tris_v.launches += 1
+    return out
+
+
+def closest_hit_v(p0, e1, e2, tri_shape, o, d, tmin, tmax):
+    """The hit record (t, kind, prim, shape, u, v) of a scene whose only
+    primitives are the soup, ``tri_shape`` (T,) giving each triangle's
+    shape id; the kernel's launches count in ``closest_tris_v.launches``."""
+    if _device(o) == "cpu":
+        return hit_record_plain(tri_shape, *closest_tris_plain(
+            p0, e1, e2, o, d, tmin, tmax))
+    out = _closest(LIBRARY.load(), p0, e1, e2, tri_shape, o, d, tmin, tmax)
+    if out[0].numel():
+        closest_tris_v.launches += 1
+    return out
 
 
 def anyhit_tris_v(p0, e1, e2, o, d, tmin, tmax):
     """Any-hit over the soup for SoA rays -> (N,) bool."""
-    if o.x.device.type == "cpu":
+    if _device(o) == "cpu":
         return anyhit_tris_plain(p0, e1, e2, o, d, tmin, tmax)
-    if o.x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {o.x.device}")
-    comps, tris, n, T, dev = _kernel_inputs(p0, e1, e2, o, d, tmin, tmax)
-    lib = LIBRARY.load()
-    blocked = torch.empty(n, dtype=torch.bool, device=dev)
-    if n == 0:
-        return blocked
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.tri_anyhit(*_ptrs(comps), *_ptrs(tris), n, T,
-                             blocked.data_ptr(), stream)
-    _check(err, "tri_anyhit")
-    anyhit_tris_v.launches += 1
-    return blocked
+    out = _anyhit(LIBRARY.load(), p0, e1, e2, o, d, tmin, tmax)
+    if out.numel():
+        anyhit_tris_v.launches += 1
+    return out
 
 
 closest_tris_v.launches = 0

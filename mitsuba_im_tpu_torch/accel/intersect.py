@@ -8,6 +8,8 @@ CUDA kernel on the card and its plain version on the CPU.  Analytic spheres
 and disks are tested in plain torch, one table row at a time at full lane
 width, and merged with the triangle hit exactly as the reference does
 (``intersect`` :336-374, ``intersect_v`` :462-493, ``occluded`` :525-542).
+Where a brute-force scene has no sphere and no disk, the merge reduces to
+a record of the triangle hit, which the closest-hit kernel writes itself.
 Intersection inputs are detached: visibility is not differentiated (the
 reference's ``stop_gradient``, :457).
 
@@ -99,14 +101,28 @@ def _disk_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
 def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
                 clusters: Hierarchy | None = None, active=None,
                 coherent=False) -> Hit:
-    """Closest hit over SoA rays (``coherent``: see the module note)."""
+    """Closest hit over SoA rays (``coherent``: see the module note).
+
+    A brute-force scene of triangles only takes its hit record from the
+    closest-hit query itself (``cuda_intersect.closest_hit_v``, equal to
+    :func:`merge_hits` there); every other scene merges."""
     o, d = _detach(o), _detach(d)
     if _use_hierarchy(geom, clusters):
-        tbest, tu, tv, ti, _, tvalid = ch.hier_closest(
+        t, u, v, prim, _, found = ch.hier_closest(
             clusters, o, d, tmin, tmax, active=active)
-    else:
-        tbest, tu, tv, ti, tvalid = ci.closest_tris_v(
-            geom.tri_p0, geom.tri_e1, geom.tri_e2, o, d, tmin, tmax)
+        return merge_hits(geom, o, d, tmin, tmax, (t, u, v, prim, found))
+    tris = (geom.tri_p0, geom.tri_e1, geom.tri_e2)
+    if not (geom.n_spheres or geom.n_disks):
+        return Hit(*ci.closest_hit_v(*tris, geom.tri_shape, o, d, tmin,
+                                     tmax))
+    return merge_hits(geom, o, d, tmin, tmax,
+                      ci.closest_tris_v(*tris, o, d, tmin, tmax))
+
+
+def merge_hits(geom: Geometry, o: V3, d: V3, tmin, tmax, tri) -> Hit:
+    """The closest of the triangle hit ``tri`` = (t, u, v, prim, found) and
+    the scene's spheres and disks, as the reference merges them."""
+    tbest, tu, tv, ti, tvalid = tri
     si, sbest, _ = _sphere_best_v(geom, o, d, tmin, tmax)
     di, dbest, _ = _disk_best_v(geom, o, d, tmin, tmax)
 

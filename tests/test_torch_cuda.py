@@ -40,22 +40,63 @@ def _rays(gen, n, dev):
     return V3.from_array(o.contiguous()), V3.from_array(d.contiguous())
 
 
+def _same(k, p):
+    return all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p))
+
+
 @pytest.mark.parametrize("T", [1, 12, 333, 512])
 def test_kernels_match_plain_versions(cuda, T):
+    """Both brute-force kernels equal their plain versions bit for bit:
+    the closest hit, raw and as the hit record, and the any hit, with
+    tmin/tmax as numbers and as tensors (0-dim, expanded, (N,) with NaN
+    lanes), for no ray and for a ragged count; one launch per call with
+    rays, none without."""
     gen = torch.Generator(device=cuda).manual_seed(T)
     tris = [torch.rand(T, 3, generator=gen, device=cuda) * s - s / 2
             for s in (2.0, 0.6, 0.6)]
-    n = 100_003  # ragged last block
+    shape = torch.randint(0, 9, (T,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    for n in (0, 100_003):  # 100_003: a ragged last block
+        o, d = _rays(gen, n, cuda)
+        tmax = torch.rand(n, generator=gen, device=cuda) * 3.0
+        tmax[::97] = float("nan")
+        forms = [(1e-4, 1e30), (1e-4, tmax),
+                 (torch.tensor(1e-4, device=cuda),
+                  torch.tensor(2.0, device=cuda).expand(n)),
+                 (torch.full((n,), 1e-4, device=cuda), tmax)]
+        ci.reset_launch_counts()
+        for tmin, tm in forms:
+            p = ci.closest_tris_plain(*tris, o, d, tmin, tm)
+            assert _same(ci.closest_tris_v(*tris, o, d, tmin, tm), p)
+            assert _same(ci.closest_hit_v(*tris, shape, o, d, tmin, tm),
+                         ci.hit_record_plain(shape, *p))
+            assert torch.equal(ci.anyhit_tris_v(*tris, o, d, tmin, tm),
+                               ci.anyhit_tris_plain(*tris, o, d, tmin, tm))
+            if n:
+                assert bool(p[4].any()) and not bool(p[4].all())
+        calls = len(forms) if n else 0
+        assert (ci.closest_tris_v.launches,
+                ci.anyhit_tris_v.launches) == (2 * calls, calls)
+
+
+def test_cornell_hit_record_matches_merge(cuda):
+    """On the card, ``intersect_v`` of the Cornell box (the kernel's hit
+    record) equals ``merge_hits`` of the plain closest hit bit for bit."""
+    from mitsuba_im_tpu_torch.accel import intersect as isect
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = tiny_cornell(cuda)[0].geom
+    n = 100_003
     o, d = _rays(gen, n, cuda)
-    tmax = torch.rand(n, generator=gen, device=cuda) * 3.0
+    o = V3(o.x * 0.6, o.y * 0.6 + 1.0, o.z * 0.6)  # inside the box
     ci.reset_launch_counts()
-    k = ci.closest_tris_v(*tris, o, d, 1e-4, 1e30)
-    p = ci.closest_tris_plain(*tris, o, d, 1e-4, 1e30)
-    for a, b in zip(k, p):
-        assert torch.equal(a, b)
-    kb = ci.anyhit_tris_v(*tris, o, d, 1e-4, tmax)
-    assert torch.equal(kb, ci.anyhit_tris_plain(*tris, o, d, 1e-4, tmax))
-    assert (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches) == (1, 1)
+    hit = isect.intersect_v(g, o, d, 1e-4, 1e30)
+    merged = isect.merge_hits(g, o, d, 1e-4, 1e30, ci.closest_tris_plain(
+        g.tri_p0, g.tri_e1, g.tri_e2, o, d, 1e-4, 1e30))
+    fields = ("t", "kind", "prim", "shape", "u", "v")
+    assert _same([getattr(hit, f) for f in fields],
+                 [getattr(merged, f) for f in fields])
+    assert ci.closest_tris_v.launches == 1
 
 
 def test_cornell_render_card_vs_cpu(cuda):

@@ -96,8 +96,10 @@ def test_wrappers_route_by_device():
     device reaches a kernel or raises, never a plain version."""
     ci.reset_launch_counts()
     tris = [torch.zeros(2, 3) for _ in range(3)]
+    shape = torch.zeros(2, dtype=torch.int32)
     o = V3(*(torch.zeros(4) for _ in range(3)))
     ci.closest_tris_v(*tris, o, o, 0.0, 1.0)
+    ci.closest_hit_v(*tris, shape, o, o, 0.0, 1.0)
     ci.anyhit_tris_v(*tris, o, o, 0.0, 1.0)
     assert ci.closest_tris_v.launches == 0 and ci.anyhit_tris_v.launches == 0
     meta = V3(*(torch.zeros(4, device="meta") for _ in range(3)))
@@ -105,7 +107,126 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError):
         ci.closest_tris_v(*mtris, meta, meta, 0.0, 1.0)
     with pytest.raises(ValueError):
+        ci.closest_hit_v(*mtris, shape.to("meta"), meta, meta, 0.0, 1.0)
+    with pytest.raises(ValueError):
         ci.anyhit_tris_v(*mtris, meta, meta, 0.0, 1.0)
+
+
+def _bound_forms(value, n):
+    """The forms a wrapper takes one tmin/tmax value in."""
+    full = torch.full((2 * n,), value, dtype=torch.float32)
+    return {"number": value, "0-dim": torch.tensor(value),
+            "expanded": torch.tensor(value).expand(n),
+            "strided": full[::2], "(N,)": full[:n].clone()}
+
+
+@pytest.mark.parametrize("form", ["number", "0-dim", "expanded", "strided"])
+def test_plain_versions_take_every_bound_form(form):
+    """tmin/tmax as numbers, 0-dim, expanded and strided tensors give the
+    outputs of contiguous (N,) tensors bit for bit; in an (N,) tmax a NaN
+    lane admits no hit and leaves the other lanes as they were."""
+    rng = np.random.default_rng(12)
+    n = 2000
+    g = bridged(jax_cornell()[0]).geom
+    tris, shape = (g.tri_p0, g.tri_e1, g.tri_e2), g.tri_shape
+    o, d = (tv3(a) for a in _cornell_rays(rng, n))
+    tmin, tmax = _bound_forms(1e-4, n), _bound_forms(2.5, n)
+    ref = (ci.closest_tris_v(*tris, o, d, tmin["(N,)"], tmax["(N,)"])
+           + ci.closest_hit_v(*tris, shape, o, d, tmin["(N,)"], tmax["(N,)"])
+           + (ci.anyhit_tris_v(*tris, o, d, tmin["(N,)"], tmax["(N,)"]),))
+    got = (ci.closest_tris_v(*tris, o, d, tmin[form], tmax[form])
+           + ci.closest_hit_v(*tris, shape, o, d, tmin[form], tmax[form])
+           + (ci.anyhit_tris_v(*tris, o, d, tmin[form], tmax[form]),))
+    assert bool(ref[4].any()) and not bool(ref[4].all())
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+    nan = tmax["(N,)"].clone()
+    nan[::5] = float("nan")
+    t, u, v, prim, found = ci.closest_tris_v(*tris, o, d, tmin[form], nan)
+    blocked = ci.anyhit_tris_v(*tris, o, d, tmin[form], nan)
+    lanes = torch.arange(n) % 5 == 0
+    assert not found[lanes].any() and not blocked[lanes].any()
+    assert (t[lanes] == ci.BIG).all() and (prim[lanes] == 0).all()
+    for a, b in zip((t, u, v, prim, found, blocked), ref[:5] + ref[-1:]):
+        assert torch.equal(a[~lanes], b[~lanes])
+
+
+@pytest.mark.parametrize("value", [1e-4, 0.1, 1.0 / 3.0, 2.5, 1e30, 3.0e37,
+                                   -7.0e-39, float("inf"), float("nan")])
+def test_float_argument_rounds_as_the_plain_version(value):
+    """A number reaches the kernels as ``ctypes.c_float``: the float32 that
+    ``torch.full`` gives the plain version, bit for bit."""
+    import ctypes
+    import struct
+
+    kernel = struct.pack("<f", ctypes.c_float(value).value)
+    plain = torch.full((1,), value, dtype=torch.float32).numpy().tobytes()
+    assert kernel == plain
+
+
+def test_kernel_arguments():
+    """What the kernel wrappers hand the entry points (checked here, where
+    no kernel runs): numbers as (null, 0, value), 0-dim and expanded
+    tensors with stride 0, strided ones with their stride; wrong shapes,
+    dtypes and devices raise."""
+    n = 6
+    x = torch.arange(2 * n, dtype=torch.float32)
+    cpu = torch.device("cpu")
+    assert ci._bound(0.5, n, cpu)[0] == (None, 0, 0.5)
+    zero = torch.tensor(0.5)
+    assert ci._bound(zero, n, cpu)[0] == (zero.data_ptr(), 0, 0.0)
+    assert ci._bound(zero.expand(n), n, cpu)[0][1] == 0
+    assert ci._bound(x[::2], n, cpu)[0] == (x.data_ptr(), 2, 0.0)
+    assert ci._bound(torch.tensor(0.5, dtype=torch.float64), n,
+                     cpu)[1].dtype == torch.float32
+    for bad in (x[:n - 1], x[:n].double(), x[:n].reshape(2, 3),
+                torch.zeros(n, device="meta")):
+        with pytest.raises(ValueError):
+            ci._bound(bad, n, cpu)
+
+    tris = [torch.zeros(3, 3) for _ in range(3)]
+    o = V3(*(x[k:k + n] for k in range(3)))
+    args, keep, m, dev = ci._kernel_args(*tris, o, o, 1e-4, x[::2])
+    assert (m, dev) == (n, cpu) and args[-2:] == [3, n]
+    assert args[6:12] == [None, 0, 1e-4, x.data_ptr(), 2, 0.0]
+    assert args[:3] == [c.data_ptr() for c in o]
+    assert args[12:15] == [a.data_ptr() for a in tris]
+
+
+@pytest.mark.parametrize("soup", ["cornell", "random512"])
+def test_hit_record_equals_the_merge(soup):
+    """The closest-hit kernel's record epilogue (its plain version) equals
+    ``intersect.merge_hits`` of the plain closest hit bit for bit on a
+    scene without spheres and disks; ``intersect_v`` returns it there."""
+    import dataclasses
+
+    rng = np.random.default_rng(13)
+    n = 4000
+    g = bridged(jax_cornell()[0]).geom
+    if soup == "cornell":
+        o, d = (tv3(a) for a in _cornell_rays(rng, n))
+    else:
+        p0, e1, e2 = (torch.from_numpy(a) for a in _random_soup(rng, 512))
+        g = dataclasses.replace(
+            g, tri_p0=p0, tri_e1=e1, tri_e2=e2, n_tris=512,
+            tri_shape=torch.from_numpy(rng.integers(0, 9, 512, np.int32)))
+        o = tv3(rng.uniform(-1.5, 1.5, (n, 3)))
+        d = tv3(unit_vectors(rng, n))
+    tris = (g.tri_p0, g.tri_e1, g.tri_e2)
+    for tmin, tmax in ((1e-4, 1e30),
+                       (torch.tensor(1e-4),
+                        torch.from_numpy(rng.uniform(0, 3, n).astype(
+                            np.float32)))):
+        raw = ci.closest_tris_plain(*tris, o, d, tmin, tmax)
+        merged = tisect.merge_hits(g, o, d, tmin, tmax, raw)
+        rec = ci.hit_record_plain(g.tri_shape, *raw)
+        hit = tisect.intersect_v(g, o, d, tmin, tmax)
+        assert bool(raw[4].any()) and not bool(raw[4].all())
+        for k, a in zip(("t", "kind", "prim", "shape", "u", "v"), rec):
+            b = getattr(merged, k)
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+            assert torch.equal(getattr(hit, k), b), k
 
 
 @pytest.mark.parametrize("bad", ["too_many_tris", "dtype", "shape"])

@@ -79,7 +79,8 @@ JAX_FREE = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    import chip_smoke
+    import chip_smoke, bench_tri_kernels, bench_hier_kernels, bench_pass
+    import profile_pass, tri_sass
     leaked = [m for m in sys.modules
               if m == "mitsuba_im_tpu" or m.startswith("mitsuba_im_tpu.")]
     assert not leaked, leaked
