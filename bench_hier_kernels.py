@@ -21,9 +21,11 @@ rays, their shadow rays (any hit, active = found) and chip_smoke.py's
 strung and scattered soups.  Then, at the main path's shapes (closest hit
 on the camera rays, any hit on the shadow rays), it times the builds in
 turns: the card time of one call with ``chip_smoke.median_ms_in_turns``
-(CUDA events around each call, median of ``--reps`` rounds), and the
-host's time to queue one call (median over rounds of 20 calls queued
-while the card sleeps, so no call waits for the card).  A build that does
+(CUDA events around each call, median of ``--reps`` rounds), the kernel's
+own device time with ``chip_smoke.device_ms_in_turns`` (torch.profiler,
+one primed session per round, median of ``--reps``), and the host's time
+to queue one call (median over rounds of 20 calls queued while the card
+sleeps, so no call waits for the card).  A build that does
 not compile is reported and left out; one that disagrees is timed and
 marked (``"exact": false``).  It also prints the bounds of chip_smoke.py
 and the landed kernel's sweep work (``chip_smoke.list_work``).  The last
@@ -50,6 +52,7 @@ from mitsuba_im_tpu_torch.core.types import EPSILON, Float, Int
 from mitsuba_im_tpu_torch.scenes import large_scene
 
 HOST_CALLS = 20  # calls queued per host-time round
+HIER_KERNELS = ("hier_kernel",)  # the traversal kernel's name in a trace
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card sleep: longer than the queueing
 
 
@@ -193,6 +196,8 @@ def main():
         fns[f"{k}/closest"] = lambda f=closest: f(*cam[:5], active=cam[5])
         fns[f"{k}/anyhit"] = lambda f=anyhit: f(*sh[:5], active=sh[5])
     for unit, got in (("ms", cs.median_ms_in_turns(fns, args.reps)),
+                      ("device_ms", cs.device_ms_in_turns(
+                          fns, args.reps, names=HIER_KERNELS)),
                       ("host_us", host_us_in_turns(fns, args.reps))):
         for key, v in got.items():
             k, which = key.split("/")
@@ -215,8 +220,10 @@ def main():
     nan = float("nan")
     for k, r in report.items():
         cs.log(f"[bench] {k}: closest {r.get('closest_ms', nan):.4f} ms "
-               f"(host {r.get('closest_host_us', nan):.1f} us), any hit "
-               f"{r.get('anyhit_ms', nan):.4f} ms (host "
+               f"(device {cs.fmt(r.get('closest_device_ms'))}, host "
+               f"{r.get('closest_host_us', nan):.1f} us), any hit "
+               f"{r.get('anyhit_ms', nan):.4f} ms (device "
+               f"{cs.fmt(r.get('anyhit_device_ms'))}, host "
                f"{r.get('anyhit_host_us', nan):.1f} us), bit for bit "
                f"{r.get('exact', False)}")
     cs.log(f"[bench] bounds {bounds}; work {work}")

@@ -53,7 +53,27 @@ Phases, in order; any failure raises and the run exits non-zero:
    environment in the corners; the pass time from differencing two pass
    counts (2,949,120 rays per pass); peak device memory;
 8. card vs CPU on the same 1.12M-triangle scene at 64^2, depth 3:
-   parity_check.py's gate.
+   parity_check.py's gate;
+9. the Cornell fwd+bwd pass, bench.py's configuration: 1024^2, depth 5,
+   ``remat=True, remat_group=4``, d sum(Li)/d ``bsdf.refl`` and d
+   sum(Li)/d ``emitter.radiance`` (``diff.optimize.render_rays``, sample
+   0): 5 closest + 4 any-hit launches forward and 9 + 8 with the backward
+   pass's replay; every gradient finite; the refl gradient positive on
+   the three wall rows; radiance linearity (the one area light is the
+   only emitter and roulette never fires at depth 5, so d sum(Li)/d
+   radiance[c] = sum(Li_c)/radiance[c], rel < 1e-3); peak device memory
+   of remat_group 4, per-bounce remat and remat=False, and their
+   gradients' max rel difference (< 1e-5); the fwd+bwd pass time from
+   differencing two pass counts and its ratio to phase 4's pass;
+10. card vs CPU gradient: parity_check._grad_cornell's configuration
+   (128^2, depth 5, per-bounce remat, sample 7, d sum(Li)/d refl), max
+   |g_card - g_cpu| / max |g_cpu| < 5e-3;
+11. the large scene's gradient: 768^2, depth 3, per-bounce remat, d
+   sum(Li)/d ``bsdf.alpha`` (which moves ray directions) and d sum(Li)/d
+   ``emitter.radiance``: 3 + 2 hierarchy launches forward and 5 + 4 with
+   the replay, no brute-force launch; finite; a non-zero alpha gradient on
+   the mesh's BSDF; radiance linearity (the unit constant environment is
+   the only emitter); peak device memory and the fwd+bwd pass time.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -78,6 +98,8 @@ from mitsuba_im_tpu_torch.accel import intersect as isect
 from mitsuba_im_tpu_torch.core import rng
 from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON, Int
 from mitsuba_im_tpu_torch.core.v3 import V3
+from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
+    set_params
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
@@ -90,6 +112,7 @@ DEPTH = 5
 SPP = 4
 N_RAYS = 1 << 20
 TRI_KERNELS = ("closest_kernel", "anyhit_kernel")
+HIER_KERNELS = ("hier_kernel",)
 TRI_SOURCE = "mitsuba_im_tpu_torch/csrc/tri_intersect.cu"
 HIER_SOURCE = "mitsuba_im_tpu_torch/csrc/hier_traverse.cu"
 HIER_REPLACES = ("mitsuba_im_tpu/accel/hier_kernel.py:81, "
@@ -98,6 +121,7 @@ HIER_REPLACES = ("mitsuba_im_tpu/accel/hier_kernel.py:81, "
 L_RES = 768  # the large scene
 L_DEPTH = 3
 L_SPP = 2
+G_LABELS = ("bsdf.refl", "emitter.radiance")  # the Cornell gradients
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): memory rate
 # and float32 rate outside the tensor cores
@@ -468,8 +492,9 @@ def main_path_phase(dev):
         raise AssertionError(f"implausible mean luminance {lum.mean()}")
     if not (left[0] > left[1] and right[1] > right[0]):
         raise AssertionError("red wall not on the left / green not on right")
-    pass_time(scene, settings, 2, 6, RES * RES * (1 + 2 * (DEPTH - 1)))
-    return launches
+    per_pass = pass_time(scene, settings, 2, 6,
+                         RES * RES * (1 + 2 * (DEPTH - 1)))
+    return launches, per_pass
 
 
 def parity_gate(name, a, b):
@@ -721,10 +746,12 @@ def hier_phase(dev, scene):
 
     # timings at the main path's width: 768^2 camera rays (closest) and
     # their shadow rays (any hit)
-    timing = median_ms_in_turns({
-        "closest": lambda: ch.hier_closest(h, o, d, EPSILON, 1e30),
-        "anyhit": lambda: ch.hier_anyhit(h, p, w, EPSILON, tmax, found),
-    }, 11)
+    calls = {"closest": lambda: ch.hier_closest(h, o, d, EPSILON, 1e30),
+             "anyhit": lambda: ch.hier_anyhit(h, p, w, EPSILON, tmax,
+                                              found)}
+    timing = median_ms_in_turns(calls, 11)
+    for k, v in device_ms_in_turns(calls, 11, names=HIER_KERNELS).items():
+        timing[f"{k}_device"] = v
     timing.update(median_ms_in_turns({
         "closest_plain": lambda: hy.intersect_hierarchy_plain(
             h, o, d, EPSILON, 1e30),
@@ -759,7 +786,7 @@ def hier_phase(dev, scene):
             f"list {mean_list:.2f} entries, list overflows {over}; bound "
             f"over the supers it tests {own[0]:.4f} ms ({own[1]})")
     log("[hier] ms per call at 768^2 (median): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()
+        + ", ".join(f"{k} {fmt(v)}" for k, v in timing.items()
                     if not k.endswith("bound"))
         + "; bounds "
         + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in timing.items()
@@ -812,13 +839,185 @@ def large_parity_phase(cuda_scene):
                 path_luminance(cpu_scene, 64, L_DEPTH))
 
 
+# ---------------------------------------------------------------------------
+# the differentiable path (d sum(Li) / d scene parameters, path replay)
+# ---------------------------------------------------------------------------
+
+def grad_pass(scene, settings, cfg, labels, sample, counts=None):
+    """d sum(Li)/d params of one sample per pixel (bench.py's fwd+bwd
+    loss) -> (grads, Li (N, 3)); ``counts()`` read after the forward goes
+    into the returned ``fwd_launches``."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in get_params(scene, labels).items()}
+    pix = torch.arange(settings.width * settings.height, device=scene.device)
+    li = render_rays(set_params(scene, params), settings, cfg, pix, sample,
+                     0)
+    fwd = counts() if counts else None
+    li.sum().backward()
+    return {k: p.grad for k, p in params.items()}, li.detach(), fwd
+
+
+def grad_peak(scene, settings, cfg, labels, counts=None):
+    """One fwd+bwd pass from a clean peak: (grads, Li, forward launches,
+    peak device GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = grad_pass(scene, settings, cfg, labels, 0, counts)
+    torch.cuda.synchronize()
+    return (*out, torch.cuda.max_memory_allocated() / 2**30)
+
+
+def grad_pass_time(scene, settings, cfg, labels, k_lo, k_hi, rays, tag):
+    """Per fwd+bwd pass ms from differencing two pass counts (bench.py's
+    definition: rays are the forward queries)."""
+    def run(k):
+        return lambda: [grad_pass(scene, settings, cfg, labels, s)
+                        for s in range(k)]
+
+    t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
+    t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
+    per_pass = (t_hi - t_lo) / (k_hi - k_lo)
+    log(f"[{tag}] fwd+bwd pass time {per_pass:.3f} ms ({k_lo} passes "
+        f"{t_lo:.3f} ms, {k_hi} passes {t_hi:.3f} ms); {rays} rays per pass;"
+        f" {rays / (per_pass * 1e-3):.4e} rays/s")
+    return per_pass
+
+
+def check_linearity(tag, grads, li, radiance):
+    """The only emitter's radiance scales Li: d sum(Li)/d radiance[c] must
+    equal sum(Li_c) / radiance[c] (Li_c summed in float64)."""
+    g = grads["emitter.radiance"][0].double().cpu()
+    want = li.double().sum(0).cpu() / radiance[0].double().cpu()
+    rel = ((g - want).abs() / want.abs()).max().item()
+    log(f"[{tag}] radiance linearity: d sum(Li)/d radiance "
+        f"{g.tolist()}, sum(Li_c)/radiance_c {want.tolist()}, max rel "
+        f"{rel:.3e}")
+    if not rel < 1e-3:
+        raise AssertionError(f"{tag}: radiance gradient not linear ({rel})")
+
+
+def check_finite(tag, grads):
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag}: non-finite gradient of {k}")
+
+
+def grad_rel(a, b):
+    return max((a[k] - b[k]).abs().max().item()
+               / max(b[k].abs().max().item(), 1e-30) for k in b)
+
+
+def cornell_grad_phase(dev, fwd_ms):
+    """9. bench.py's fwd+bwd configuration on the card."""
+    scene, settings = tiny_cornell(dev)
+    settings.width = settings.height = RES
+    n_iters = DEPTH - 1
+    cfg = PathConfig(max_depth=DEPTH, remat=True, remat_group=4)
+
+    def counts():
+        return (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    grads, li, fwd, peak4 = grad_peak(scene, settings, cfg, G_LABELS, counts)
+    launches = counts()
+    log(f"[grad] Cornell {RES}x{RES} depth {DEPTH} remat_group 4: "
+        f"launches forward {fwd}, forward+backward {launches}; peak device "
+        f"memory {peak4:.3f} GiB")
+    want = ((DEPTH, n_iters), (DEPTH + n_iters, 2 * n_iters))
+    if (fwd, launches) != want:
+        raise AssertionError(f"expected forward {want[0]} and fwd+bwd "
+                             f"{want[1]} launches, got {fwd}, {launches}")
+    if ch.hier_closest.launches or ch.hier_anyhit.launches:
+        raise AssertionError("the Cornell box launched hierarchy kernels")
+    check_finite("grad", grads)
+    refl = grads["bsdf.refl"]
+    log(f"[grad] d sum(Li)/d refl rows 0-2 {refl[:3].tolist()}")
+    if not bool((refl[:3] > 0).all()):
+        raise AssertionError("refl gradient not positive on the walls")
+    check_linearity("grad", grads, li, scene.emitters.radiance)
+
+    peaks, rels = {}, {}
+    for name, kw in (("per-bounce remat", dict(remat=True)),
+                     ("remat=False", dict(remat=False))):
+        g, _, _, peaks[name] = grad_peak(scene, settings, PathConfig(
+            max_depth=DEPTH, **kw), G_LABELS)
+        rels[name] = grad_rel(g, grads)
+        del g
+    log(f"[grad] peak device memory: remat_group 4 {peak4:.3f} GiB, "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items())
+        + "; max rel difference of the gradients to remat_group 4: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    if not all(r < 1e-5 for r in rels.values()):
+        raise AssertionError(f"the remat modes disagree: {rels}")
+    rays = RES * RES * (1 + 2 * n_iters)
+    per_pass = grad_pass_time(scene, settings, cfg, G_LABELS, 1, 3, rays,
+                              "grad")
+    log(f"[grad] fwd+bwd pass / forward pass (phase 4) "
+        f"{per_pass:.3f} / {fwd_ms:.3f} ms = {per_pass / fwd_ms:.3f}")
+    return launches
+
+
+def grad_parity_phase(dev):
+    """10. parity_check._grad_cornell's configuration, card vs CPU."""
+    cfg = PathConfig(max_depth=DEPTH, remat=True)
+    g = {}
+    for where in (dev, "cpu"):
+        scene, settings = tiny_cornell(where)
+        settings.width = settings.height = 128
+        g[str(where)] = grad_pass(scene, settings, cfg, ("bsdf.refl",),
+                                  7)[0]["bsdf.refl"].cpu()
+    card, cpu = g[str(dev)], g["cpu"]
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"[grad parity] Cornell 128^2 d sum(Li)/d refl: card "
+        f"{card.sum().item():.6e} cpu {cpu.sum().item():.6e} max rel "
+        f"{rel:.3e} {'OK' if rel < 5e-3 else 'FAIL'}")
+    if not rel < 5e-3:
+        raise AssertionError("card vs CPU gradient parity failed")
+
+
+def large_grad_phase(scene, settings):
+    """11. The large scene's gradient: bsdf.alpha moves ray directions."""
+    labels = ("bsdf.alpha", "emitter.radiance")
+    cfg = PathConfig(max_depth=L_DEPTH, remat=True)
+    n_iters = L_DEPTH - 1
+
+    def counts():
+        return (ch.hier_closest.launches, ch.hier_anyhit.launches)
+
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    grads, li, fwd, peak = grad_peak(scene, settings, cfg, labels, counts)
+    launches = counts()
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    log(f"[large grad] {L_RES}x{L_RES} depth {L_DEPTH} per-bounce remat: "
+        f"hier launches forward {fwd}, forward+backward {launches}, "
+        f"brute-force {brute}; peak device memory {peak:.3f} GiB")
+    want = ((L_DEPTH, n_iters), (L_DEPTH + n_iters, 2 * n_iters))
+    if (fwd, launches) != want or any(brute):
+        raise AssertionError(f"expected forward {want[0]} and fwd+bwd "
+                             f"{want[1]} hierarchy launches and no "
+                             f"brute-force launch, got {fwd}, {launches}, "
+                             f"{brute}")
+    check_finite("large grad", grads)
+    alpha = grads["bsdf.alpha"][0]
+    log(f"[large grad] d sum(Li)/d alpha of the mesh {alpha.tolist()}")
+    if not bool((alpha != 0).all()):
+        raise AssertionError("no alpha gradient on the mesh's BSDF")
+    check_linearity("large grad", grads, li, scene.emitters.radiance)
+    grad_pass_time(scene, settings, cfg, labels, 1, 3,
+                   L_RES * L_RES * (1 + 2 * n_iters), "large grad")
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
-                  device_ms=None):
+                  grad_launches, device_ms=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
                 plain_ms=timing[key + "_plain"], bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=None, device_ms=device_ms)
+                bound_by=bnd[1], library_ms=None, device_ms=device_ms,
+                grad_launches=grad_launches)
 
 
 def main():
@@ -826,8 +1025,10 @@ def main():
     dev = torch.device("cuda", 0)
     build_phase()
     timing = kernel_phase(dev)
-    launches = main_path_phase(dev)
+    launches, fwd_ms = main_path_phase(dev)
     parity_phase(dev)
+    grad_launches = cornell_grad_phase(dev, fwd_ms)
+    grad_parity_phase(dev)
 
     t0 = time.perf_counter()
     scene, settings = large_scene(dev)
@@ -836,20 +1037,23 @@ def main():
     err_h, err_ha, htiming = hier_phase(dev, scene)
     hlaunches = large_path_phase(scene, settings)
     large_parity_phase(scene)
+    hgrad_launches = large_grad_phase(scene, settings)
 
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
                       launches[0], timing["closest_err"], timing, "closest",
-                      timing["closest_device"]),
+                      grad_launches[0], timing["closest_device"]),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], timing["anyhit_err"], timing, "anyhit",
-                      timing["anyhit_device"]),
+                      grad_launches[1], timing["anyhit_device"]),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[0], err_h, htiming, "closest"),
+                      hlaunches[0], err_h, htiming, "closest",
+                      hgrad_launches[0], htiming["closest_device"]),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[1], err_ha, htiming, "anyhit"),
+                      hlaunches[1], err_ha, htiming, "anyhit",
+                      hgrad_launches[1], htiming["anyhit_device"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,10 @@ with diffuse and rough-conductor BSDFs, triangle-mesh area emitters and the
 constant environment, a perspective sensor and the box-filter film, on the
 Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and on
 large scenes (the two-level cluster hierarchy, ``csrc/hier_traverse.cu``),
-both through hand-written CUDA kernels.  Everything else raises
-``NotImplementedError``.  Public entry points run on the card unless the
+both through hand-written CUDA kernels; its reverse-mode gradients with
+respect to BSDF and emitter parameters by path replay
+(``torch.utils.checkpoint``) and the inverse-rendering loop
+(``diff/optimize.py``).  Everything else raises ``NotImplementedError``.  Public entry points run on the card unless the
 CPU is asked for.
 """
 

@@ -10,20 +10,34 @@ width, and merged with the triangle hit exactly as the reference does
 (``intersect`` :336-374, ``intersect_v`` :462-493, ``occluded`` :525-542).
 Where a brute-force scene has no sphere and no disk, the merge reduces to
 a record of the triangle hit, which the closest-hit kernel writes itself.
-Intersection inputs are detached: visibility is not differentiated (the
-reference's ``stop_gradient``, :457).
+
+Gradients: triangle ``t`` detached on every path (the reference's
+accelerator and hierarchy paths); sphere/disk ``t`` live.  The triangle
+queries (the kernels' wrappers) get detached rays and bounds, as the
+reference's Pallas and cluster branches (``stop_gradient``, :140, :331,
+:457), so no wrapper ever sees a tensor that requires grad; the sphere and
+disk tests and the merge run on the live rays, as on every reference
+branch (:155-160, :343-345, :462-463).  The reference's CPU brute-force and
+BVH branches leave the triangle ``t`` live too (:147-152, :335-336); the
+port follows its accelerated paths.  Visibility (``occluded_v``) is a
+boolean and carries no gradient.
 
 ``active`` masks lanes off on the hierarchy path (they report no triangle
-hit), as in the reference; brute force tests every lane.  ``coherent``
-only chose the reference's full-width prologue for camera rays, a TPU
-scheduling choice that does not change results, so it has no effect here.
+hit), as in the reference; brute force tests every lane.  Unlike the
+reference, an inactive lane also tests no sphere and no disk: its ray
+(after a miss, the origin o + d 3e37) makes the quadric's inf - inf, which
+a masked forward hides but a backward turns into NaN for every gradient
+through a ray direction.  Active lanes' records are the reference's.
+``coherent`` only chose the reference's full-width prologue for camera
+rays, a TPU scheduling choice that does not change results, so it has no
+effect here.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.types import Float, Int, INVALID
-from ..core.v3 import V3
+from ..core.v3 import V3, safe_sqrt
 from ..scene.geometry import (Geometry, Hit, KIND_NONE, KIND_TRI,
                               KIND_SPHERE, KIND_DISK)
 from . import cuda_hierarchy as ch
@@ -45,8 +59,15 @@ def _use_hierarchy(geom: Geometry, clusters: Hierarchy | None) -> bool:
     return False
 
 
-def _detach(w: V3) -> V3:
-    return V3(w.x.detach(), w.y.detach(), w.z.detach())
+def _sg(x):
+    """``x`` without grad (a tensor's detached alias, a number as it is)."""
+    if isinstance(x, torch.Tensor) and x.requires_grad:
+        return x.detach()
+    return x
+
+
+def _sg_v(w: V3) -> V3:
+    return V3(_sg(w.x), _sg(w.y), _sg(w.z))
 
 
 def _sphere_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
@@ -64,7 +85,7 @@ def _sphere_best_v(geom: Geometry, o: V3, d: V3, tmin, tmax):
         cc = L.dot(L) - radius * radius
         disc = b * b - 4 * a * cc
         ok = disc >= 0.0
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sq = safe_sqrt(disc)
         sb = torch.where(b >= 0.0, 1.0, -1.0)
         q = -0.5 * (b + sb * sq)
         t0 = q / torch.where(a == 0, 1.0, a)
@@ -106,25 +127,33 @@ def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
     A brute-force scene of triangles only takes its hit record from the
     closest-hit query itself (``cuda_intersect.closest_hit_v``, equal to
     :func:`merge_hits` there); every other scene merges."""
-    o, d = _detach(o), _detach(d)
+    rays = (_sg_v(o), _sg_v(d), _sg(tmin), _sg(tmax))
     if _use_hierarchy(geom, clusters):
-        t, u, v, prim, _, found = ch.hier_closest(
-            clusters, o, d, tmin, tmax, active=active)
-        return merge_hits(geom, o, d, tmin, tmax, (t, u, v, prim, found))
+        t, u, v, prim, _, found = ch.hier_closest(clusters, *rays,
+                                                  active=active)
+        return merge_hits(geom, o, d, tmin, tmax, (t, u, v, prim, found),
+                          active)
     tris = (geom.tri_p0, geom.tri_e1, geom.tri_e2)
     if not (geom.n_spheres or geom.n_disks):
-        return Hit(*ci.closest_hit_v(*tris, geom.tri_shape, o, d, tmin,
-                                     tmax))
+        return Hit(*ci.closest_hit_v(*tris, geom.tri_shape, *rays))
     return merge_hits(geom, o, d, tmin, tmax,
-                      ci.closest_tris_v(*tris, o, d, tmin, tmax))
+                      ci.closest_tris_v(*tris, *rays), active)
 
 
-def merge_hits(geom: Geometry, o: V3, d: V3, tmin, tmax, tri) -> Hit:
+def merge_hits(geom: Geometry, o: V3, d: V3, tmin, tmax, tri,
+               active=None) -> Hit:
     """The closest of the triangle hit ``tri`` = (t, u, v, prim, found) and
-    the scene's spheres and disks, as the reference merges them."""
+    the scene's spheres and disks, as the reference merges them; lanes off
+    in ``active`` test no sphere or disk (see the module note)."""
     tbest, tu, tv, ti, tvalid = tri
+    lanes_off = active is not None and (geom.n_spheres or geom.n_disks)
+    if lanes_off:
+        o = V3(*(torch.where(active, c, 0.0) for c in o))
     si, sbest, _ = _sphere_best_v(geom, o, d, tmin, tmax)
     di, dbest, _ = _disk_best_v(geom, o, d, tmin, tmax)
+    if lanes_off:
+        sbest = torch.where(active, sbest, BIG)
+        dbest = torch.where(active, dbest, BIG)
 
     tbest = torch.where(tvalid, tbest, BIG)
     best = torch.minimum(torch.minimum(tbest, sbest), dbest)
@@ -157,7 +186,7 @@ def occluded_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
                clusters: Hierarchy | None = None,
                active=None) -> torch.Tensor:
     """Any-hit (shadow ray) query over SoA rays -> (N,) bool."""
-    o, d = _detach(o), _detach(d)
+    o, d, tmin, tmax = _sg_v(o), _sg_v(d), _sg(tmin), _sg(tmax)
     if _use_hierarchy(geom, clusters):
         blocked = ch.hier_anyhit(clusters, o, d, tmin, tmax, active=active)
     else:

@@ -5,11 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.v3 import V3
-
-
-def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp_min(x, 0.0))
+from ..core.v3 import V3, safe_sqrt
 
 
 def fresnel_conductor_v(cos_theta_i, eta: V3, k: V3) -> V3:
@@ -23,9 +19,9 @@ def fresnel_conductor_v(cos_theta_i, eta: V3, k: V3) -> V3:
         e2 = e * e
         k2 = kk * kk
         t0 = e2 - k2 - si2
-        a2b2 = _safe_sqrt(t0 * t0 + e2 * k2 * 4.0)
+        a2b2 = safe_sqrt(t0 * t0 + e2 * k2 * 4.0)
         t1 = a2b2 + ci2
-        a = _safe_sqrt((a2b2 + t0) * 0.5)
+        a = safe_sqrt((a2b2 + t0) * 0.5)
         t2 = a * (2.0 * ci)
         rs = (t1 - t2) / torch.clamp_min(t1 + t2, 1e-20)
         t3 = a2b2 * ci2 + si2 * si2

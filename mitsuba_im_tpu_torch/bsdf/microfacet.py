@@ -10,15 +10,11 @@ from __future__ import annotations
 import torch
 
 from ..core import v3 as v
-from ..core.v3 import V3, INV_PI, PI, safe_div
+from ..core.v3 import V3, INV_PI, PI, safe_div, safe_sqrt
 
 DIST_BECKMANN = 0
 DIST_GGX = 1
 DIST_PHONG = 2
-
-
-def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp_min(x, 0.0))
 
 
 def ndf_v(dist, m_vec: V3, au, av):
@@ -63,15 +59,17 @@ def smith_g1_v(dist, w: V3, m_vec: V3, au, av):
     """Smith masking for direction w given microfacet normal m."""
     ct = w.z
     chi = (w.dot(m_vec) * ct) > 0
-    tan2 = v.tan_theta2(w)
+    # masked lanes (ct = 0 gives tan2 = inf) take tan2 = 0: the same
+    # result, and no infinity to meet their zero cotangent
+    tan2 = torch.where(chi, v.tan_theta2(w), 0.0)
     a2 = _project_roughness2_v(w, au, av)
 
     # GGX closed form
     g_ggx = 2.0 / (1.0 + torch.sqrt(1.0 + a2 * tan2))
 
     # Beckmann rational fit, also used for Phong via an equivalent exponent
-    sq_tan = torch.sqrt(torch.clamp_min(tan2, 0.0))
-    a = 1.0 / torch.clamp_min(torch.sqrt(a2) * sq_tan, 1e-12)
+    sq_tan = safe_sqrt(tan2)
+    a = 1.0 / torch.clamp_min(safe_sqrt(a2) * sq_tan, 1e-12)
     ab = torch.where(
         dist == DIST_PHONG,
         torch.sqrt((2.0 / torch.clamp_min(au * au, 1e-12)) * 0.5)
@@ -110,8 +108,8 @@ def sample_ggx_vndf_v(wi: V3, au, av, u1, u2):
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh.z)
-    p2 = (1.0 - s) * _safe_sqrt(1.0 - p1 * p1) + s * p2
-    nh = t1 * p1 + t2 * p2 + vh * _safe_sqrt(1.0 - p1 * p1 - p2 * p2)
+    p2 = (1.0 - s) * safe_sqrt(1.0 - p1 * p1) + s * p2
+    nh = t1 * p1 + t2 * p2 + vh * safe_sqrt(1.0 - p1 * p1 - p2 * p2)
     return V3(au * nh.x, av * nh.y, torch.clamp_min(nh.z, 1e-6)).normalized()
 
 
@@ -128,13 +126,13 @@ def sample_visible_v(dist, wi: V3, au, av, u1, u2):
     log_u = torch.log(torch.clamp_min(1.0 - u1, 1e-20))
     tan2_b = -log_u / torch.clamp_min(a2inv, 1e-12)
     ct_b = torch.rsqrt(1.0 + tan2_b)
-    st_b = _safe_sqrt(1.0 - ct_b * ct_b)
+    st_b = safe_sqrt(1.0 - ct_b * ct_b)
     m_beck = V3(st_b * cp, st_b * sp, ct_b)
 
     # Phong: cos^n sampling
     exp_p = 2.0 / torch.clamp_min(au * au, 1e-12) - 2.0
     ct_p = torch.pow(torch.clamp_min(u1, 1e-20), 1.0 / (exp_p + 2.0))
-    st_p = _safe_sqrt(1.0 - ct_p * ct_p)
+    st_p = safe_sqrt(1.0 - ct_p * ct_p)
     phi_p = 2.0 * PI * u2
     m_ph = V3(st_p * torch.cos(phi_p), st_p * torch.sin(phi_p), ct_p)
 

@@ -5,6 +5,13 @@ Every 3-vector (and RGB spectrum) is a :class:`V3` of three flat tensors,
 the JAX package's public layout.  The reference's select-chain table
 lookups (``gather_col``/``gather_v3``, a TPU workaround) are plain indexing
 here: see :func:`gather_v3`.
+
+Gradients are the reference's: ``jnp.maximum(x, c)`` becomes
+``torch.clamp_min`` (or ``torch.maximum`` where both sides vary), which
+differ only at a tie (torch passes the whole derivative, JAX half); no
+helper on the path ties in practice except a square root at 0, where both
+derivatives are infinite, so :func:`safe_sqrt` takes 0 there.  Masked
+lanes divide through the double ``where`` of :func:`safe_div`.
 """
 from __future__ import annotations
 
@@ -134,6 +141,34 @@ def to_world(frame: tuple[V3, V3, V3], v: V3) -> V3:
 def safe_div(a, b, fallback=0.0):
     zero = b == 0.0
     return torch.where(zero, fallback, a / torch.where(zero, 1.0, b))
+
+
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) whose derivative is 0 where the root is 0."""
+
+    @staticmethod
+    def forward(x):
+        return torch.sqrt(torch.clamp_min(x, 0.0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, = ctx.saved_tensors
+        return torch.where(r > 0.0, g / torch.where(r > 0.0, 2.0 * r, 1.0),
+                           0.0)
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(x, 0))``, the reference's form, with the derivative 0 (not
+    inf, or NaN from a zero cotangent) where the root is 0: a masked lane
+    at or below 0 then adds nothing to a gradient.  Elsewhere the
+    reference's derivative, 1 / (2 sqrt(x))."""
+    if x.requires_grad:
+        return _SafeSqrt.apply(x)
+    return torch.sqrt(torch.clamp_min(x, 0.0))
 
 
 # Local-frame trig (z = cos_theta)

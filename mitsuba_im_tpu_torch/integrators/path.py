@@ -8,7 +8,17 @@ advances through a Python loop over bounces with masked inactive lanes,
 exactly as the reference's ``fori_loop`` does, so both consume the same
 random numbers per lane and agree sample for sample.
 
-Forward only: ``remat``/``remat_group`` are accepted and have no effect.
+Reverse mode goes through ``torch.autograd`` with path replay, as the
+reference's ``jax.checkpoint`` does (path.py:227-257): with ``remat`` each
+bounce (or, with ``remat_group = g > 1``, each group of ``g`` bounces, the
+remainder per bounce) runs under a non-reentrant
+``torch.utils.checkpoint``, so the backward pass re-runs the wavefront,
+intersection kernels included, from the counter-based RNG state carried in
+the bounce state instead of keeping every bounce's intermediates.
+Intersections are not differentiated (see ``accel/intersect.py``);
+shading recombines ``p = o + d t`` on the live rays.  Without grad mode, or
+when no scene or ray tensor requires grad, nothing is checkpointed and no
+graph is recorded.
 Texture filtering (ray differentials) is not ported and raises; scenes with
 subsurface scattering or BSDF wrappers are refused where they are built.
 """
@@ -17,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.types import EPSILON, SHADOW_EPSILON
 from ..core import v3 as v
@@ -34,7 +45,9 @@ class PathConfig:
     rr_depth: int = 5
     hide_emitters: bool = False
     depth_budget: int = 16  # cap when max_depth == -1
-    remat: bool = True  # backward-pass option of the reference: no effect
+    # path replay under reverse mode: checkpoint each bounce (or each group
+    # of remat_group bounces) and re-run it in the backward pass
+    remat: bool = True
     remat_group: int = 1
     # drop depth<=2 (directly visible emitters + single-bounce direct
     # lighting): the MLT separateDirect split
@@ -54,15 +67,33 @@ def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
               dddy: V3 | None = None):
     """Trace a batch of primary rays to completion.
 
-    Returns (radiance V3 of (N,) components, sampler)."""
+    Returns (radiance V3 of (N,) components, sampler); the radiance carries
+    the graph to every scene or ray tensor that requires grad."""
     if dddx is not None or dddy is not None:
         raise NotImplementedError(
             "ray differentials (texture filtering) are not ported yet")
-    with torch.no_grad():
-        return _path_li_v(scene, sampler, o, d, cfg)
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and _requires_grad(scene, o, d))
+    return _path_li_v(scene, sampler, o, d, cfg, remat)
 
 
-def _path_li_v(scene, sampler, o, d, cfg):
+def _requires_grad(*objs) -> bool:
+    """Does a tensor in these (dataclasses and tuples of) tensors require
+    grad?"""
+    for x in objs:
+        if isinstance(x, torch.Tensor):
+            if x.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(x):
+            if _requires_grad(*(getattr(x, f.name)
+                                for f in dataclasses.fields(x))):
+                return True
+        elif isinstance(x, tuple) and _requires_grad(*x):
+            return True
+    return False
+
+
+def _path_li_v(scene, sampler, o, d, cfg, remat):
     n = o.x.shape[0]
     dev = o.x.device
     n_iters = max(cfg.max_depth - 1, 0) if cfg.max_depth > 0 \
@@ -175,13 +206,29 @@ def _path_li_v(scene, sampler, o, d, cfg):
             sampler=s,
         )
 
+    def run(first, last, st, skip_first=False):
+        """Bounces first..last-1 as one replay unit."""
+        def span(st):
+            for depth_idx in range(first, last):
+                st = bounce(depth_idx, st, skip_first)
+            return st
+        if not remat:
+            return span(st)
+        return checkpoint(span, st, use_reentrant=False,
+                          preserve_rng_state=False)
+
     start = 0
     if cfg.skip_direct and n_iters > 0:
         # peel the first bounce: only it drops depth-2 light
-        state = bounce(0, state, skip_first=True)
+        state = run(0, 1, state, skip_first=True)
         start = 1
+    g = max(int(cfg.remat_group), 1)
+    if remat and g > 1:
+        for _ in range((n_iters - start) // g):
+            state = run(start, start + g, state)
+            start += g
     for depth_idx in range(start, n_iters):
-        state = bounce(depth_idx, state)
+        state = run(depth_idx, depth_idx + 1, state)
     return state["li"], state["sampler"]
 
 

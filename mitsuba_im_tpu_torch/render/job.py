@@ -67,7 +67,8 @@ def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
 
 def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
                 film: Film | None = None, sample_offset: int = 0) -> Film:
-    """Render ``spp`` passes into a (new or given) film."""
+    """Render ``spp`` passes into a (new or given) film.  Forward only, as
+    the reference's ``render``: the passes run under ``torch.no_grad``."""
     spp = spp if spp is not None else settings.spp
     if settings.sampler != "independent":
         raise NotImplementedError(
@@ -76,6 +77,8 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
     if film is None:
         film = make_film(settings.width, settings.height, settings.rfilter,
                          settings.rfilter_radius, device=scene.device)
-    for s in range(spp):
-        film = render_pass(scene, film, sample_offset + s, settings.seed, cfg)
+    with torch.no_grad():
+        for s in range(spp):
+            film = render_pass(scene, film, sample_offset + s, settings.seed,
+                               cfg)
     return film

@@ -4,7 +4,8 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 profile_pass.py [--scene large|cornell] [--passes N] [--root DIR]
+    python3 profile_pass.py [--scene large|cornell] [--grad] [--passes N]
+                            [--root DIR]
 
 ``--scene large`` (the default) builds ``scenes.large_scene`` (1,120,504
 triangles, 768^2, depth 3), ``--scene cornell`` the Cornell box of the
@@ -21,11 +22,19 @@ device intervals over the span from the first device start to the last
 device end).  The profiler slows the host's enqueue, so the idle share
 under it is an upper bound of the unprofiled pass's; the device times are
 not slowed.  When the profiler records no device activity every number is
-printed as "not measured".  The last line is a JSON object.
+printed as "not measured".  ``--grad`` profiles fwd+bwd passes instead
+(d sum(Li)/d params of one sample per pixel through
+``diff.optimize.render_rays``, path replay): the Cornell box in
+bench.py's fwd+bwd configuration (``remat_group=4``, d/d ``bsdf.refl``),
+the large scene with per-bounce replay (d/d ``bsdf.alpha`` and
+``emitter.radiance``); it adds the share of the backward's scatter-adds
+into the scene tables (``index_put`` kernels).  The last line is a JSON
+object.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,6 +43,10 @@ from pathlib import Path
 # name fragments of each scene's intersection kernels
 KERNELS = {"large": ("hier_kernel",),
            "cornell": ("closest_kernel", "anyhit_kernel")}
+# the gradients of --grad, and the kernels of the backward's gathers
+GRAD_LABELS = {"large": ("bsdf.alpha", "emitter.radiance"),
+               "cornell": ("bsdf.refl",)}
+SCATTER = ("index_put", "indexing_backward")
 
 
 def busy_union(spans):
@@ -61,6 +74,8 @@ def scene_of(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=sorted(KERNELS), default="large")
+    ap.add_argument("--grad", action="store_true",
+                    help="profile fwd+bwd passes (path replay)")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     args = ap.parse_args()
@@ -72,7 +87,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import mitsuba_im_tpu_torch
-    from mitsuba_im_tpu_torch.render.job import render_film
+    from mitsuba_im_tpu_torch.render.job import path_config, render_film
 
     if Path(mitsuba_im_tpu_torch.__file__).resolve().parents[1] != root:
         raise SystemExit(f"imported {mitsuba_im_tpu_torch.__file__}, not "
@@ -86,18 +101,38 @@ def main():
     print(smi, flush=True)
 
     scene, settings = scene_of(args.scene)
-    render_film(scene, settings, spp=1)
+    if args.grad:
+        from mitsuba_im_tpu_torch.diff import optimize as opt
+
+        cfg = dataclasses.replace(path_config(settings), remat=True,
+                                  remat_group=4 if args.scene == "cornell"
+                                  else 1)
+        labels = GRAD_LABELS[args.scene]
+        pix = torch.arange(settings.width * settings.height,
+                           device=scene.device)
+
+        def run(passes):
+            for s in range(passes):
+                params = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in opt.get_params(scene, labels).items()}
+                opt.render_rays(opt.set_params(scene, params), settings, cfg,
+                                pix, s, 0).sum().backward()
+    else:
+        def run(passes):
+            render_film(scene, settings, spp=passes)
+    run(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render_film(scene, settings, spp=args.passes)
+        run(args.passes)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     rec = dict(device=smi, root=str(root), scene=args.scene,
-               passes=args.passes)
+               grad=args.grad, passes=args.passes)
     if not dev:
         rec.update(device_ms_per_pass="not measured",
-                   kernel_share="not measured", idle_share="not measured")
+                   kernel_share="not measured", idle_share="not measured",
+                   scatter_share="not measured")
     else:
         spans = [(e.time_range.start, e.time_range.end) for e in dev]
         busy_us = sum(b - a for a, b in spans)
@@ -108,8 +143,12 @@ def main():
         for e, (a, b) in zip(dev, spans):
             by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        scatter_us = sum(b - a for e, (a, b) in zip(dev, spans)
+                         if any(k in e.name for k in SCATTER))
         rec.update(
             device_ms_per_pass=busy_us / 1e3 / args.passes,
+            scatter_ms_per_pass=scatter_us / 1e3 / args.passes,
+            scatter_share=scatter_us / busy_us,
             kernels=KERNELS[args.scene],
             kernel_ms_per_pass=kern_us / 1e3 / args.passes,
             kernel_share=kern_us / busy_us,

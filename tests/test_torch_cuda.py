@@ -6,8 +6,9 @@ GPU).  Run on a machine with one:
 Kernels against their plain PyTorch versions on the same card tensors
 (brute force, and the hierarchy traversal on plain and instanced tables,
 rays that overflow the kernel's per-ray super list, and 3000 supers),
-and the Cornell and large-scene renders on the card against the CPU
-renders.
+the Cornell and large-scene renders on the card against the CPU
+renders, and their gradients (path replay through the kernels) against
+the CPU's.
 """
 import numpy as np
 import pytest
@@ -17,7 +18,10 @@ from mitsuba_im_tpu_torch.accel import cuda_hierarchy as ch
 from mitsuba_im_tpu_torch.accel import cuda_intersect as ci
 from mitsuba_im_tpu_torch.accel import hierarchy as hy
 from mitsuba_im_tpu_torch.core.v3 import V3
+from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
+    set_params
 from mitsuba_im_tpu_torch.film.film import develop
+from mitsuba_im_tpu_torch.integrators.path import PathConfig
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
 
@@ -252,3 +256,49 @@ def test_large_scene_render_card_vs_cpu(cuda):
     a, b = (im.sum(-1).ravel() for im in imgs)
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
     assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
+
+
+def _grads(scene, settings, cfg, labels):
+    """d sum(Li)/d params of one sample per pixel."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in get_params(scene, labels).items()}
+    pix = torch.arange(settings.width * settings.height, device=scene.device)
+    render_rays(set_params(scene, params), settings, cfg, pix, 7,
+                0).sum().backward()
+    return {k: p.grad.cpu() for k, p in params.items()}
+
+
+@pytest.mark.parametrize("which", ["cornell", "large"])
+def test_gradient_replay_card_vs_cpu(cuda, which):
+    """Path replay on the card: the backward pass runs the kernels again
+    (Cornell, depth 5, remat_group 4: 5 + 4 launches forward, 9 + 8 in
+    all; the large scene, depth 3, per bounce: 3 + 2 and 5 + 4), and the
+    gradients at 32^2 match the CPU's (the plain versions) within
+    parity_check.py's gradient gate, 5e-3."""
+    if which == "cornell":
+        labels = ("bsdf.refl", "emitter.radiance")
+        cfg = PathConfig(max_depth=5, remat=True, remat_group=4)
+        make = tiny_cornell
+        counter = (ci.closest_tris_v, ci.anyhit_tris_v)
+        want = (9, 8)
+    else:
+        labels = ("bsdf.alpha", "emitter.radiance")
+        cfg = PathConfig(max_depth=3, remat=True)
+
+        def make(dev):
+            return large_scene(dev, res=32, n_tris_target=20_000)
+        counter = (ch.hier_closest, ch.hier_anyhit)
+        want = (5, 4)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = make(dev)
+        settings.width = settings.height = 32
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        grads.append(_grads(scene, settings, cfg, labels))
+        if dev.type == "cuda":
+            assert tuple(f.launches for f in counter) == want
+    for k in labels:
+        card, cpu = grads[0][k], grads[1][k]
+        assert torch.isfinite(card).all() and cpu.abs().max() > 0
+        assert (card - cpu).abs().max() / cpu.abs().max() < 5e-3, k

@@ -41,8 +41,11 @@ def bridged(jscene, device="cpu"):
     return scene_from_numpy(arrays, statics, device)
 
 
-def jax_shapes_scene():
-    """A small JAX scene with triangles, two spheres and a disk."""
+def jax_shapes_scene(sphere_bsdf: dict | None = None,
+                     environment: bool = False):
+    """A small JAX scene with triangles, two spheres and a disk; the first
+    sphere takes the BSDF record ``sphere_bsdf`` when one is given, and a
+    unit constant environment joins the area light with ``environment``."""
     from mitsuba_im_tpu.bsdf import common as bc
     from mitsuba_im_tpu.emitter import table as et
     from mitsuba_im_tpu.scene.build import SceneBuilder
@@ -50,11 +53,12 @@ def jax_shapes_scene():
 
     b = SceneBuilder()
     bid = b.add_bsdf(bc.default_record())
+    sph = bid if sphere_bsdf is None else b.add_bsdf(sphere_bsdf)
     quad = TriMesh(np.array([[-2, -1, -2], [2, -1, -2], [2, -1, 2],
                              [-2, -1, 2]], float),
                    np.array([[0, 1, 2], [2, 3, 0]]))
     b.add_trimesh(quad, b.new_shape(bid))
-    b.add_sphere([0.0, 0.0, 0.0], 0.5, b.new_shape(bid))
+    b.add_sphere([0.0, 0.0, 0.0], 0.5, b.new_shape(sph))
     b.add_sphere([0.8, 0.2, -0.5], 0.3, b.new_shape(bid))
     b.add_disk([0.0, 0.0, -1.5], [0, 0, 1], [1, 0, 0], [0, 1, 0], 0.8,
                b.new_shape(bid))
@@ -66,6 +70,11 @@ def jax_shapes_scene():
     b.add_emitter(dict(type=et.EM_AREA, radiance=np.array([5.0, 5.0, 5.0]),
                        shape=lsid))
     b.shape_emitter[lsid] = 0
+    if environment:
+        from mitsuba_im_tpu.core.properties import Properties
+        from mitsuba_im_tpu.core.registry import create
+
+        b.add_emitter(create("emitter", Properties("constant"), b))
     return b.build()[0]
 
 
