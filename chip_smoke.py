@@ -10,11 +10,13 @@ Phases, in order; any failure raises and the run exits non-zero:
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off;
 2. build: compile ``csrc/tri_intersect.cu`` and ``csrc/hier_traverse.cu``
-   with nvcc and ``csrc/bvh_build.cpp`` with the host C++ compiler, all
-   three at once (each timed; ptxas register and spill report);
+   with nvcc and ``csrc/bvh_build.cpp`` and ``csrc/alias_build.cpp`` with
+   the host C++ compiler, all four at once (each timed; ptxas register
+   and spill report);
 3. brute-force kernels vs their plain PyTorch versions on the card, bit
-   for bit: 2^20 camera rays into the Cornell soup and 2^20 random rays
-   into a random 512-triangle soup, with numbers and with tensors for
+   for bit: 2^20 camera rays into the Cornell soup and into
+   material_cornell's (272 triangles, phase 12's path), and 2^20 random
+   rays into a random 512-triangle soup, with numbers and with tensors for
    tmin/tmax (a 0-dim tmin, an (N,) tmax with NaN lanes); the closest hit,
    the hit record (against its plain epilogue and against
    ``intersect.merge_hits``) and the any hit.  Both kernels timed at the
@@ -73,7 +75,28 @@ Phases, in order; any failure raises and the run exits non-zero:
    ``emitter.radiance``: 3 + 2 hierarchy launches forward and 5 + 4 with
    the replay, no brute-force launch; finite; a non-zero alpha gradient on
    the mesh's BSDF; radiance linearity (the unit constant environment is
-   the only emitter); peak device memory and the fwd+bwd pass time.
+   the only emitter); peak device memory and the fwd+bwd pass time;
+12. the thirteen new BSDF families and the environment map:
+   ``render_film`` on ``scenes.material_cornell("cuda")`` (272 triangles,
+   the area light and a Hosek sky) at 1024^2, depth 5, 4 spp; 5 closest and
+   4 any-hit launches per pass, no hierarchy launch; the image finite and
+   non-negative; the pass time from differencing two pass counts; device
+   operations, device time and idle share per pass (torch.profiler);
+13. card vs CPU on material_cornell at 128^2, depth 5: parity_check.py's
+   gate;
+14. the large scene under the Hosek sky (``large_scene("cuda",
+   env="sky")``, bench.py's third metric with a baked sky in place of its
+   envmap file) at 768^2, depth 3, 2 spp: 3 + 2 hierarchy launches per
+   pass, no brute-force launch; the image finite, its corners the sky's
+   (not the unit environment's 1.0, not all alike, the top ones lit); the
+   pass time,
+   peak device memory, device operations per pass;
+15. card vs CPU on the sky scene at 64^2, depth 3: parity_check.py's gate;
+16. the material_cornell gradient at 128^2, depth 5, ``remat_group=4``, d
+   sum(Li)/d refl, spec, alpha and the radiance of both emitters: finite;
+   radiance linearity over both emitters (roulette never fires at depth 5,
+   so sum_e radiance_e d sum(Li_c)/d radiance_e = sum(Li_c), rel < 1e-3);
+   card vs CPU max rel < 5e-3 for each; the fwd+bwd pass time.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -95,6 +118,7 @@ from mitsuba_im_tpu_torch.accel import cuda_hierarchy as ch
 from mitsuba_im_tpu_torch.accel import cuda_intersect as ci
 from mitsuba_im_tpu_torch.accel import hierarchy as hy
 from mitsuba_im_tpu_torch.accel import intersect as isect
+from mitsuba_im_tpu_torch.core import distribution as dist
 from mitsuba_im_tpu_torch.core import rng
 from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON, Int
 from mitsuba_im_tpu_torch.core.v3 import V3
@@ -103,8 +127,10 @@ from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
-from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
+from mitsuba_im_tpu_torch.scenes import (large_scene, material_cornell,
+                                         tiny_cornell)
 from mitsuba_im_tpu_torch.sensor.table import sample_ray_v
+from profile_pass import busy_union
 from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
 
 RES = 1024
@@ -122,6 +148,8 @@ L_RES = 768  # the large scene
 L_DEPTH = 3
 L_SPP = 2
 G_LABELS = ("bsdf.refl", "emitter.radiance")  # the Cornell gradients
+M_LABELS = ("bsdf.refl", "bsdf.spec", "bsdf.alpha", "emitter.radiance")
+M_GRAD_RES = 128  # the material_cornell gradient
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): memory rate
 # and float32 rate outside the tensor cores
@@ -152,7 +180,7 @@ def device_phase():
 
 def build_phase():
     libs = {"tri_intersect.cu": ci.LIBRARY, "hier_traverse.cu": ch.LIBRARY,
-            "bvh_build.cpp": bvh.LIBRARY}
+            "bvh_build.cpp": bvh.LIBRARY, "alias_build.cpp": dist.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load) for lib in libs.values()]:
@@ -334,13 +362,16 @@ def tri_forms(n, gen, dev):
 
 
 def tri_cases(dev):
-    """{name: dict(geom, o, d, forms, tmax)}: the Cornell box's geometry
-    with the 2^20 camera rays of a 1024^2 image, and a random 512-triangle
-    soup (in the Cornell geometry's place, no sphere or disk) with 2^20
-    random rays; ``tmax`` is the (N,) any-hit tmax timed."""
+    """{name: dict(geom, o, d, forms, tmax)}: the Cornell box's geometry and
+    material_cornell's (272 triangles), each with the 2^20 camera rays of a
+    1024^2 image, and a random 512-triangle soup (in the Cornell geometry's
+    place, no sphere or disk) with 2^20 random rays; ``tmax`` is the (N,)
+    any-hit tmax timed."""
     scene, _ = tiny_cornell(dev)
+    mscene, _ = material_cornell(dev)
     gen = torch.Generator(device=dev).manual_seed(1234)
     _, o, d = camera_rays(scene, RES)
+    _, o_m, d_m = camera_rays(mscene, RES)
     (p0, e1, e2), o_r, d_r = random_soup(gen, ci.MAX_TRIS, N_RAYS, dev)
     soup = dataclasses.replace(
         scene.geom, tri_p0=p0, tri_e1=e1, tri_e2=e2, n_tris=ci.MAX_TRIS,
@@ -348,6 +379,7 @@ def tri_cases(dev):
                                 device=dev, dtype=Int))
     out = {}
     for name, geom, oo, dd in (("cornell", scene.geom, o, d),
+                               ("material_cornell", mscene.geom, o_m, d_m),
                                ("random512", soup, o_r, d_r)):
         out[name] = dict(
             geom=geom, o=oo, d=dd, forms=tri_forms(N_RAYS, gen, dev),
@@ -1010,6 +1042,183 @@ def large_grad_phase(scene, settings):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the new BSDF families and the environment map
+# ---------------------------------------------------------------------------
+
+def device_profile(tag, run, passes=2):
+    """Device operations, device ms and idle share per pass of ``run(k)``
+    (k passes) under torch.profiler, after one warm-up pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(passes)
+        torch.cuda.synchronize()
+    dev = sorted(((e.time_range.start, e.time_range.end) for e in
+                  prof.events() if e.device_type == DeviceType.CUDA))
+    if not dev:
+        log(f"[{tag}] device profile: not measured (no device events)")
+        return None
+    span = max(b for _, b in dev) - dev[0][0]
+    out = dict(ops=len(dev) / passes,
+               device_ms=sum(b - a for a, b in dev) / 1e3 / passes,
+               idle=1.0 - busy_union(dev) / span)
+    log(f"[{tag}] device operations per pass {out['ops']:.1f}, device time "
+        f"{out['device_ms']:.3f} ms per pass, idle share {out['idle']:.3f} "
+        f"(torch.profiler, {passes} passes)")
+    return out
+
+
+def material_path_phase(dev):
+    """12. material_cornell through render_film at bench.py's forward
+    configuration."""
+    t0 = time.perf_counter()
+    scene, settings = material_cornell(dev)
+    log(f"[materials] scene built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: {scene.geom.n_tris} triangles, "
+        f"BSDF types {scene.bsdfs.used_types}, emitters "
+        f"{scene.emitters.used_types}, map "
+        f"{tuple(scene.emitters.env_rows.shape)}")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    launches = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    hier = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    spp, depth = settings.spp, settings.integrator_props["max_depth"]
+    log(f"[materials] render_film {settings.width}x{settings.height} depth "
+        f"{depth} spp {spp}: closest launches {launches[0]}, anyhit "
+        f"launches {launches[1]}, hierarchy launches {hier}")
+    if launches != (depth * spp, (depth - 1) * spp) or any(hier):
+        raise AssertionError(f"expected {depth} closest and {depth - 1} "
+                             f"any-hit launches per pass, no hierarchy "
+                             f"launch, got {launches}, {hier}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    q = settings.width // 8
+    log(f"[materials] image mean luminance {lum.mean():.5f}, centre "
+        f"{lum[3 * q:5 * q, 3 * q:5 * q].mean():.5f}, top corners "
+        f"{lum[:q // 4, :q // 4].mean():.5f} {lum[:q // 4, -q // 4:].mean():.5f}")
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    if not 0.05 < lum.mean() < 50.0:
+        raise AssertionError(f"implausible mean luminance {lum.mean()}")
+    rays = settings.width * settings.height * (1 + 2 * (depth - 1))
+    per_pass = pass_time(scene, settings, 2, 6, rays)
+    prof = device_profile("materials",
+                          lambda k: render_film(scene, settings, spp=k))
+    return launches, per_pass, prof
+
+
+def material_parity_phase(dev):
+    """13. material_cornell, card vs CPU at 128^2, depth 5."""
+    parity_gate(f"material_cornell 128^2 depth {DEPTH}",
+                path_luminance(material_cornell(dev)[0], 128, DEPTH),
+                path_luminance(material_cornell("cpu")[0], 128, DEPTH))
+
+
+def sky_path_phase(dev):
+    """14. The large scene under the Hosek sky."""
+    t0 = time.perf_counter()
+    scene, settings = large_scene(dev, env="sky")
+    log(f"[sky] scene built on the host in {time.perf_counter() - t0:.2f} "
+        f"s: {scene.geom.n_tris} triangles, map "
+        f"{tuple(scene.emitters.env_rows.shape)}")
+    settings.spp = L_SPP
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    launches = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[sky] render_film {L_RES}x{L_RES} depth {L_DEPTH} spp {L_SPP}: "
+        f"hier_closest launches {launches[0]}, hier_anyhit launches "
+        f"{launches[1]}, brute-force launches {brute}; peak device memory "
+        f"{peak:.3f} GiB")
+    if launches != (L_DEPTH * L_SPP, (L_DEPTH - 1) * L_SPP) or any(brute):
+        raise AssertionError(f"expected {L_DEPTH} hier_closest, "
+                             f"{L_DEPTH - 1} hier_anyhit and no brute-force "
+                             f"launches per pass, got {launches}, {brute}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    q = L_RES // 8
+    centre = lum[3 * q:5 * q, 3 * q:5 * q].mean()
+    corners = [lum[:q, :q].mean(), lum[:q, -q:].mean(), lum[-q:, :q].mean(),
+               lum[-q:, -q:].mean()]
+    log(f"[sky] image mean luminance {lum.mean():.5f}, centre "
+        f"{centre:.5f}, corners " + " ".join(f"{c:.5f}" for c in corners))
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    # the top corners see the sky above the horizon, the bottom ones its
+    # faded extension below it
+    if min(abs(c - 1.0) for c in corners) < 1e-3 or np.ptp(corners) < 1e-3:
+        raise AssertionError("the corners do not see the sky")
+    if min(corners[:2]) <= 0.0:
+        raise AssertionError("a top corner sees no sky")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)))
+    prof = device_profile("sky", lambda k: render_film(scene, settings,
+                                                       spp=k))
+    return scene, launches, per_pass, peak, prof
+
+
+def sky_parity_phase(cuda_scene):
+    """15. The sky scene, card vs CPU at 64^2, depth 3."""
+    cpu_scene, _ = large_scene("cpu", env="sky")
+    parity_gate(f"large scene under the sky ({cpu_scene.geom.n_tris} tris) "
+                f"64^2 depth {L_DEPTH}",
+                path_luminance(cuda_scene, 64, L_DEPTH),
+                path_luminance(cpu_scene, 64, L_DEPTH))
+
+
+def material_grad_phase(dev):
+    """16. The material_cornell gradient at 128^2, depth 5."""
+    cfg = PathConfig(max_depth=DEPTH, remat=True, remat_group=4)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        scene, settings = material_cornell(where)
+        settings.width = settings.height = M_GRAD_RES
+        ci.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        grads, li, _ = grad_pass(scene, settings, cfg, M_LABELS, 0)
+        runs.append(({k: g.cpu() for k, g in grads.items()}, li.cpu(),
+                     scene.emitters.radiance.cpu(), scene, settings))
+        if not runs[1:]:
+            log(f"[materials grad] {M_GRAD_RES}x{M_GRAD_RES} depth {DEPTH} "
+                f"remat_group 4: launches (closest, anyhit) fwd+bwd "
+                f"{(ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)}, "
+                f"peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    (gc, lic, rad, card_scene, card_settings), (gh, *_) = runs
+    check_finite("materials grad", gc)
+    # both emitters scale Li linearly: sum_e rad_e g_e = sum(Li_c)
+    g = gc["emitter.radiance"].double()
+    lhs = (g * rad.double()).sum(0)
+    want = lic.double().sum(0)
+    lin = ((lhs - want).abs() / want.abs()).max().item()
+    rels = {k: ((gc[k] - gh[k]).abs().max() / gh[k].abs().max()).item()
+            for k in M_LABELS}
+    log(f"[materials grad] radiance linearity over both emitters: "
+        f"sum_e rad_e d sum(Li)/d rad_e {lhs.tolist()}, sum(Li) "
+        f"{want.tolist()}, max rel {lin:.3e}; card vs CPU max rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    if not lin < 1e-3:
+        raise AssertionError(f"radiance gradient not linear ({lin})")
+    if not all(v < 5e-3 for v in rels.values()):
+        raise AssertionError(f"card vs CPU gradient parity failed: {rels}")
+    if not all(gh[k].abs().max() > 0 for k in M_LABELS):
+        raise AssertionError("a gradient of material_cornell is zero")
+    return grad_pass_time(card_scene, card_settings, cfg, M_LABELS, 1, 3,
+                          M_GRAD_RES * M_GRAD_RES * (1 + 2 * (DEPTH - 1)),
+                          "materials grad")
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None):
     bnd = timing[key + "_bound"]
@@ -1038,6 +1247,20 @@ def main():
     hlaunches = large_path_phase(scene, settings)
     large_parity_phase(scene)
     hgrad_launches = large_grad_phase(scene, settings)
+    del scene
+
+    m_launches, m_ms, m_prof = material_path_phase(dev)
+    material_parity_phase(dev)
+    sky_scene, s_launches, s_ms, s_peak, s_prof = sky_path_phase(dev)
+    sky_parity_phase(sky_scene)
+    del sky_scene
+    m_grad_ms = material_grad_phase(dev)
+    log(f"[summary] material_cornell pass {m_ms:.3f} ms, launches "
+        f"{m_launches}, device ops per pass "
+        f"{fmt(m_prof and m_prof['ops'])}; sky scene pass {s_ms:.3f} ms, "
+        f"launches {s_launches}, peak {s_peak:.3f} GiB, device ops per pass "
+        f"{fmt(s_prof and s_prof['ops'])}; material fwd+bwd pass at "
+        f"{M_GRAD_RES}^2 {m_grad_ms:.3f} ms")
 
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,

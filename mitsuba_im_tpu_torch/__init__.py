@@ -9,8 +9,10 @@ inputs.  It imports ``torch`` and never ``jax``, directly or through
 
 Covered so far: the forward wavefront path tracer
 (``integrators/path.py::path_li_v`` driven by ``render/job.py::render_film``)
-with diffuse and rough-conductor BSDFs, triangle-mesh area emitters and the
-constant environment, a perspective sensor and the box-filter film, on the
+with every untextured BSDF family but IRAWAN, triangle-mesh area emitters,
+the constant environment and the lat-long environment map (given as pixels
+or baked from the Hosek-Wilkie sky, ``emitter/hosek.py``), a perspective
+sensor and the box-filter film, on the
 Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and on
 large scenes (the two-level cluster hierarchy, ``csrc/hier_traverse.cu``),
 both through hand-written CUDA kernels; its reverse-mode gradients with

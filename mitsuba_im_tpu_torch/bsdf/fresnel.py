@@ -1,11 +1,46 @@
-"""Fresnel terms (``mitsuba_im_tpu/bsdf/fresnel.py``): the exact
-conductor term of the reference's fresnelConductorExact
-(``src/libcore/util.cpp``)."""
+"""Fresnel terms (``mitsuba_im_tpu/bsdf/fresnel.py``): the dielectric and
+exact conductor terms of the reference's fresnelDielectricExt and
+fresnelConductorExact, and the diffuse Fresnel reflectance fit of its
+fresnelDiffuseReflectance (``src/libcore/util.cpp``)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.v3 import V3, safe_sqrt
+
+
+def fresnel_dielectric(cos_theta_i, eta):
+    """Unpolarized Fresnel of a dielectric of relative IOR ``eta`` = int/ext
+    (with respect to the normal's side), entering or leaving by the sign of
+    cos_theta_i; total internal reflection gives F = 1.  Returns (F,
+    cos_theta_t with the sign opposite to cos_theta_i, eta_rel, eta_ti =
+    1 / eta_rel)."""
+    outside = cos_theta_i >= 0.0
+    eta_rel = torch.where(outside, eta, 1.0 / eta)
+    eta_ti = 1.0 / eta_rel
+    ci = torch.abs(cos_theta_i)
+    sin2_t = eta_ti * eta_ti * torch.clamp_min(1.0 - ci * ci, 0.0)
+    tir = sin2_t >= 1.0
+    ct = safe_sqrt(1.0 - sin2_t)
+    rs = (ci - eta_rel * ct) / torch.where(tir, 1.0, ci + eta_rel * ct)
+    rp = (eta_rel * ci - ct) / torch.where(tir, 1.0, eta_rel * ci + ct)
+    F = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
+    cos_theta_t = torch.where(outside, -ct, ct)
+    return F, cos_theta_t, eta_rel, eta_ti
+
+
+def fresnel_diffuse_reflectance(eta):
+    """Average Fresnel reflectance of diffuse internal scattering (the
+    reference's fast d'Eon and Irving fits, eta < 1 and eta >= 1)."""
+    inv_eta = 1.0 / eta
+    approx_lt1 = (-0.4399 + 0.7099 * inv_eta - 0.3319 * inv_eta ** 2
+                  + 0.0636 * inv_eta ** 3)
+    inv_eta2 = inv_eta * inv_eta
+    inv_eta3 = inv_eta2 * inv_eta
+    approx_ge1 = (0.919317 - 3.4793 * inv_eta + 6.75335 * inv_eta2
+                  - 7.80989 * inv_eta3 + 4.98554 * inv_eta3 * inv_eta
+                  - 1.36881 * inv_eta3 * inv_eta2)
+    return torch.where(eta < 1.0, approx_lt1, approx_ge1)
 
 
 def fresnel_conductor_v(cos_theta_i, eta: V3, k: V3) -> V3:

@@ -1,9 +1,36 @@
-"""Conductor eta/k presets (``mitsuba_im_tpu/bsdf/ior.py``): the
-linear-RGB reductions of the reference's measured spectra
-(``src/bsdfs/ior.h``, ``data/ior/*.spd``), for the conductor records."""
+"""IOR presets (``mitsuba_im_tpu/bsdf/ior.py``): the named dielectrics of
+the reference's ``src/bsdfs/ior.h`` and the conductors' eta/k as
+linear-RGB reductions of its measured spectra (``data/ior/*.spd``)."""
 from __future__ import annotations
 
 import numpy as np
+
+# name -> ior (reference ior.h iorData table)
+DIELECTRICS = {
+    "vacuum": 1.0,
+    "helium": 1.000036,
+    "hydrogen": 1.000132,
+    "air": 1.000277,
+    "carbon dioxide": 1.00045,
+    "water": 1.3330,
+    "acetone": 1.36,
+    "ethanol": 1.361,
+    "carbon tetrachloride": 1.461,
+    "glycerol": 1.4729,
+    "benzene": 1.501,
+    "silicone oil": 1.52045,
+    "bromine": 1.661,
+    "water ice": 1.31,
+    "fused quartz": 1.458,
+    "pyrex": 1.470,
+    "acrylic glass": 1.49,
+    "polypropylene": 1.49,
+    "bk7": 1.5046,
+    "sodium chloride": 1.544,
+    "amber": 1.55,
+    "pet": 1.5750,
+    "diamond": 2.419,
+}
 
 # name -> (eta rgb, k rgb); RGB reductions of the reference's spectral data
 CONDUCTORS = {
@@ -39,6 +66,17 @@ CONDUCTORS = {
     "W": ([4.3658, 3.2999, 2.9970], [3.5006, 2.6045, 2.2716]),
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),  # perfect mirror
 }
+
+
+def lookup_dielectric(name: str) -> float:
+    """The IOR of a named dielectric, or of a number given as text."""
+    key = name.strip().lower()
+    if key in DIELECTRICS:
+        return DIELECTRICS[key]
+    try:
+        return float(name)
+    except ValueError:
+        raise KeyError(f"unknown dielectric material '{name}'") from None
 
 
 def lookup_conductor(name: str):

@@ -4,7 +4,8 @@
 Every 3-vector (and RGB spectrum) is a :class:`V3` of three flat tensors,
 the JAX package's public layout.  The reference's select-chain table
 lookups (``gather_col``/``gather_v3``, a TPU workaround) are plain indexing
-here: see :func:`gather_v3`.
+here, and every row lookup of the BSDF and emitter tables (whose entries
+are the gradient slots) goes through one function, :func:`gather_row`.
 
 Gradients are the reference's: ``jnp.maximum(x, c)`` becomes
 ``torch.clamp_min`` (or ``torch.maximum`` where both sides vary), which
@@ -76,6 +77,9 @@ class V3(NamedTuple):
     def sum(self) -> torch.Tensor:
         return self.x + self.y + self.z
 
+    def mean(self) -> torch.Tensor:
+        return (self.x + self.y + self.z) * (1.0 / 3.0)
+
     def max_c(self) -> torch.Tensor:
         return torch.maximum(self.x, torch.maximum(self.y, self.z))
 
@@ -93,6 +97,13 @@ class V3(NamedTuple):
     def normalized(self) -> "V3":
         return self * torch.rsqrt(torch.clamp_min(self.squared_norm(), 1e-30))
 
+    def exp(self) -> "V3":
+        return V3(torch.exp(self.x), torch.exp(self.y), torch.exp(self.z))
+
+    def clamp_min(self, lo: float) -> "V3":
+        return V3(torch.clamp_min(self.x, lo), torch.clamp_min(self.y, lo),
+                  torch.clamp_min(self.z, lo))
+
 
 def where(mask: torch.Tensor, a: V3, b: V3) -> V3:
     return V3(torch.where(mask, a.x, b.x), torch.where(mask, a.y, b.y),
@@ -109,9 +120,17 @@ def ones(shape, device) -> V3:
     return V3(o, o, o)
 
 
+def gather_row(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a scene table (a column (T,) or a (T, 3) table):
+    the one lookup that the BSDF and emitter rows go through, so its form
+    (plain indexing, whose backward is an ``index_put_``) is decided in one
+    place."""
+    return tab[idx]
+
+
 def gather_v3(tab: torch.Tensor, idx: torch.Tensor) -> V3:
-    """Row lookup of a (T, 3) table as a V3 (plain indexing)."""
-    return V3.from_array(tab[idx])
+    """Row lookup of a (T, 3) table as a V3."""
+    return V3.from_array(gather_row(tab, idx))
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +147,11 @@ def coordinate_system(n: V3) -> tuple[V3, V3]:
     return s, t
 
 
+def frame_from_normal(n: V3) -> tuple[V3, V3, V3]:
+    s, t = coordinate_system(n)
+    return s, t, n
+
+
 def to_local(frame: tuple[V3, V3, V3], v: V3) -> V3:
     s, t, n = frame
     return V3(v.dot(s), v.dot(t), v.dot(n))
@@ -141,6 +165,22 @@ def to_world(frame: tuple[V3, V3, V3], v: V3) -> V3:
 def safe_div(a, b, fallback=0.0):
     zero = b == 0.0
     return torch.where(zero, fallback, a / torch.where(zero, 1.0, b))
+
+
+def where_live(f, ok, args, safe):
+    """f(*args), differentiated only where ``ok`` (a mask, or a function
+    that makes it, called only when an argument requires grad).  Lanes that
+    are not ok take f of the detached arguments; their differentiated
+    branch evaluates f at ``safe``, where its derivative is finite, so no
+    NaN arises even in a lane whose cotangent is zero.  The values are
+    f(*args) everywhere."""
+    if not any(isinstance(a, torch.Tensor) and a.requires_grad
+               for a in args):
+        return f(*args)
+    if callable(ok):
+        ok = ok()
+    live = f(*(torch.where(ok, a, s) for a, s in zip(args, safe)))
+    return torch.where(ok, live, f(*(a.detach() for a in args)))
 
 
 class _SafeSqrt(torch.autograd.Function):
@@ -176,8 +216,26 @@ def sin_theta2(v: V3) -> torch.Tensor:
     return torch.clamp_min(1.0 - v.z * v.z, 0.0)
 
 
+def sin_theta(v: V3) -> torch.Tensor:
+    return safe_sqrt(sin_theta2(v))
+
+
+def tan_theta(v: V3) -> torch.Tensor:
+    return safe_div(sin_theta(v), v.z)
+
+
 def tan_theta2(v: V3) -> torch.Tensor:
     return safe_div(sin_theta2(v), v.z * v.z, fallback=math.inf)
+
+
+def sin_phi(v: V3) -> torch.Tensor:
+    s = sin_theta(v)
+    return torch.where(s == 0.0, 0.0, torch.clamp(safe_div(v.y, s), -1.0, 1.0))
+
+
+def cos_phi(v: V3) -> torch.Tensor:
+    s = sin_theta(v)
+    return torch.where(s == 0.0, 1.0, torch.clamp(safe_div(v.x, s), -1.0, 1.0))
 
 
 def reflect(wi: V3) -> V3:
@@ -187,6 +245,10 @@ def reflect(wi: V3) -> V3:
 
 def reflect_n(wi: V3, n: V3) -> V3:
     return n * (2.0 * wi.dot(n)) - wi
+
+
+def refract_n(wi: V3, n: V3, eta, cos_theta_t) -> V3:
+    return n * (eta * wi.dot(n) + cos_theta_t) - wi * eta
 
 
 def spherical_coordinates(d: V3) -> tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 rendering loop (``mitsuba_im_tpu/diff/optimize.py``).
 
 The wavefront estimator is differentiable in reverse mode with respect to
-the BSDF reflectances and roughness and the emitter radiance; the bounce
+the BSDF reflectances and roughness (every ported family's) and the
+emitter radiance (an environment map's row is its scale); the bounce
 loop replays under ``torch.utils.checkpoint`` (``PathConfig.remat``), so
 the backward pass re-runs the wavefront with the same RNG counters (path
 replay) instead of keeping every bounce's state.  Discrete decisions (lobe,

@@ -1,13 +1,22 @@
 """Emitter tables and next-event-estimation sampling
-(``mitsuba_im_tpu/emitter/table.py``): area emitters on triangle meshes and
-the constant environment emitter.
+(``mitsuba_im_tpu/emitter/table.py``): area emitters on triangle meshes,
+the constant environment and the lat-long environment map.
 
 Emitter selection follows the reference's Distribution1D (uniform weights
 by default); an area emitter samples a point uniformly by area through its
-triangle CDF and converts to solid angle; the constant environment samples
-the uniform sphere and places its point ``2 r + 1`` away (r: the scene's
-bounding-sphere radius).  Point, spot, directional, collimated and envmap
-emitters and analytic area emitters are not ported yet and raise.
+triangle CDF and converts to solid angle.  An environment places its point
+``2 r + 1`` away (r: the scene's bounding-sphere radius): the constant one
+samples the uniform sphere, the map (``EM_ENVMAP``, +y up, u = atan2(x,
+-z) / 2 pi, v = acos(y) / pi in its local frame) importance-samples its
+luminance x sin(theta) through a :class:`Distribution2D` of alias tables,
+and both packages bilinearly interpolate its texels (u wraps, v clamps).
+Point, spot, directional and collimated emitters and analytic area
+emitters are not ported yet and raise.
+
+The map's (u, v) of a direction go through ``atan2`` and ``acos``, whose
+derivatives are 0/0 on the pole axis (and infinite at the poles); there the
+direction enters detached (``v.where_live``), so a masked lane sends no NaN
+backward.  The forward values are the reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ import torch
 
 from ..core.types import Float, Int, INVALID, host_tensor
 from ..core import v3 as v
-from ..core.v3 import V3
+from ..core.distribution import Distribution2D
+from ..core.v3 import V3, PI
 from ..scene.geometry import Geometry
 
 EM_AREA = 0
@@ -36,33 +46,51 @@ AK_SPHERE = 1
 AK_DISK = 2
 
 INV_FOURPI = 1.0 / (4.0 * math.pi)
-PORTED = (EM_AREA, EM_CONSTANT)
+PORTED = (EM_AREA, EM_CONSTANT, EM_ENVMAP)
+ENV_DIST_LEAVES = ("marg_pmf", "cond_pmf", "marg_aprob", "marg_alias",
+                   "cond_aprob", "cond_alias")
 
 
 @dataclasses.dataclass(frozen=True)
 class EmitterTable:
-    """The columns that triangle-mesh area emitters and the constant
-    environment read; the reference's point/spot/directional/envmap and
+    """The columns that triangle-mesh area emitters and the environment
+    emitters read; the reference's point/spot/directional and
     analytic-shape columns join with those emitters."""
 
     type: torch.Tensor  # (E,) int32 EM_*
-    radiance: torch.Tensor  # (E, 3) area / constant radiance
+    radiance: torch.Tensor  # (E, 3) area / constant radiance, map scale
     total_area: torch.Tensor  # (E,)
     tri_cdf: torch.Tensor  # (E, Tm+1) per-emitter triangle area CDF
     tri_idx: torch.Tensor  # (E, Tm) global triangle ids
     select_pmf: torch.Tensor  # (E,) emitter selection (Distribution1D)
     select_cdf: torch.Tensor  # (E+1,)
+    env_rows: torch.Tensor  # (H, W, 3) map texels ((1, 1, 3) without one)
+    env_marg_pmf: torch.Tensor  # (H,) the map's Distribution2D ...
+    env_cond_pmf: torch.Tensor  # (H, W)
+    env_marg_aprob: torch.Tensor  # (H,)
+    env_marg_alias: torch.Tensor  # (H,) int32
+    env_cond_aprob: torch.Tensor  # (H, W)
+    env_cond_alias: torch.Tensor  # (H, W) int32
+    env_to_world: torch.Tensor  # (3, 3) map rotation
+    env_to_local: torch.Tensor  # (3, 3)
     bsphere_center: torch.Tensor  # (3,) scene bounding sphere
     bsphere_radius: torch.Tensor  # ()
     env_index: int = -1  # the environment emitter's row, or -1
+    env_is_map: bool = False  # that row is EM_ENVMAP (else EM_CONSTANT)
     n_emitters: int = 0
     used_types: tuple = ()
 
+    @property
+    def env_dist(self) -> Distribution2D:
+        return Distribution2D(**{k: getattr(self, "env_" + k)
+                                 for k in ENV_DIST_LEAVES})
+
 
 EMITTER_LEAVES = ("type", "radiance", "total_area", "tri_cdf", "tri_idx",
-                  "select_pmf", "select_cdf", "bsphere_center",
-                  "bsphere_radius")
-_INT_LEAVES = ("type", "tri_idx")
+                  "select_pmf", "select_cdf", "env_rows",
+                  *("env_" + k for k in ENV_DIST_LEAVES), "env_to_world",
+                  "env_to_local", "bsphere_center", "bsphere_radius")
+_INT_LEAVES = ("type", "tri_idx", "env_marg_alias", "env_cond_alias")
 
 
 class DirectSample3(NamedTuple):
@@ -89,9 +117,23 @@ def table_from_arrays(arrays: dict, n_emitters: int, used_types,
     cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                            else np.float32, device)
             for k in EMITTER_LEAVES}
-    return EmitterTable(**cols, env_index=int(env_index),
+    is_map = (env_index >= 0
+              and int(np.asarray(arrays["type"])[env_index]) == EM_ENVMAP)
+    return EmitterTable(**cols, env_index=int(env_index), env_is_map=is_map,
                         n_emitters=int(n_emitters),
                         used_types=tuple(used_types))
+
+
+def envmap_record(pixels, scale: float = 1.0, to_world_rot=None,
+                  weight: float = 1.0) -> dict:
+    """The ``envmap`` emitter from a lat-long pixel array (H, W, >= 3) of
+    linear RGB radiance: ``scale`` is its radiance (the gradient slot
+    ``emitter.radiance``), ``to_world_rot`` its 3x3 rotation."""
+    return dict(type=EM_ENVMAP, radiance=np.full(3, float(scale)),
+                pixels=np.asarray(pixels)[..., :3],
+                to_world_rot=(np.eye(3) if to_world_rot is None
+                              else np.asarray(to_world_rot, np.float64)),
+                weight=weight)
 
 
 def build_emitters(records: list[dict], geom_host: dict, bsphere,
@@ -139,10 +181,24 @@ def build_emitters(records: list[dict], geom_host: dict, bsphere,
                 total_area[i] = r.get("surface_area", 1.0)
 
     env_index = -1
+    env_pix = np.zeros((1, 1, 3), np.float32)
+    env_rot = np.eye(3)
     for i, r in enumerate(recs):
-        if r.get("type") == EM_ENVMAP or (r.get("type") == EM_CONSTANT
-                                           and env_index < 0):
+        if r.get("type") == EM_ENVMAP:
             env_index = i
+            env_pix = np.asarray(r["pixels"], np.float32)
+            env_rot = np.asarray(r.get("to_world_rot", np.eye(3)), np.float64)
+        elif r.get("type") == EM_CONSTANT and env_index < 0:
+            env_index = i
+
+    # the map's sampling weights: luminance x sin(theta), the reference's
+    # host arithmetic (float32 luminance, float64 sines, one cast)
+    H = env_pix.shape[0]
+    lum = (env_pix[..., 0] * 0.212671 + env_pix[..., 1] * 0.715160
+           + env_pix[..., 2] * 0.072169)
+    sin_t = np.sin((np.arange(H) + 0.5) / H * np.pi)[:, None]
+    env_dist = Distribution2D.arrays_from_weights(
+        (lum * sin_t + 1e-12).astype(np.float32))
 
     # Distribution1D.from_weights, in float32 as the reference computes it
     w = torch.tensor([r.get("weight", 1.0) for r in recs], dtype=Float)
@@ -157,7 +213,9 @@ def build_emitters(records: list[dict], geom_host: dict, bsphere,
         radiance=np.stack([np.asarray(r.get("radiance", np.zeros(3)),
                                       np.float64) for r in recs]),
         total_area=total_area, tri_cdf=tri_cdf, tri_idx=tri_idx,
-        select_pmf=pmf.numpy(), select_cdf=cdf.numpy(),
+        select_pmf=pmf.numpy(), select_cdf=cdf.numpy(), env_rows=env_pix,
+        **{"env_" + k: a for k, a in env_dist.items()},
+        env_to_world=env_rot, env_to_local=env_rot.T,
         bsphere_center=np.asarray(center), bsphere_radius=np.asarray(radius),
     )
     return table_from_arrays(
@@ -169,24 +227,81 @@ def build_emitters(records: list[dict], geom_host: dict, bsphere,
 
 
 # ---------------------------------------------------------------------------
-# environment (the constant emitter; envmaps are refused where a table is
-# built)
+# environment emitters
 # ---------------------------------------------------------------------------
+
+def _rot_v(mat: torch.Tensor, d: V3) -> V3:
+    """A 3x3 rotation applied to a V3."""
+    return V3(mat[0, 0] * d.x + mat[0, 1] * d.y + mat[0, 2] * d.z,
+              mat[1, 0] * d.x + mat[1, 1] * d.y + mat[1, 2] * d.z,
+              mat[2, 0] * d.x + mat[2, 1] * d.y + mat[2, 2] * d.z)
+
+
+def _env_uv_from_dir_v(em: EmitterTable, d: V3):
+    dl = _rot_v(em.env_to_local, d)
+    ax = (dl.x != 0.0) | (dl.z != 0.0)  # off the pole axis
+    u = v.where_live(torch.atan2, ax, (dl.x, -dl.z), (0.0, 1.0)) * (0.5 / PI)
+    u = torch.where(u < 0, u + 1.0, u)
+    y = torch.clamp(dl.y, -1.0, 1.0)
+    vv = v.where_live(torch.arccos, torch.abs(y) < 1.0, (y,), (0.0,)) / PI
+    return u, vv
+
+
+def _env_dir_from_uv_v(em: EmitterTable, u, vv) -> V3:
+    phi = u * 2.0 * PI
+    theta = vv * PI
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return _rot_v(em.env_to_world,
+                  V3(st * torch.sin(phi), ct, -st * torch.cos(phi)))
+
+
+def _env_lookup_v(em: EmitterTable, u, vv, scale: V3) -> V3:
+    """Bilinear texel lookup at (u, v) times ``scale``."""
+    H, W = em.env_rows.shape[:2]
+    rows = em.env_rows.reshape(-1, 3)
+    fx = u * W - 0.5
+    fy = vv * H - 0.5
+    x0 = torch.floor(fx).to(Int)
+    y0 = torch.floor(fy).to(Int)
+    dx = fx - x0
+    dy = fy - y0
+
+    def texel(x, y):
+        return v.gather_v3(rows, torch.clamp(y, 0, H - 1) * W
+                           + torch.remainder(x, W))
+
+    return scale * (texel(x0, y0) * ((1 - dx) * (1 - dy))
+                    + texel(x0 + 1, y0) * (dx * (1 - dy))
+                    + texel(x0, y0 + 1) * ((1 - dx) * dy)
+                    + texel(x0 + 1, y0 + 1) * (dx * dy))
+
+
+def _env_pdf_sa(pdf_uv, vv):
+    """Solid-angle density of a map sample from its unit-square density."""
+    sin_t = torch.clamp_min(torch.sin(vv * PI), 1e-6)
+    return pdf_uv / (2.0 * PI * PI * sin_t)
+
 
 def eval_environment_v(em: EmitterTable, d_world: V3) -> V3:
     """Radiance of escaped rays (``scene.h`` evalEnvironment)."""
     shape, dev = d_world.x.shape, d_world.x.device
     if em.env_index < 0 or em.n_emitters == 0:
         return v.zeros(shape, dev)
-    rad = em.radiance[em.env_index]
-    return V3(*(c.expand(shape) for c in rad))
+    rad = V3(*em.radiance[em.env_index])
+    if not em.env_is_map:
+        return V3(*(c.expand(shape) for c in rad))
+    u, vv = _env_uv_from_dir_v(em, d_world)
+    return _env_lookup_v(em, u, vv, rad)
 
 
 def env_pdf_sa_v(em: EmitterTable, d_world: V3) -> torch.Tensor:
     """Solid-angle pdf of sample_direct drawing d toward the environment."""
     if em.env_index < 0:
         return torch.zeros_like(d_world.x)
-    return torch.full_like(d_world.x, INV_FOURPI)
+    if not em.env_is_map:
+        return torch.full_like(d_world.x, INV_FOURPI)
+    u, vv = _env_uv_from_dir_v(em, d_world)
+    return _env_pdf_sa(em.env_dist.pdf_continuous(u, vv), vv)
 
 
 def pdf_direct_env_v(em: EmitterTable, d_world: V3) -> torch.Tensor:
@@ -202,7 +317,9 @@ def pdf_direct_env_v(em: EmitterTable, d_world: V3) -> torch.Tensor:
 
 def pdf_direct_area_v(em: EmitterTable, emitter_id, ref_p: V3, p_emit: V3,
                       n_emit: V3) -> torch.Tensor:
-    """Scene::pdfEmitterDirect for area emitters."""
+    """Scene::pdfEmitterDirect for area emitters.  Differentiated on valid
+    lanes only: another lane's row may have no area (1e12 / cos), and the
+    overflow would meet its zero cotangent."""
     if em.n_emitters == 0:
         return torch.zeros_like(ref_p.x)
     eid = torch.where(emitter_id == INVALID, 0, emitter_id)
@@ -210,11 +327,13 @@ def pdf_direct_area_v(em: EmitterTable, emitter_id, ref_p: V3, p_emit: V3,
     r2 = torch.clamp_min(dvec.dot(dvec), 1e-12)
     du = dvec * torch.rsqrt(r2)
     cos_e = n_emit.dot(-du)
-    pdf_sa = (1.0 / torch.clamp_min(em.total_area[eid], 1e-12)) * r2 \
-        / torch.clamp_min(cos_e, 1e-8)
-    valid = ((emitter_id != INVALID) & (em.type[eid] == EM_AREA)
-             & (cos_e > 1e-6))
-    return torch.where(valid, pdf_sa * em.select_pmf[eid], 0.0)
+    inv_area = 1.0 / torch.clamp_min(v.gather_row(em.total_area, eid), 1e-12)
+    valid = ((emitter_id != INVALID)
+             & (v.gather_row(em.type, eid) == EM_AREA) & (cos_e > 1e-6))
+    pdf_sa = v.where_live(
+        lambda r2, c: inv_area * r2 / torch.clamp_min(c, 1e-8), valid,
+        (r2, cos_e), (1.0, 1.0))
+    return torch.where(valid, pdf_sa * v.gather_row(em.select_pmf, eid), 0.0)
 
 
 def emitted_radiance_v(em: EmitterTable, shape_emitter_id, n_surf: V3,
@@ -225,7 +344,8 @@ def emitted_radiance_v(em: EmitterTable, shape_emitter_id, n_surf: V3,
     eid = torch.where(shape_emitter_id == INVALID, 0, shape_emitter_id)
     rad = v.gather_v3(em.radiance, eid)
     front = n_surf.dot(wo_world) > 0
-    valid = (shape_emitter_id != INVALID) & (em.type[eid] == EM_AREA) & front
+    valid = ((shape_emitter_id != INVALID)
+             & (v.gather_row(em.type, eid) == EM_AREA) & front)
     return V3(torch.where(valid, rad.x, 0.0), torch.where(valid, rad.y, 0.0),
               torch.where(valid, rad.z, 0.0))
 
@@ -243,7 +363,7 @@ def _sample_area_position_v(em: EmitterTable, geom: Geometry, eid, u2a, u2b,
         lo, hi = cdf[li], cdf[li + 1]
         tri = em.tri_idx[0][li]
     else:
-        cdf = em.tri_cdf[eid]
+        cdf = v.gather_row(em.tri_cdf, eid)
         li = torch.searchsorted(cdf, u0[:, None], right=True)[:, 0] - 1
         li = li.clamp(0, Tm - 1)
         lo = cdf.gather(1, li[:, None])[:, 0]
@@ -279,9 +399,10 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
         # Distribution1D.sample: #{1 <= k < E : cdf[k] <= u}
         eid = torch.searchsorted(em.select_cdf, u_sel, right=True) - 1
         eid = eid.clamp(0, E - 1).to(Int)
-        sel_pmf = em.select_pmf[eid]
+        sel_pmf = v.gather_row(em.select_pmf, eid)
 
-    etype = em.type[eid]
+    etype = v.gather_row(em.type, eid)
+    radiance = v.gather_v3(em.radiance, eid)
     d, value, n_out = v.zeros(shape, dev), v.zeros(shape, dev), v.zeros(
         shape, dev)
     dist = torch.ones(shape, dtype=Float, device=dev)
@@ -290,7 +411,7 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
         sel = etype == t
         if t == EM_AREA:
             p_s, n_s, pos_pdf_a = _sample_area_position_v(
-                em, geom, eid, u2a, u2b, em.total_area[eid])
+                em, geom, eid, u2a, u2b, v.gather_row(em.total_area, eid))
             dvec = p_s - ref_p
             r2 = torch.clamp_min(dvec.dot(dvec), 1e-12)
             r = torch.sqrt(r2)
@@ -298,15 +419,20 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
             cos_emit = n_s.dot(-du)
             front = cos_emit > 1e-6
             pdf_sa = pos_pdf_a * r2 / torch.clamp_min(cos_emit, 1e-8)
-            val = v.where(front, v.gather_v3(em.radiance, eid),
-                          v.zeros(shape, dev))
+            val = v.where(front, radiance, v.zeros(shape, dev))
             pdf_t = torch.where(front, pdf_sa, 0.0)
             n_t = n_s
-        else:  # EM_CONSTANT
-            du = v.square_to_uniform_sphere(u2a, u2b)
+        else:
+            if t == EM_CONSTANT:
+                du = v.square_to_uniform_sphere(u2a, u2b)
+                val = radiance
+                pdf_t = torch.full(shape, INV_FOURPI, dtype=Float, device=dev)
+            else:  # EM_ENVMAP
+                uu, vv, pdf_uv = em.env_dist.sample_continuous(u2a, u2b)
+                du = _env_dir_from_uv_v(em, uu, vv)
+                pdf_t = _env_pdf_sa(pdf_uv, vv)
+                val = _env_lookup_v(em, uu, vv, radiance)
             r = (2.0 * em.bsphere_radius + 1.0).expand(shape)
-            val = v.gather_v3(em.radiance, eid)
-            pdf_t = torch.full(shape, INV_FOURPI, dtype=Float, device=dev)
             n_t = -du
         d = v.where(sel, du, d)
         dist = torch.where(sel, r, dist)

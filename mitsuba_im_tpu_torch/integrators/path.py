@@ -56,10 +56,14 @@ class PathConfig:
 
 
 def mi_weight(pdf_a, pdf_b):
-    """Power heuristic (path.cpp:292)."""
+    """Power heuristic (path.cpp:292).  Differentiated only where a2 + b2 >=
+    1e-30: below, the division's derivative overflows (a tiny pdf of a
+    masked lane would turn its zero cotangent into a NaN); such lanes carry
+    a zero weight or a sample drawn with probability ~0."""
     a2 = pdf_a * pdf_a
     b2 = pdf_b * pdf_b
-    return safe_div(a2, a2 + b2)
+    return v.where_live(lambda a, b: safe_div(a, a + b),
+                        lambda: a2 + b2 >= 1e-30, (a2, b2), (1.0, 0.0))
 
 
 def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,

@@ -22,7 +22,8 @@ from .scene import Scene
 
 SCENE_LEAVES = ("shape_bsdf", "shape_emitter")
 _EMITTER_SRC = {"select_pmf": ("select", "pmf"),
-                "select_cdf": ("select", "cdf")}
+                "select_cdf": ("select", "cdf"),
+                **{"env_" + k: ("env_dist", k) for k in em.ENV_DIST_LEAVES}}
 
 
 def export_tables(src) -> tuple[dict, dict]:

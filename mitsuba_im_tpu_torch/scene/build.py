@@ -2,9 +2,9 @@
 torch on a given device.
 
 The subset the ported path needs: BSDF records, shapes, triangle meshes,
-area and constant emitters, a sensor, and the two-level cluster hierarchy
-of scenes above ``BRUTE_FORCE_MAX`` triangles (analytic shapes, media,
-subsurface, motion and instancing are not ported).  The host arithmetic
+area, constant and environment-map emitters, a sensor, and the two-level
+cluster hierarchy of scenes above ``BRUTE_FORCE_MAX`` triangles (analytic
+shapes, media, subsurface, motion and instancing are not ported).  The host arithmetic
 (float64 numpy, then one cast to float32) is the reference's, so a scene
 built here has the same tables bit for bit as the same scene built by the
 JAX package.

@@ -8,7 +8,8 @@ Kernels against their plain PyTorch versions on the same card tensors
 rays that overflow the kernel's per-ray super list, and 3000 supers),
 the Cornell and large-scene renders on the card against the CPU
 renders, and their gradients (path replay through the kernels) against
-the CPU's.
+the CPU's; the environment map's alias sampling and the thirteen-family
+``material_cornell`` render on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig
 from mitsuba_im_tpu_torch.render.job import render_film
-from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
+from mitsuba_im_tpu_torch.scenes import (SUN_DIR, large_scene,
+                                         material_cornell, tiny_cornell)
 
 pytestmark = pytest.mark.cuda
 
@@ -302,3 +304,52 @@ def test_gradient_replay_card_vs_cpu(cuda, which):
         card, cpu = grads[0][k], grads[1][k]
         assert torch.isfinite(card).all() and cpu.abs().max() > 0
         assert (card - cpu).abs().max() / cpu.abs().max() < 5e-3, k
+
+
+def test_alias_sampling_card_vs_cpu(cuda):
+    """The Hosek sky's Distribution2D (resolution 512) samples the same
+    cells on the card as on the CPU at 2^20 samples, and (u, v, pdf) to
+    float32 tolerance."""
+    from mitsuba_im_tpu_torch.core.distribution import Distribution2D
+    from mitsuba_im_tpu_torch.emitter.hosek import hosek_sky_pixels
+
+    pix = hosek_sky_pixels(512, SUN_DIR)
+    lum = pix @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+    sin_t = np.sin((np.arange(256) + 0.5) / 256 * np.pi)[:, None]
+    arrays = Distribution2D.arrays_from_weights(
+        (lum * sin_t + 1e-12).astype(np.float32))
+    gen = torch.Generator().manual_seed(5)
+    u = torch.rand(2, 1 << 20, generator=gen)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        dist = Distribution2D.from_arrays(arrays, dev)
+        out.append([t.cpu() for t in dist.sample_continuous(
+            *u.to(dev).unbind(0))])
+    (uc, vc, pc), (uh, vh, ph) = out
+    assert torch.equal((uc * 512).floor(), (uh * 512).floor())
+    assert torch.equal((vc * 256).floor(), (vh * 256).floor())
+    for a, b in ((uc, uh), (vc, vh), (pc, ph)):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_material_cornell_render_card_vs_cpu(cuda):
+    """The thirteen families under the area light and the sky at 32^2,
+    depth 5, 2 spp: 5 closest + 4 any-hit launches per pass, no hierarchy
+    launch, and the image within parity_check.py's gate of the CPU's."""
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = material_cornell(dev)
+        settings.width = settings.height = 32
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        imgs.append(develop(render_film(scene, settings, spp=2)).cpu().numpy())
+        if dev.type == "cuda":
+            assert (ci.closest_tris_v.launches,
+                    ci.anyhit_tris_v.launches) == (2 * 5, 2 * 4)
+            assert (ch.hier_closest.launches, ch.hier_anyhit.launches) == (
+                0, 0)
+    a, b = (im.sum(-1).ravel() for im in imgs)
+    assert np.isfinite(a).all() and (a >= 0).all()
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
+    assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
+    assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
