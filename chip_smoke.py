@@ -96,7 +96,30 @@ Phases, in order; any failure raises and the run exits non-zero:
    sum(Li)/d refl, spec, alpha and the radiance of both emitters: finite;
    radiance linearity over both emitters (roulette never fires at depth 5,
    so sum_e radiance_e d sum(Li_c)/d radiance_e = sum(Li_c), rel < 1e-3);
-   card vs CPU max rel < 5e-3 for each; the fwd+bwd pass time.
+   card vs CPU max rel < 5e-3 for each; the fwd+bwd pass time;
+17. textures: ``render_film`` on ``scenes.textured_cornell("cuda")`` (a
+   2048^2 bitmap with its MIP pyramid, 1024^2 height and normal maps, a
+   checkerboard, a grid, a scale, MASK and BLEND wrappers, ``alpha_tex``;
+   32 triangles) at 1024^2, depth 5, 4 spp, with the primary rays'
+   differentials filtering the bitmaps; 5 closest and 4 any-hit launches
+   per pass, no hierarchy launch; the texture count and atlas MiB; the
+   image finite, non-negative, of plausible brightness; the pass time,
+   peak device memory, device operations, device time and idle share;
+18. card vs CPU on textured_cornell at 128^2, depth 5, filtered:
+   parity_check.py's gate;
+19. the large scene with a seeded 2048^2 bitmap on its mesh (spherical
+   uvs; ``large_scene("cuda", texture=True)``) at 768^2, depth 3, 2 spp: 3
+   + 2 hierarchy launches per pass, no brute-force launch; the pass time,
+   peak device memory; card vs CPU at 64^2 (filtered) under the gate;
+20. the atlas gradient, bench.py's fwd+bwd configuration on
+   textured_cornell (1024^2, depth 5, ``remat_group=4``): d sum(Li)/d
+   ``texture.atlas`` and d sum(Li)/d ``emitter.radiance``; 5 + 4 launches
+   forward and 9 + 8 with the replay; finite; non-zero on the bitmap's
+   texels; radiance linearity (the area light is the only emitter); peak
+   device memory; the fwd+bwd pass time and its ratio to phase 17's pass;
+   the share of a pass's device time in the gathers' backward
+   (``index_put``/``indexing_backward``); card vs CPU atlas gradient at
+   64^2, max rel < 5e-3.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -127,10 +150,11 @@ from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
+from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
 from mitsuba_im_tpu_torch.scenes import (large_scene, material_cornell,
-                                         tiny_cornell)
+                                         textured_cornell, tiny_cornell)
 from mitsuba_im_tpu_torch.sensor.table import sample_ray_v
-from profile_pass import busy_union
+from profile_pass import SCATTER, busy_union, device_events, device_us
 from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
 
 RES = 1024
@@ -150,6 +174,8 @@ L_SPP = 2
 G_LABELS = ("bsdf.refl", "emitter.radiance")  # the Cornell gradients
 M_LABELS = ("bsdf.refl", "bsdf.spec", "bsdf.alpha", "emitter.radiance")
 M_GRAD_RES = 128  # the material_cornell gradient
+T_LABELS = ("texture.atlas", "emitter.radiance")  # the textured gradient
+T_GRAD_PARITY_RES = 64
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): memory rate
 # and float32 rate outside the tensor cores
@@ -238,25 +264,19 @@ def device_ms_in_turns(fns, reps, names=TRI_KERNELS):
     out (logged) when fewer were recorded, or when the first pass's
     recorded kernels do not match the second's by name.  None for each
     function when no round was kept."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    def run(passes):
+        for _ in range(passes):
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
 
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
+    run(1)
     n = len(fns)
     times = {k: [] for k in fns}
     left_out = []
     for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                for fn in fns.values():
-                    fn()
-                torch.cuda.synchronize()
-        ev = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and any(s in e.name for s in names)),
+        ev = sorted((e for e in device_events(run, 2)
+                     if any(s in e.name for s in names)),
                     key=lambda e: e.time_range.start)
         first, timed = ev[:-n], ev[-n:]
         m = min(len(first), n)
@@ -298,7 +318,9 @@ def tri_bounds(n, T):
             "anyhit": bound(n * (24 + 4 + 1) + T * 36, flops)}
 
 
-def camera_rays(scene, n_side, sample=0):
+def camera_rays(scene, n_side, sample=0, diffs=False):
+    """(sampler, o, d) of one sample per pixel, and with ``diffs`` the
+    rays' differentials for +1-pixel offsets."""
     n = n_side * n_side
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
     s = rng.make_sampler_v(pix, sample, 0)
@@ -306,7 +328,10 @@ def camera_rays(scene, n_side, sample=0):
     uu = ((pix % n_side).float() + blk[0]) / n_side
     vv = ((pix // n_side).float() + blk[1]) / n_side
     o, d, _ = sample_ray_v(scene.sensor, uu, vv, blk[2], blk[3])
-    return s, o, d
+    if not diffs:
+        return s, o, d
+    return s, o, d, camera_ray_differentials(
+        scene.sensor, uu, vv, blk[2], blk[3], 1.0 / n_side, 1.0 / n_side)
 
 
 def random_soup(gen, n_tris, n_rays, dev):
@@ -362,16 +387,18 @@ def tri_forms(n, gen, dev):
 
 
 def tri_cases(dev):
-    """{name: dict(geom, o, d, forms, tmax)}: the Cornell box's geometry and
-    material_cornell's (272 triangles), each with the 2^20 camera rays of a
-    1024^2 image, and a random 512-triangle soup (in the Cornell geometry's
-    place, no sphere or disk) with 2^20 random rays; ``tmax`` is the (N,)
-    any-hit tmax timed."""
+    """{name: dict(geom, o, d, forms, tmax)}: the Cornell box's geometry,
+    material_cornell's (272 triangles) and textured_cornell's (32), each
+    with the 2^20 camera rays of a 1024^2 image, and a random 512-triangle
+    soup (in the Cornell geometry's place, no sphere or disk) with 2^20
+    random rays; ``tmax`` is the (N,) any-hit tmax timed."""
     scene, _ = tiny_cornell(dev)
     mscene, _ = material_cornell(dev)
+    tscene, _ = textured_cornell(dev)
     gen = torch.Generator(device=dev).manual_seed(1234)
     _, o, d = camera_rays(scene, RES)
     _, o_m, d_m = camera_rays(mscene, RES)
+    _, o_t, d_t = camera_rays(tscene, RES)
     (p0, e1, e2), o_r, d_r = random_soup(gen, ci.MAX_TRIS, N_RAYS, dev)
     soup = dataclasses.replace(
         scene.geom, tri_p0=p0, tri_e1=e1, tri_e2=e2, n_tris=ci.MAX_TRIS,
@@ -380,6 +407,7 @@ def tri_cases(dev):
     out = {}
     for name, geom, oo, dd in (("cornell", scene.geom, o, d),
                                ("material_cornell", mscene.geom, o_m, d_m),
+                               ("textured_cornell", tscene.geom, o_t, d_t),
                                ("random512", soup, o_r, d_r)):
         out[name] = dict(
             geom=geom, o=oo, d=dd, forms=tri_forms(N_RAYS, gen, dev),
@@ -529,26 +557,40 @@ def main_path_phase(dev):
     return launches, per_pass
 
 
-def parity_gate(name, a, b):
+def parity_stats(a, b):
+    """parity_check.py:137's gate of per-pixel values a against b: the
+    sum's rel, the per-pixel rel's 99.9th percentile and the share of
+    pixels (``bad`` per pixel) above 1e-3."""
     rel_sum = abs(float(a.sum()) - float(b.sum())) / max(abs(float(
         b.sum())), 1e-30)
     scale = max(float(np.abs(b).mean()), 1e-12)
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * scale)
     p999 = float(np.quantile(rel, 0.999))
-    frac_bad = float((rel > 1e-3).mean())
-    ok = rel_sum < 5e-3 and p999 < 1e-3 and frac_bad < 2e-3
+    bad = rel > 1e-3
+    frac_bad = float(bad.mean())
+    return dict(rel=rel_sum, p999=p999, frac_bad=frac_bad, bad=bad,
+                max_rel=float(rel.max()),
+                ok=rel_sum < 5e-3 and p999 < 1e-3 and frac_bad < 2e-3)
+
+
+def parity_gate(name, a, b):
+    st = parity_stats(a, b)
+    ok = st["ok"]
     log(f"[parity] {name}: cuda {a.sum():.6e} cpu {b.sum():.6e} rel "
-        f"{rel_sum:.2e} p999 {p999:.2e} frac_bad {frac_bad:.2e} max_rel "
-        f"{rel.max():.2e} {'OK' if ok else 'FAIL'}")
+        f"{st['rel']:.2e} p999 {st['p999']:.2e} frac_bad "
+        f"{st['frac_bad']:.2e} max_rel {st['max_rel']:.2e} "
+        f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("card vs CPU parity gate failed")
 
 
-def path_luminance(scene, n_side, depth, skip_direct=False):
-    """parity_check._render_cornell on the port: per-pixel Li sum."""
-    s, o, d = camera_rays(scene, n_side, sample=7)
+def path_luminance(scene, n_side, depth, skip_direct=False, diffs=False):
+    """parity_check._render_cornell on the port: per-pixel Li sum (with
+    ``diffs``, the primary rays' differentials filter the bitmaps)."""
+    s, o, d, *dd = camera_rays(scene, n_side, sample=7, diffs=diffs)
     cfg = PathConfig(max_depth=depth, remat=False, skip_direct=skip_direct)
-    li, _ = path_li_v(scene, s, o, d, cfg)
+    kw = dict(dddx=dd[0][0], dddy=dd[0][1]) if diffs else {}
+    li, _ = path_li_v(scene, s, o, d, cfg, **kw)
     return (li.x + li.y + li.z).cpu().numpy()
 
 
@@ -1049,17 +1091,9 @@ def large_grad_phase(scene, settings):
 def device_profile(tag, run, passes=2):
     """Device operations, device ms and idle share per pass of ``run(k)``
     (k passes) under torch.profiler, after one warm-up pass."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     run(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(passes)
-        torch.cuda.synchronize()
-    dev = sorted(((e.time_range.start, e.time_range.end) for e in
-                  prof.events() if e.device_type == DeviceType.CUDA))
+    dev = sorted((e.time_range.start, e.time_range.end)
+                 for e in device_events(run, passes))
     if not dev:
         log(f"[{tag}] device profile: not measured (no device events)")
         return None
@@ -1219,6 +1253,248 @@ def material_grad_phase(dev):
                           "materials grad")
 
 
+# ---------------------------------------------------------------------------
+# textures: bitmaps with MIP pyramids, ray differentials, MASK/BLEND, bump
+# and normal maps, and the atlas gradient
+# ---------------------------------------------------------------------------
+
+def describe_textures(tag, scene, seconds):
+    tex = scene.textures
+    mib = tex.atlas.numel() * tex.atlas.element_size() / 2**20
+    log(f"[{tag}] scene built on the host in {seconds:.2f} s: "
+        f"{scene.geom.n_tris} triangles, {tex.type.shape[0]} textures "
+        f"(types {tex.used_types}, MIP {tex.has_mip}), atlas "
+        f"{tex.atlas.shape[0]} texels = {mib:.3f} MiB; BSDF types "
+        f"{scene.bsdfs.used_types}, textured columns "
+        f"{scene.bsdfs.tex_columns}, bump kinds {scene.bsdfs.bump_kinds}")
+    return mib
+
+
+def textured_path_phase(dev):
+    """17. textured_cornell through render_film (ray differentials on) at
+    bench.py's forward configuration."""
+    t0 = time.perf_counter()
+    scene, settings = textured_cornell(dev)
+    mib = describe_textures("textures", scene, time.perf_counter() - t0)
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    hier = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    spp, depth = settings.spp, settings.integrator_props["max_depth"]
+    log(f"[textures] render_film {settings.width}x{settings.height} depth "
+        f"{depth} spp {spp}: closest launches {launches[0]}, anyhit "
+        f"launches {launches[1]}, hierarchy launches {hier}; peak device "
+        f"memory {peak:.3f} GiB")
+    if launches != (depth * spp, (depth - 1) * spp) or any(hier):
+        raise AssertionError(f"expected {depth} closest and {depth - 1} "
+                             f"any-hit launches per pass, no hierarchy "
+                             f"launch, got {launches}, {hier}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    q = settings.width // 8
+    log(f"[textures] image mean luminance {lum.mean():.5f}, back wall "
+        f"{lum[2 * q:4 * q, 3 * q:5 * q].mean():.5f}, floor "
+        f"{lum[7 * q:, 3 * q:5 * q].mean():.5f}")
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    if not 0.05 < lum.mean() < 2.0:
+        raise AssertionError(f"implausible mean luminance {lum.mean()}")
+    rays = settings.width * settings.height * (1 + 2 * (depth - 1))
+    per_pass = pass_time(scene, settings, 2, 6, rays)
+    prof = device_profile("textures",
+                          lambda k: render_film(scene, settings, spp=k))
+    return launches, per_pass, peak, prof, mib
+
+
+def textured_parity_phase(dev):
+    """18. textured_cornell, card vs CPU at 128^2, depth 5, filtered."""
+    parity_gate(f"textured_cornell 128^2 depth {DEPTH} (ray differentials)",
+                path_luminance(textured_cornell(dev)[0], 128, DEPTH,
+                               diffs=True),
+                path_luminance(textured_cornell("cpu")[0], 128, DEPTH,
+                               diffs=True))
+
+
+def textured_white_parity_phase(dev):
+    """18b. textured_cornell with white-noise bitmap and bump maps
+    (full-frequency texels), card vs CPU at 128^2, depth 2, filtered,
+    gated from the same camera rays (the CPU's, copied to the card): the
+    card's hits, filtered lookups, bump frames and render against the
+    CPU's.  From each device's own rays the card's camera directions
+    differ from the CPU's in the last bits (its rsqrt), and the floor's
+    height map, whose finite difference spans about a texel, turns that
+    into a different shading normal (ROADMAP C9): logged, not gated."""
+    g = textured_cornell(dev, white_noise=True)[0]
+    c = textured_cornell("cpu", white_noise=True)[0]
+    cfg = PathConfig(max_depth=2, remat=False)
+    s_c, o_c, d_c, dd_c = camera_rays(c, 128, sample=7, diffs=True)
+    s_g, o_g, d_g, dd_g = camera_rays(g, 128, sample=7, diffs=True)
+
+    def lum(scene, s, o, d, dd):
+        li, _ = path_li_v(scene, s, o, d, cfg, dddx=dd[0], dddy=dd[1])
+        return (li.x + li.y + li.z).cpu().numpy()
+
+    def frame(scene, o, d):
+        h = scene.ray_intersect_v(o, d)
+        it = scene.interaction_v(o, d, h)
+        live = h.valid.cpu()
+        return h, [t.cpu()[live] for t in (*it.ns, it.uv_u, it.uv_v)]
+
+    def on_card(x):
+        return V3(*(t.to(dev) for t in x))
+
+    ref = lum(c, s_c, o_c, d_c, dd_c)
+    h_c, f_c = frame(c, o_c, d_c)
+    h_o, f_o = frame(g, o_g, d_g)
+    st = parity_stats(lum(g, s_g, o_g, d_g, dd_g), ref)
+    floor = h_c.shape == 0
+    d_err = max_abs_err([t.cpu() for t in d_g], d_c)
+    log(f"[textures white] from each device's own camera rays (not gated): "
+        f"directions differ by {d_err:.3e}, hit u "
+        f"by {max_abs_err([h_o.u.cpu()], [h_c.u]):.3e}, shading normals by "
+        f"{max_abs_err(f_o[:3], f_c[:3]):.3e}; render rel {st['rel']:.2e} "
+        f"p999 {st['p999']:.2e} frac_bad {st['frac_bad']:.2e} (on the "
+        f"height-mapped floor {st['bad'][floor.numpy()].mean():.2e}, "
+        f"elsewhere {st['bad'][~floor.numpy()].mean():.2e})")
+    o, d, dd = on_card(o_c), on_card(d_c), [on_card(x) for x in dd_c]
+    h_g, f_g = frame(g, o, d)
+    hit_mism = mismatches([getattr(h_g, k).cpu() for k in ("t", "u", "v",
+                                                          "prim")],
+                          [getattr(h_c, k) for k in ("t", "u", "v",
+                                                     "prim")])
+    err = max_abs_err(f_g, f_c)
+    log(f"[textures white] from the CPU's camera rays: hit mismatches "
+        f"{hit_mism}, shading normals and uvs differ by {err:.3e}")
+    if hit_mism or not err < 1e-5:
+        raise AssertionError("white-noise textured hits or frames differ")
+    parity_gate("textured_cornell, white noise, 128^2 depth 2 (ray "
+                "differentials, the CPU's camera rays)",
+                lum(g, s_g, o, d, dd), ref)
+
+
+def textured_large_phase(dev):
+    """19. The large scene with a bitmap on its mesh (spherical uvs)."""
+    t0 = time.perf_counter()
+    scene, settings = large_scene(dev, texture=True)
+    describe_textures("textured large", scene, time.perf_counter() - t0)
+    settings.spp = L_SPP
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    log(f"[textured large] render_film {L_RES}x{L_RES} depth {L_DEPTH} spp "
+        f"{L_SPP}: hier_closest launches {launches[0]}, hier_anyhit "
+        f"launches {launches[1]}, brute-force launches {brute}; peak "
+        f"device memory {peak:.3f} GiB")
+    if launches != (L_DEPTH * L_SPP, (L_DEPTH - 1) * L_SPP) or any(brute):
+        raise AssertionError(f"expected {L_DEPTH} hier_closest, "
+                             f"{L_DEPTH - 1} hier_anyhit and no brute-force "
+                             f"launches per pass, got {launches}, {brute}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    q = L_RES // 8
+    centre = lum[3 * q:5 * q, 3 * q:5 * q]
+    log(f"[textured large] image mean luminance {lum.mean():.5f}, centre "
+        f"{centre.mean():.5f} (std {centre.std():.5f})")
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    if not 0.2 < lum.mean() < 1.5:
+        raise AssertionError(f"implausible mean luminance {lum.mean()}")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)))
+    parity_gate(f"textured large scene 64^2 depth {L_DEPTH} (ray "
+                f"differentials)",
+                path_luminance(scene, 64, L_DEPTH, diffs=True),
+                path_luminance(large_scene("cpu", texture=True)[0], 64,
+                               L_DEPTH, diffs=True))
+    return launches, per_pass, peak
+
+
+def scatter_share(tag, run):
+    """Device ms of one fwd+bwd pass of ``run()`` and the share of it in
+    the gathers' backward scatter (torch.profiler; the caller has warmed
+    ``run`` up)."""
+    ev = device_events(lambda _: run(), 1)
+    if not ev:
+        log(f"[{tag}] scatter share: not measured (no device events)")
+        return None
+    total, scat = device_us(ev) / 1e3, device_us(ev, SCATTER) / 1e3
+    log(f"[{tag}] device time of one fwd+bwd pass {total:.3f} ms, "
+        f"{len(ev)} device operations; in index_put/indexing_backward "
+        f"{scat:.3f} ms = {scat / total:.3f} (torch.profiler)")
+    return scat / total
+
+
+def texture_grad_phase(dev, fwd_ms):
+    """20. d sum(Li)/d texture.atlas on textured_cornell at bench.py's
+    fwd+bwd configuration, and card vs CPU at 64^2."""
+    scene, settings = textured_cornell(dev)
+    n_iters = DEPTH - 1
+    cfg = PathConfig(max_depth=DEPTH, remat=True, remat_group=4)
+
+    def counts():
+        return (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    grads, li, fwd, peak = grad_peak(scene, settings, cfg, T_LABELS, counts)
+    launches = counts()
+    log(f"[texture grad] {RES}x{RES} depth {DEPTH} remat_group 4: launches "
+        f"forward {fwd}, forward+backward {launches}; peak device memory "
+        f"{peak:.3f} GiB")
+    want = ((DEPTH, n_iters), (DEPTH + n_iters, 2 * n_iters))
+    if (fwd, launches) != want:
+        raise AssertionError(f"expected forward {want[0]} and fwd+bwd "
+                             f"{want[1]} launches, got {fwd}, {launches}")
+    if ch.hier_closest.launches or ch.hier_anyhit.launches:
+        raise AssertionError("textured_cornell launched hierarchy kernels")
+    check_finite("texture grad", grads)
+    g = grads["texture.atlas"]
+    tex = scene.textures  # texture 0: the back wall's bitmap
+    base = int(tex.width[0]) * int(tex.height[0])  # its base level
+    nz = int((g[:base] != 0).any(1).sum())
+    log(f"[texture grad] d sum(Li)/d atlas: {nz} of the bitmap's {base} "
+        f"base texels non-zero, sum {g[:base].sum().item():.6e}, max "
+        f"|g| {g.abs().max().item():.6e}")
+    if nz < base // 100:
+        raise AssertionError("the bitmap's texels got no gradient")
+    check_linearity("texture grad", grads, li, scene.emitters.radiance)
+    del grads, li, g
+    rays = RES * RES * (1 + 2 * n_iters)
+    per_pass = grad_pass_time(scene, settings, cfg, T_LABELS, 1, 2, rays,
+                              "texture grad")
+    log(f"[texture grad] fwd+bwd pass / forward pass (phase 17) "
+        f"{per_pass:.3f} / {fwd_ms:.3f} ms = {per_pass / fwd_ms:.3f}")
+    share = scatter_share("texture grad", lambda: grad_pass(
+        scene, settings, cfg, T_LABELS, 0))
+    del scene
+
+    g = {}
+    for where in (dev, "cpu"):
+        sc, st = textured_cornell(where)
+        st.width = st.height = T_GRAD_PARITY_RES
+        g[str(where)] = grad_pass(sc, st, cfg, ("texture.atlas",),
+                                  7)[0]["texture.atlas"].cpu()
+    card, cpu = g[str(dev)], g["cpu"]
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"[texture grad parity] {T_GRAD_PARITY_RES}^2 d sum(Li)/d atlas: "
+        f"card {card.sum().item():.6e} cpu {cpu.sum().item():.6e} max rel "
+        f"{rel:.3e} {'OK' if rel < 5e-3 else 'FAIL'}")
+    if not rel < 5e-3:
+        raise AssertionError("card vs CPU atlas gradient parity failed")
+    return launches, per_pass, peak, share
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None):
     bnd = timing[key + "_bound"]
@@ -1255,6 +1531,18 @@ def main():
     sky_parity_phase(sky_scene)
     del sky_scene
     m_grad_ms = material_grad_phase(dev)
+    t_launches, t_ms, t_peak, t_prof, t_mib = textured_path_phase(dev)
+    textured_parity_phase(dev)
+    textured_white_parity_phase(dev)
+    tl_launches, tl_ms, tl_peak = textured_large_phase(dev)
+    tg_launches, tg_ms, tg_peak, tg_share = texture_grad_phase(dev, t_ms)
+    log(f"[summary] textured_cornell pass {t_ms:.3f} ms, launches "
+        f"{t_launches}, device ops per pass "
+        f"{fmt(t_prof and t_prof['ops'])}, peak {t_peak:.3f} GiB, atlas "
+        f"{t_mib:.3f} MiB; textured large pass {tl_ms:.3f} ms, launches "
+        f"{tl_launches}, peak {tl_peak:.3f} GiB; atlas fwd+bwd pass "
+        f"{tg_ms:.3f} ms, launches {tg_launches}, peak {tg_peak:.3f} GiB, "
+        f"scatter share {fmt(tg_share)}")
     log(f"[summary] material_cornell pass {m_ms:.3f} ms, launches "
         f"{m_launches}, device ops per pass "
         f"{fmt(m_prof and m_prof['ops'])}; sky scene pass {s_ms:.3f} ms, "

@@ -9,14 +9,17 @@ inputs.  It imports ``torch`` and never ``jax``, directly or through
 
 Covered so far: the forward wavefront path tracer
 (``integrators/path.py::path_li_v`` driven by ``render/job.py::render_film``)
-with every untextured BSDF family but IRAWAN, triangle-mesh area emitters,
+with every BSDF family but IRAWAN, the MASK and BLEND wrappers, textured
+parameters (constant, bitmap with MIP/anisotropic filtering through ray
+differentials, checker, grid, scale, vertexcolors), bump and normal maps,
+triangle-mesh area emitters,
 the constant environment and the lat-long environment map (given as pixels
 or baked from the Hosek-Wilkie sky, ``emitter/hosek.py``), a perspective
 sensor and the box-filter film, on the
 Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and on
 large scenes (the two-level cluster hierarchy, ``csrc/hier_traverse.cu``),
 both through hand-written CUDA kernels; its reverse-mode gradients with
-respect to BSDF and emitter parameters by path replay
+respect to BSDF, texture-atlas and emitter parameters by path replay
 (``torch.utils.checkpoint``) and the inverse-rendering loop
 (``diff/optimize.py``).  Everything else raises ``NotImplementedError``.  Public entry points run on the card unless the
 CPU is asked for.

@@ -1,12 +1,13 @@
 """BSDF parameter tables and per-lane resolution
-(``mitsuba_im_tpu/bsdf/common.py``), for untextured records, and the
-record factories of the ported types (``mitsuba_im_tpu/bsdf/__init__.py``,
-taking keyword arguments where the reference reads a ``Properties`` bag).
+(``mitsuba_im_tpu/bsdf/common.py``), and the record factories of the
+ported types and wrappers (``mitsuba_im_tpu/bsdf/__init__.py``, taking
+keyword arguments where the reference reads a ``Properties`` bag).
 
 Each scene BSDF is one row of typed parameters; lanes gather their row into
-a :class:`LaneParams3` through the one row lookup ``v3.gather_row``.
-Texture references, MASK/BLEND unwrapping, bump mapping and IRAWAN are not
-ported yet and raise.
+a :class:`LaneParams3` through the one row lookup ``v3.gather_row``,
+unwrapping MASK and BLEND rows and looking up the textures that a row
+references (``texture/texture.py``).  Bump and normal maps tilt the
+shading frame in ``scene/scene.py``.  IRAWAN raises.
 
 HK keeps its Henyey-Greenstein asymmetry g in ``alpha_u``.  The reference
 clamps every ``alpha_u``/``alpha_v`` to at least 1e-4 in ``resolve_v``,
@@ -22,8 +23,10 @@ import numpy as np
 import torch
 
 from ..core.types import INVALID, host_tensor
+from ..core import rng as mrng
 from ..core import v3 as v
 from ..core.v3 import V3
+from ..texture.texture import TextureTable, eval_texture_v, reached_types
 from .ior import lookup_conductor, lookup_dielectric
 from .microfacet import DIST_BECKMANN, DIST_GGX, DIST_PHONG
 
@@ -48,7 +51,10 @@ BUMPMAP_WRAP = 16
 HK = 17
 IRAWAN = 18
 
+# frame perturbation kinds (the bumpmap / normalmap wrappers)
 BUMP_NONE = 0
+BUMP_HEIGHT = 1
+BUMP_NORMAL = 2
 FLAG_TWOSIDED = 1
 
 _DISTS = {"beckmann": DIST_BECKMANN, "ggx": DIST_GGX, "phong": DIST_PHONG,
@@ -60,29 +66,48 @@ TEXTURE_COLUMNS = ("refl_tex", "spec_tex", "trans_tex", "alpha_tex",
 
 @dataclasses.dataclass(frozen=True)
 class BSDFTable:
-    """The columns the ported BSDFs read; the reference's other columns
-    (opacity, wrapper links, bump maps) join with the wrappers."""
-
     type: torch.Tensor  # (B,) int32
     dist: torch.Tensor  # (B,) int32 microfacet distribution
     refl: torch.Tensor  # (B, 3) diffuse reflectance (HK: albedo)
+    refl_tex: torch.Tensor  # (B,) int32 texture id or INVALID
     spec: torch.Tensor  # (B, 3) specular reflectance
+    spec_tex: torch.Tensor
     trans: torch.Tensor  # (B, 3) transmittance (coating: sigma_a d, HK: tau)
+    trans_tex: torch.Tensor
     eta: torch.Tensor  # (B, 3) conductor ior (rgb)
     k: torch.Tensor  # (B, 3) conductor absorption
     eta_s: torch.Tensor  # (B,) dielectric relative ior (int / ext)
     alpha_u: torch.Tensor  # (B,) roughness (HK: the HG asymmetry g)
     alpha_v: torch.Tensor  # (B,)
+    alpha_tex: torch.Tensor  # (B,) int32
     exponent: torch.Tensor  # (B,) phong exponent
+    opacity: torch.Tensor  # (B, 3) mask opacity
+    opacity_tex: torch.Tensor
     flags: torch.Tensor  # (B,) int32 (twosided)
+    nested: torch.Tensor  # (B,) int32 nested bsdf id (mask, blend)
+    nested2: torch.Tensor  # (B,) int32 second nested bsdf (blend)
+    weight: torch.Tensor  # (B,) blend weight toward nested2
+    weight_tex: torch.Tensor  # (B,) int32
+    bump_tex: torch.Tensor  # (B,) int32 height / normal texture
+    bump_kind: torch.Tensor  # (B,) int32 BUMP_*
+    bump_scale: torch.Tensor  # (B,)
     used_types: tuple = (DIFFUSE,)
     unwrap_depth: int = 0  # MASK/BLEND nesting budget
-    has_bump: bool = False
-    textured: bool = False  # some texture column != INVALID
+    # host-side statics: the texture columns some row references, the bump
+    # kinds some row uses (a lookup nothing references is skipped), and,
+    # where the builder knew the texture table, ((column, texture types its
+    # ids reach), ...) (see column_textures)
+    tex_columns: tuple = ()
+    bump_kinds: tuple = ()
+    tex_types: tuple = ()
+
+    @property
+    def has_bump(self) -> bool:
+        return bool(self.bump_kinds)
 
 
-BSDF_LEAVES = ("type", "dist", "refl", "spec", "trans", "eta", "k", "eta_s",
-               "alpha_u", "alpha_v", "exponent", "flags")
+BSDF_LEAVES = tuple(f.name for f in dataclasses.fields(BSDFTable)
+                    if f.type == "torch.Tensor")
 # The types that read each of these columns; resolve_v gathers a column
 # only when a used type reads it, so a scene without those types pays no
 # gather (nor its backward) for it.
@@ -93,7 +118,8 @@ _READERS = {
               ROUGHPLASTIC, COATING),
     "exponent": (PHONG,),
 }
-_INT_LEAVES = ("type", "dist", "flags")
+_INT_LEAVES = ("type", "dist", "flags", "nested", "nested2",
+               "bump_kind") + TEXTURE_COLUMNS
 
 
 def default_record() -> dict:
@@ -281,22 +307,79 @@ def hk_record(sigma_s=None, sigma_a=None, sigma_t=None, albedo=0.8,
     return rec
 
 
+def mask_record(nested: int, opacity=0.5, opacity_tex: int = INVALID) -> dict:
+    """``mask`` over the BSDF row ``nested`` (a builder's id): opacity as
+    an rgb value or a texture id."""
+    rec = default_record()
+    rec["type"] = MASK
+    rec["opacity"] = _rgb(opacity)
+    rec["opacity_tex"] = int(opacity_tex)
+    rec["nested"] = int(nested)
+    return rec
+
+
+def blend_record(nested: int, nested2: int, weight: float = 0.5,
+                 weight_tex: int = INVALID) -> dict:
+    """``blendbsdf`` of the rows ``nested`` and ``nested2``: each shading
+    point takes ``nested2`` with probability ``weight`` (clipped to [0, 1])
+    or the mean of the texture ``weight_tex``."""
+    rec = default_record()
+    rec["type"] = BLEND
+    rec["weight"] = float(np.clip(weight, 0.0, 1.0))
+    rec["weight_tex"] = int(weight_tex)
+    rec["nested"] = int(nested)
+    rec["nested2"] = int(nested2)
+    return rec
+
+
+def bump(rec: dict, tex: int, kind: int = BUMP_HEIGHT,
+         scale: float = 1.0) -> dict:
+    """The ``bumpmap`` (``kind=BUMP_HEIGHT``) or ``normalmap``
+    (``BUMP_NORMAL``) wrapper: the record with the texture ``tex`` tilting
+    its shading frame."""
+    out = dict(rec)
+    out.update(bump_tex=int(tex), bump_kind=int(kind),
+               bump_scale=float(scale))
+    return out
+
+
 def table_from_arrays(arrays: dict, used_types, unwrap_depth: int,
-                      has_bump: bool, device) -> BSDFTable:
-    """A BSDFTable from numpy columns (from ``scene/build.py`` or the bridge);
-    ``arrays`` also carries the TEXTURE_COLUMNS."""
+                      device, tex_arrays: dict | None = None) -> BSDFTable:
+    """A BSDFTable from numpy columns (from ``scene/build.py`` or the
+    bridge); ``tex_arrays`` (the texture table's ``type`` and ``nested``
+    columns) gives each textured column the texture types it reaches."""
     cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                            else np.float32, device) for k in BSDF_LEAVES}
-    textured = any(bool((np.asarray(arrays[k]) != INVALID).any())
-                   for k in TEXTURE_COLUMNS)
+    tex_columns = tuple(k for k in TEXTURE_COLUMNS
+                        if (np.asarray(arrays[k]) != INVALID).any())
+    tex_types = () if tex_arrays is None else tuple(
+        (k, reached_types(tex_arrays["type"], tex_arrays["nested"],
+                          arrays[k])) for k in tex_columns)
+    kinds = np.unique(np.asarray(arrays["bump_kind"]))
     return BSDFTable(**cols, used_types=tuple(used_types),
-                     unwrap_depth=int(unwrap_depth), has_bump=bool(has_bump),
-                     textured=textured)
+                     unwrap_depth=int(unwrap_depth), tex_columns=tex_columns,
+                     bump_kinds=tuple(int(k) for k in kinds if k != BUMP_NONE),
+                     tex_types=tex_types)
 
 
-def build_table(records: list[dict], device) -> BSDFTable:
+def column_textures(table: BSDFTable, tex: TextureTable,
+                    column: str) -> TextureTable:
+    """``tex`` as the column ``column`` looks it up: its ``used_types``
+    narrowed to the types the column's ids reach (``tex_types``; the whole
+    set where the table does not know them).  Forward values are the same:
+    a branch no lane of the column takes is skipped, with its gathers and
+    their backward scatters into the atlas."""
+    types = dict(table.tex_types).get(column)
+    return tex if types is None else dataclasses.replace(tex,
+                                                         used_types=types)
+
+
+def build_table(records: list[dict], device,
+                tex_arrays: dict | None = None) -> BSDFTable:
     recs = records or [default_record()]
     types = {int(r["type"]) for r in recs}
+    # the static unwrap budget: BLEND chains may stack a few levels deep,
+    # possibly over MASK wrappers
     if BLEND in types:
         depth = 4
     elif MASK in types:
@@ -304,17 +387,16 @@ def build_table(records: list[dict], device) -> BSDFTable:
     else:
         depth = 0
     arrays = {k: np.stack([np.asarray(r[k]) for r in recs])
-              for k in BSDF_LEAVES + TEXTURE_COLUMNS}
-    return table_from_arrays(
-        arrays, sorted(types), depth,
-        any(int(r.get("bump_kind", BUMP_NONE)) != BUMP_NONE for r in recs),
-        device)
+              for k in BSDF_LEAVES}
+    return table_from_arrays(arrays, sorted(types), depth, device,
+                             tex_arrays)
 
 
 @dataclasses.dataclass(frozen=True)
 class LaneParams3:
-    """Per-lane BSDF parameters of the ported types: spectra are V3,
-    scalars flat (N,)."""
+    """Per-lane BSDF parameters, textures and wrappers resolved: spectra
+    are V3, scalars flat (N,).  ``opacity`` is the MASK wrappers' product
+    (None, meaning 1, where no row is a MASK)."""
 
     type: torch.Tensor
     dist: torch.Tensor
@@ -328,24 +410,90 @@ class LaneParams3:
     alpha_v: torch.Tensor
     exponent: torch.Tensor
     flags: torch.Tensor
+    opacity: torch.Tensor | None = None
     used_types: tuple = (DIFFUSE,)
 
 
-def resolve_v(table: BSDFTable, bsdf_id: torch.Tensor) -> LaneParams3:
-    """Gather each lane's parameter row (no texture or wrapper support, so
-    the reference's mask opacity is 1 and its uv lookups drop out).
-    Roughness is clamped to at least 1e-4, as the reference does, except
-    HK's g (see the module note, C7)."""
-    if table.textured or table.unwrap_depth > 0:
-        raise NotImplementedError(
-            "textured BSDF parameters and MASK/BLEND wrappers are not "
-            "ported yet")
+def resolve_v(table: BSDFTable, tex: TextureTable | None,
+              bsdf_id: torch.Tensor, uv_u: torch.Tensor | None = None,
+              uv_v: torch.Tensor | None = None,
+              u_sel: torch.Tensor | None = None, duv=None) -> LaneParams3:
+    """Each lane's parameter row, MASK/BLEND wrappers unwrapped and texture
+    references looked up at (uv_u, uv_v) (``tex`` and the uvs may be None
+    for a table that references no texture and has no wrapper).
+
+    The unwrap runs ``unwrap_depth`` rounds: a MASK multiplies the lane's
+    opacity by the mean of its (textured) opacity and steps into its nested
+    row; a BLEND picks ``nested2`` with probability w (the mean of its
+    weight, textured or not) using ``u_sel`` (or a hash of the uv bits when
+    None) and rescales that uniform for the next round, clipped to
+    0.999999.  ``alpha_tex`` replaces both roughnesses by its texture's
+    mean; ``refl``, ``spec`` and ``trans`` take their textures, filtered
+    with ``duv`` when given.  A column that no row textures, or that no
+    used type reads (``_READERS``), is not looked up.  Roughness is clamped
+    to at least 1e-4, as the reference does, except HK's g (see the module
+    note, C7)."""
     bid = torch.where(bsdf_id == INVALID, 0, bsdf_id)
+    cols = table.tex_columns
+    opacity = None
+    if table.unwrap_depth > 0:
+        u = _hash_uniform(uv_u, uv_v) if u_sel is None else u_sel
+        for _ in range(table.unwrap_depth):
+            # every wrapper column read at the round's entry row
+            wtype = v.gather_row(table.type, bid)
+            nested = v.gather_row(table.nested, bid)
+            if BLEND in table.used_types:
+                nested2 = v.gather_row(table.nested2, bid)
+                weight = v.gather_row(table.weight, bid)
+                weight_tex = (v.gather_row(table.weight_tex, bid)
+                              if "weight_tex" in cols else None)
+            if MASK in table.used_types:
+                is_mask = wtype == MASK
+                op_rgb = v.gather_v3(table.opacity, bid)
+                if "opacity_tex" in cols:
+                    op_rgb = eval_texture_v(
+                        column_textures(table, tex, "opacity_tex"),
+                        v.gather_row(table.opacity_tex, bid), uv_u,
+                        uv_v, op_rgb)
+                op = torch.where(is_mask,
+                                 torch.clamp(op_rgb.mean(), 0.0, 1.0), 1.0)
+                opacity = op if opacity is None else opacity * op
+                bid = torch.where(is_mask & (nested != INVALID), nested, bid)
+            if BLEND in table.used_types:
+                is_blend = wtype == BLEND
+                if weight_tex is not None:
+                    wgt = eval_texture_v(
+                        column_textures(table, tex, "weight_tex"), weight_tex,
+                        uv_u, uv_v, V3(weight, weight, weight)).mean()
+                else:
+                    wgt = V3(weight, weight, weight).mean()
+                wgt = torch.clamp(wgt, 0.0, 1.0)
+                pick2 = u < wgt
+                bid = torch.where(
+                    is_blend, torch.where(pick2, nested2, nested), bid)
+                u_re = torch.where(pick2, u / torch.clamp_min(wgt, 1e-8),
+                                   (u - wgt) / torch.clamp_min(1.0 - wgt,
+                                                               1e-8))
+                u = torch.where(is_blend, torch.clamp(u_re, 0.0, 0.999999),
+                                u)
+            bid = torch.where(bid == INVALID, 0, bid)
+
     row = lambda col: v.gather_row(col, bid)  # noqa: E731
 
+    def spectrum(name, reader=True):
+        """The column's rows, through its texture if a row textures it; a
+        view of row 0 (never read) if no used type reads it."""
+        col = getattr(table, name)
+        if not reader:
+            return V3.from_array(col[0].expand(bid.shape + col.shape[1:]))
+        val = v.gather_v3(col, bid)
+        if name + "_tex" in cols:
+            val = eval_texture_v(
+                column_textures(table, tex, name + "_tex"),
+                row(getattr(table, name + "_tex")), uv_u, uv_v, val, duv)
+        return val
+
     def read(name):
-        """The column's rows if a used type reads it, else a view of its
-        row 0 (never read)."""
         col = getattr(table, name)
         if any(t in table.used_types for t in _READERS[name]):
             return row(col)
@@ -353,17 +501,32 @@ def resolve_v(table: BSDFTable, bsdf_id: torch.Tensor) -> LaneParams3:
 
     typ = row(table.type)
     au, av = row(table.alpha_u), row(table.alpha_v)
+    if "alpha_tex" in cols:
+        atex = row(table.alpha_tex)
+        a_tex = eval_texture_v(column_textures(table, tex, "alpha_tex"),
+                               atex, uv_u, uv_v, None).mean()
+        has = atex != INVALID
+        au, av = torch.where(has, a_tex, au), torch.where(has, a_tex, av)
     if HK in table.used_types:
         hk = typ == HK
         au = torch.where(hk, au, torch.clamp_min(au, 1e-4))
         av = torch.where(hk, av, torch.clamp_min(av, 1e-4))
     else:
         au, av = torch.clamp_min(au, 1e-4), torch.clamp_min(av, 1e-4)
+    reads_trans = any(t in table.used_types for t in _READERS["trans"])
     return LaneParams3(
         type=typ, dist=row(table.dist),
-        refl=v.gather_v3(table.refl, bid), spec=v.gather_v3(table.spec, bid),
-        trans=V3.from_array(read("trans")),
+        refl=spectrum("refl"), spec=spectrum("spec"),
+        trans=spectrum("trans", reads_trans),
         eta=v.gather_v3(table.eta, bid), k=v.gather_v3(table.k, bid),
         eta_s=read("eta_s"), alpha_u=au, alpha_v=av,
-        exponent=read("exponent"), flags=row(table.flags),
+        exponent=read("exponent"), flags=row(table.flags), opacity=opacity,
         used_types=table.used_types)
+
+
+def _hash_uniform(uv_u: torch.Tensor, uv_v: torch.Tensor) -> torch.Tensor:
+    """A per-lane uniform from the bits of the lane's uv, for callers
+    without a sampler (decorrelates shading points)."""
+    bits = [t.to(torch.float32).contiguous().view(torch.int32)
+            for t in (uv_u, uv_v)]
+    return mrng.to_unit_float(mrng.hash_u32(*bits))

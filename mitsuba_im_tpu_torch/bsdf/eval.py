@@ -1,6 +1,7 @@
 """BSDF evaluate / pdf / sample with static type dispatch
-(``mitsuba_im_tpu/bsdf/eval.py``): every untextured family of the
-reference but IRAWAN.
+(``mitsuba_im_tpu/bsdf/eval.py``): every family of the reference but
+IRAWAN, on parameters that ``resolve_v`` took through textures and the
+MASK/BLEND wrappers.
 
 Conventions as in the reference: directions live in the local shading frame
 (+z = shading normal), ``wi`` points toward the previous vertex, ``eval``
@@ -9,8 +10,11 @@ weight f*cos/pdf.  Delta components (CONDUCTOR, DIELECTRIC, THINDIELECTRIC,
 NULL, and the delta lobes of PLASTIC, COATING and HK) have eval = pdf = 0,
 so next-event estimation gives them nothing and ``bsdf_sample_v`` alone
 reaches them, with ``delta`` set, the lobe's relative ``eta`` (refraction)
-and ``null_passthrough`` (NULL) as the reference gives them.  IRAWAN and
-the MASK/BLEND/bump wrappers in ``used_types`` raise ``NotImplementedError``.
+and ``null_passthrough`` (NULL) as the reference gives them.  A MASK
+scales eval and pdf by its opacity, and ``bsdf_sample_v`` with ``u_mask``
+passes a lane through it with probability 1 - opacity, as the reference's
+path tracer does (it draws ``u_mask`` as the fourth uniform of the BSDF
+block).  IRAWAN in ``used_types`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from . import microfacet as mf
 from .common import (
     LaneParams3, DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR,
     DIELECTRIC, THINDIELECTRIC, ROUGHDIELECTRIC, PLASTIC, ROUGHPLASTIC,
-    PHONG, WARD, NULL_BSDF, DIFFTRANS, COATING, HK, FLAG_TWOSIDED,
+    PHONG, WARD, NULL_BSDF, DIFFTRANS, COATING, HK, MASK, BLEND,
+    FLAG_TWOSIDED,
 )
 from .fresnel import (fresnel_conductor_v, fresnel_dielectric,
                       fresnel_diffuse_reflectance)
@@ -47,10 +52,10 @@ class BSDFSample3(NamedTuple):
 
 def _check_types(p: LaneParams3):
     for t in p.used_types:
-        if t not in PORTED:
+        if t not in PORTED + (MASK, BLEND):
             raise NotImplementedError(
-                f"BSDF type {t}: IRAWAN and the MASK/BLEND/bump wrappers "
-                "are not ported yet")
+                f"BSDF type {t}: IRAWAN (and BUMPMAP_WRAP, which no record "
+                "takes) is not ported")
 
 
 def _m3(ok, val: V3) -> V3:
@@ -441,7 +446,7 @@ def bsdf_eval_v(p: LaneParams3, wi: V3, wo: V3) -> V3:
     for t in p.used_types:
         if t in _EVAL:
             out = v.where(p.type == t, _EVAL[t][0](p, wi, wo), out)
-    return out
+    return out if p.opacity is None else out * p.opacity
 
 
 def bsdf_pdf_v(p: LaneParams3, wi: V3, wo: V3) -> torch.Tensor:
@@ -452,7 +457,7 @@ def bsdf_pdf_v(p: LaneParams3, wi: V3, wo: V3) -> torch.Tensor:
     for t in p.used_types:
         if t in _EVAL:
             out = torch.where(p.type == t, _EVAL[t][1](p, wi, wo), out)
-    return out
+    return out if p.opacity is None else out * p.opacity
 
 
 # ---------------------------------------------------------------------------
@@ -542,10 +547,14 @@ def _sample_smooth_family(t, p, wi, ci, u_lobe, u2a, u2b):
     return wo, w, torch.clamp_min(pdf, 1e-20), no, one
 
 
-def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b) -> BSDFSample3:
+def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b,
+                  u_mask=None) -> BSDFSample3:
     """Importance-sample the BSDF: ``u_lobe`` picks lobes, (u2a, u2b) drive
-    the directional warp.  (The reference's fourth uniform decides mask
-    opacity, which is 1 without the MASK wrapper.)"""
+    the directional warp, and ``u_mask`` (optional) the MASK wrapper: a lane
+    passes straight through, as a null interaction of weight 1, where
+    u_mask >= its opacity.  Lanes whose row stayed a MASK or BLEND (the
+    unwrap budget ran out, or a wrapper without a nested row) sample
+    nothing."""
     _check_types(p)
     wi_f, flip = _maybe_flip(p, wi)
     shape, dev = p.type.shape, p.type.device
@@ -557,6 +566,8 @@ def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b) -> BSDFSample3:
     ci = wi_f.z
 
     for t in p.used_types:
+        if t in (MASK, BLEND):
+            continue
         if t in (DIFFUSE, ROUGHDIFFUSE):
             wo_t = v.square_to_cosine_hemisphere(u2a, u2b)
             pdf_t = v.square_to_cosine_hemisphere_pdf(wo_t)
@@ -634,6 +645,14 @@ def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b) -> BSDFSample3:
 
     wo, weight, pdf, delta, eta = out
     null_pass = (p.type == NULL_BSDF) if NULL_BSDF in p.used_types else no
+    if u_mask is not None and p.opacity is not None:
+        through = u_mask >= p.opacity
+        wo = v.where(through, -wi_f, wo)
+        weight = v.where(through, v.ones(shape, dev), weight)
+        pdf = torch.where(through, 1.0, pdf)
+        delta = delta | through
+        eta = torch.where(through, 1.0, eta)
+        null_pass = null_pass | through
     # un-flip for twosided lanes
     fz = torch.where(flip, -1.0, 1.0)
     return BSDFSample3(wo=V3(wo.x, wo.y, wo.z * fz), weight=weight, pdf=pdf,

@@ -58,7 +58,17 @@ def pcg4d_words(x, y, z, w):
     return x, y, z, w
 
 
-def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+def hash_u32(*words) -> torch.Tensor:
+    """Mix up to 4 integer words (integer tensors of one shape, or ints)
+    into one uint32 word, in int64: word 0 of PCG4D over them, zeros after
+    the last."""
+    like = next(w for w in words if isinstance(w, torch.Tensor))
+    ws = [_words(w, like) for w in words]
+    ws += [torch.zeros_like(ws[0])] * (4 - len(ws))
+    return pcg4d_words(*ws)[0]
+
+
+def to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     """32-bit word -> float32 in [0, 1) with 24-bit mantissa resolution."""
     return (bits >> 8).to(torch.float32) * U24
 
@@ -115,4 +125,4 @@ def next_block4_v(s: Sampler3):
     dim = ((s.dim + 3) & ~3) & MASK32
     s2 = s.replace(dim=(dim + 4) & MASK32)
     x, y, z, w = pcg4d_words(s.b0, s.b1, s.b2 ^ dim, s.b3)
-    return s2, tuple(_to_unit_float(t) for t in (x, y, z, w))
+    return s2, tuple(to_unit_float(t) for t in (x, y, z, w))

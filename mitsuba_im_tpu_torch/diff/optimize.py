@@ -2,8 +2,9 @@
 rendering loop (``mitsuba_im_tpu/diff/optimize.py``).
 
 The wavefront estimator is differentiable in reverse mode with respect to
-the BSDF reflectances and roughness (every ported family's) and the
-emitter radiance (an environment map's row is its scale); the bounce
+the BSDF reflectances and roughness (every ported family's), the texture
+atlas (every bitmap's texels) and the emitter radiance (an environment
+map's row is its scale); the bounce
 loop replays under ``torch.utils.checkpoint`` (``PathConfig.remat``), so
 the backward pass re-runs the wavefront with the same RNG counters (path
 replay) instead of keeping every bounce's state.  Discrete decisions (lobe,
@@ -11,9 +12,10 @@ emitter, roulette) and visibility are not differentiated: the gradient is
 the interior derivative of the continuous weights, as in the reference.
 
 Parameters are substituted into the frozen scene tables with
-``dataclasses.replace``; ``texture.atlas`` raises until textures are
-ported.  Samplers other than ``independent`` raise, as ``render_film``
-does.
+``dataclasses.replace``.  ``render_rays`` traces without ray
+differentials, as the reference's does, so bitmaps are looked up
+unfiltered there and the atlas gradient reaches base-level texels only.
+Samplers other than ``independent`` raise, as ``render_film`` does.
 """
 from __future__ import annotations
 
@@ -36,10 +38,6 @@ def _set_bsdfs(scene: Scene, **cols) -> Scene:
         scene, bsdfs=dataclasses.replace(scene.bsdfs, **cols))
 
 
-def _textures(scene: Scene, value=None):
-    raise NotImplementedError("texture.atlas: textures are not ported yet")
-
-
 # differentiable parameter slots: label -> (getter, setter)
 PARAM_SLOTS = {
     "bsdf.refl": (lambda s: s.bsdfs.refl,
@@ -53,7 +51,10 @@ PARAM_SLOTS = {
         lambda s: s.emitters.radiance,
         lambda s, v: dataclasses.replace(
             s, emitters=dataclasses.replace(s.emitters, radiance=v))),
-    "texture.atlas": (_textures, _textures),
+    "texture.atlas": (
+        lambda s: s.textures.atlas,
+        lambda s, v: dataclasses.replace(
+            s, textures=dataclasses.replace(s.textures, atlas=v))),
 }
 
 

@@ -19,8 +19,14 @@ Intersections are not differentiated (see ``accel/intersect.py``);
 shading recombines ``p = o + d t`` on the live rays.  Without grad mode, or
 when no scene or ray tensor requires grad, nothing is checkpointed and no
 graph is recorded.
-Texture filtering (ray differentials) is not ported and raises; scenes with
-subsurface scattering or BSDF wrappers are refused where they are built.
+With primary-ray differentials (``dddx``/``dddy``) and a texture table
+with MIP pyramids, the first bounce looks its bitmaps up through the
+filter (``render/raydiff.py``); that bounce is peeled off the loop, as it
+is under ``skip_direct``, and replays as a unit of its own.  Scenes with
+MASK or BLEND rows draw one block of four uniforms per bounce before NEE:
+its first picks BLEND components; the MASK pass-through takes the BSDF
+block's fourth.  Scenes with subsurface scattering are refused where they
+are built.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from ..core.v3 import V3, safe_div
 from ..core import rng as mrng
 from ..bsdf.eval import bsdf_eval_v, bsdf_pdf_v, bsdf_sample_v
 from ..emitter import table as em
+from ..render.raydiff import uv_differentials
 from ..scene.geometry import Interaction3
 from ..scene.scene import Scene
 
@@ -69,16 +76,18 @@ def mi_weight(pdf_a, pdf_b):
 def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
               cfg: PathConfig, dddx: V3 | None = None,
               dddy: V3 | None = None):
-    """Trace a batch of primary rays to completion.
+    """Trace a batch of primary rays to completion; ``dddx``/``dddy``, the
+    primary rays' direction differences for +1-pixel film offsets, filter
+    the first hit's bitmaps when the scene has MIP pyramids.
 
     Returns (radiance V3 of (N,) components, sampler); the radiance carries
     the graph to every scene or ray tensor that requires grad."""
-    if dddx is not None or dddy is not None:
-        raise NotImplementedError(
-            "ray differentials (texture filtering) are not ported yet")
     remat = (cfg.remat and torch.is_grad_enabled()
              and _requires_grad(scene, o, d))
-    return _path_li_v(scene, sampler, o, d, cfg, remat)
+    use_duv = (dddx is not None and dddy is not None
+               and scene.textures.has_mip)
+    return _path_li_v(scene, sampler, o, d, cfg, remat,
+                      (dddx, dddy) if use_duv else None)
 
 
 def _requires_grad(*objs) -> bool:
@@ -97,7 +106,7 @@ def _requires_grad(*objs) -> bool:
     return False
 
 
-def _path_li_v(scene, sampler, o, d, cfg, remat):
+def _path_li_v(scene, sampler, o, d, cfg, remat, diffs):
     n = o.x.shape[0]
     dev = o.x.device
     n_iters = max(cfg.max_depth - 1, 0) if cfg.max_depth > 0 \
@@ -126,16 +135,24 @@ def _path_li_v(scene, sampler, o, d, cfg, remat):
         shape=it.shape, wi_local=it.wi_local, d_world=d,
         sampler=sampler,
     )
+    duv0 = (None if diffs is None
+            else uv_differentials(scene.geom, hit, o, d, *diffs))
     del hit, it
 
-    def bounce(depth_idx, st, skip_first=False):
-        """One NEE + BSDF-extension step at the current vertex.
-        ``skip_first`` marks the peeled first bounce under ``skip_direct``:
-        its depth-2 contributions are dropped."""
+    def bounce(depth_idx, st, duv=None, skip_first=False):
+        """One NEE + BSDF-extension step at the current vertex, its
+        textures filtered with ``duv`` when given.  ``skip_first`` marks
+        the peeled first bounce under ``skip_direct``: its depth-2
+        contributions are dropped."""
         s = st["sampler"]
         frame = (st["ss"], st["ts"], st["ns"])
         act = st["active"]
-        bparams = scene.bsdf_at_v(_fake_it_v(st))
+        if scene.bsdfs.unwrap_depth > 0:
+            s, sel_blk = mrng.next_block4_v(s)
+            bparams = scene.bsdf_at_v(_fake_it_v(st), u_sel=sel_blk[0],
+                                      duv=duv)
+        else:
+            bparams = scene.bsdf_at_v(_fake_it_v(st), duv=duv)
 
         # --- next-event estimation (sampleEmitterDirect, path.cpp:176) ----
         s, nee_blk = mrng.next_block4_v(s)
@@ -158,7 +175,7 @@ def _path_li_v(scene, sampler, o, d, cfg, remat):
         # --- BSDF sampling (path.cpp:211) ---------------------------------
         s, bsdf_blk = mrng.next_block4_v(s)
         bs = bsdf_sample_v(bparams, st["wi_local"], bsdf_blk[0],
-                           bsdf_blk[1], bsdf_blk[2])
+                           bsdf_blk[1], bsdf_blk[2], bsdf_blk[3])
         wo_world = v.to_world(frame, bs.wo)
         thr_new = st["thr"] * bs.weight
         act2 = act & ~(thr_new.sum() <= 0)
@@ -210,21 +227,22 @@ def _path_li_v(scene, sampler, o, d, cfg, remat):
             sampler=s,
         )
 
-    def run(first, last, st, skip_first=False):
+    def run(first, last, st, duv=None, skip_first=False):
         """Bounces first..last-1 as one replay unit."""
-        def span(st):
+        def span(st, duv):
             for depth_idx in range(first, last):
-                st = bounce(depth_idx, st, skip_first)
+                st = bounce(depth_idx, st, duv, skip_first)
             return st
         if not remat:
-            return span(st)
-        return checkpoint(span, st, use_reentrant=False,
+            return span(st, duv)
+        return checkpoint(span, st, duv, use_reentrant=False,
                           preserve_rng_state=False)
 
     start = 0
-    if cfg.skip_direct and n_iters > 0:
-        # peel the first bounce: only it drops depth-2 light
-        state = run(0, 1, state, skip_first=True)
+    if (duv0 is not None or cfg.skip_direct) and n_iters > 0:
+        # peel the first bounce: only it filters its textures with the
+        # pixel footprint and only it drops depth-2 light
+        state = run(0, 1, state, duv0, skip_first=cfg.skip_direct)
         start = 1
     g = max(int(cfg.remat_group), 1)
     if remat and g > 1:

@@ -2,8 +2,9 @@
 (``mitsuba_im_tpu/render/job.py``), for the ``path`` integrator.
 
 The whole image is one flat wavefront; each pass takes one sample per
-pixel (``_render_pass``, the reference's job.py:88-121) and splats it into
-the film in place.  Other integrators and samplers raise.
+pixel (``_render_pass``, the reference's job.py:88-121), with the primary
+rays' differentials when the scene's textures have MIP pyramids, and
+splats it into the film in place.  Other integrators and samplers raise.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from ..core import rng as mrng
 from ..core.v3 import V3
 from ..film.film import F_BOX, Film, make_film, splat
 from ..integrators.path import PathConfig, path_li_v
+from .raydiff import camera_ray_differentials
 from ..sensor.table import sample_ray_v
 from ..scene.scene import Scene
 
@@ -59,7 +61,13 @@ def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
     py = (pix // W).to(Float) + blk0[1]
     o, d, w_sensor = sample_ray_v(scene.sensor, px / W, py / H,
                                   blk0[2], blk0[3])
-    li, _ = path_li_v(scene, sampler, o, d, cfg)
+    diffs = {}
+    if scene.textures.has_mip:
+        # primary-ray differentials for the MIP/anisotropic texture filter
+        dddx, dddy = camera_ray_differentials(
+            scene.sensor, px / W, py / H, blk0[2], blk0[3], 1.0 / W, 1.0 / H)
+        diffs = dict(dddx=dddx, dddy=dddy)
+    li, _ = path_li_v(scene, sampler, o, d, cfg, **diffs)
     li = V3(*(torch.nan_to_num(c, nan=0.0, posinf=0.0, neginf=0.0) * w_sensor
               for c in li))
     return splat(film, px, py, li)

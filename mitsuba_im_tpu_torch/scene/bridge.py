@@ -17,6 +17,7 @@ from ..accel import hierarchy as hy
 from ..bsdf import common as bc
 from ..emitter import table as em
 from ..sensor.table import SENSOR_LEAVES, Sensor
+from ..texture import texture as tx
 from .geometry import GEOMETRY_LEAVES, Geometry
 from .scene import Scene
 
@@ -31,8 +32,10 @@ def export_tables(src) -> tuple[dict, dict]:
     arrays = {}
     for k in GEOMETRY_LEAVES:
         arrays[f"geom.{k}"] = np.asarray(getattr(src.geom, k))
-    for k in bc.BSDF_LEAVES + bc.TEXTURE_COLUMNS:
+    for k in bc.BSDF_LEAVES:
         arrays[f"bsdfs.{k}"] = np.asarray(getattr(src.bsdfs, k))
+    for k in tx.TEXTURE_LEAVES:
+        arrays[f"textures.{k}"] = np.asarray(getattr(src.textures, k))
     for k in em.EMITTER_LEAVES:
         obj = src.emitters
         for attr in _EMITTER_SRC.get(k, (k,)):
@@ -58,6 +61,7 @@ def export_tables(src) -> tuple[dict, dict]:
         "emitters.used_area_kinds": tuple(e.used_area_kinds),
         "emitters.env_index": e.env_index,
         "sensor.type": src.sensor.type,
+        "textures.used_types": tuple(src.textures.used_types),
         "textures.has_mip": src.textures.has_mip,
         "scene.subsurface": src.subsurface is not None,
         "scene.motion": src.motion is not None,
@@ -85,8 +89,7 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
                       ("clusters.has_motion", "deformable motion"),
                       ("scene.subsurface", "subsurface scattering"),
                       ("scene.motion", "deformable motion"),
-                      ("bsdfs.weaves", "the irawan BSDF"),
-                      ("textures.has_mip", "texture filtering")):
+                      ("bsdfs.weaves", "the irawan BSDF")):
         if statics.get(key):
             raise NotImplementedError(f"{what} is not ported yet")
 
@@ -96,9 +99,13 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
                           else np.float32, device) for k in GEOMETRY_LEAVES},
         n_tris=statics["geom.n_tris"], n_spheres=statics["geom.n_spheres"],
         n_disks=statics["geom.n_disks"])
+    ta = _sub(arrays, "textures")
     bsdfs = bc.table_from_arrays(
         _sub(arrays, "bsdfs"), statics["bsdfs.used_types"],
-        statics["bsdfs.unwrap_depth"], statics["bsdfs.has_bump"], device)
+        statics["bsdfs.unwrap_depth"], device, ta)
+    textures = tx.table_from_arrays(
+        ta, statics["textures.used_types"], statics["textures.has_mip"],
+        device)
     emitters = em.table_from_arrays(
         _sub(arrays, "emitters"), statics["emitters.n_emitters"],
         statics["emitters.used_types"], statics["emitters.used_area_kinds"],
@@ -112,7 +119,8 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
     sensor = Sensor(**{k: host_tensor(sa[k], np.float32, device)
                        for k in SENSOR_LEAVES}, type=statics["sensor.type"])
     sc = _sub(arrays, "scene")
-    return Scene(geom=geom, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
+    return Scene(geom=geom, bsdfs=bsdfs, textures=textures,
+                 emitters=emitters, sensor=sensor,
                  clusters=clusters,
                  **{k: host_tensor(sc[k], np.int32, device)
                     for k in SCENE_LEAVES})

@@ -1,10 +1,11 @@
 """Host-side scene assembly (``mitsuba_im_tpu/scene/build.py``), numpy to
 torch on a given device.
 
-The subset the ported path needs: BSDF records, shapes, triangle meshes,
-area, constant and environment-map emitters, a sensor, and the two-level
-cluster hierarchy of scenes above ``BRUTE_FORCE_MAX`` triangles (analytic
-shapes, media, subsurface, motion and instancing are not ported).  The host arithmetic
+The subset the ported path needs: BSDF and texture records (the
+vertexcolors bake included), shapes, triangle meshes, area, constant and
+environment-map emitters, a sensor, and the two-level cluster hierarchy of
+scenes above ``BRUTE_FORCE_MAX`` triangles (analytic shapes, media,
+subsurface, motion and instancing are not ported).  The host arithmetic
 (float64 numpy, then one cast to float32) is the reference's, so a scene
 built here has the same tables bit for bit as the same scene built by the
 JAX package.
@@ -24,6 +25,8 @@ from ..bsdf import common as bc
 from ..emitter import table as em
 from ..render.job import RenderSettings
 from ..sensor.table import SENSOR_LEAVES, Sensor, make_sensor, S_PERSPECTIVE
+from ..texture import bake_vertex_colors
+from ..texture.texture import TextureBuilder
 from .geometry import make_geometry
 from .scene import Scene
 
@@ -33,6 +36,8 @@ _TRI_KEYS = ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "shape")
 class SceneBuilder:
     def __init__(self):
         self.bsdf_records: list[dict] = []
+        self.textures = TextureBuilder()
+        self.pending_vertexcolors: list[int] = []  # awaiting a mesh's bake
         self.emitter_records: list[dict] = []
         self._tri: dict[str, list] = {k: [] for k in _TRI_KEYS}
         self.shape_bsdf: list[int] = []
@@ -49,10 +54,16 @@ class SceneBuilder:
         self.shape_emitter.append(emitter_id)
         return len(self.shape_bsdf) - 1
 
-    def add_trimesh(self, mesh, shape_id: int):
-        """mesh: anything with positions, indices, normals and uvs."""
+    def add_trimesh(self, mesh, shape_id: int, corner_uvs=None):
+        """mesh: anything with positions, indices, normals and uvs (and
+        colors, for a pending vertexcolors texture, which this mesh bakes).
+        ``corner_uvs`` (T, 3, 2) replaces the mesh's per-vertex uvs."""
         p = np.asarray(mesh.positions, np.float64)
         idx = np.asarray(mesh.indices, np.int64)
+        if self.pending_vertexcolors:
+            pend, self.pending_vertexcolors = self.pending_vertexcolors, []
+            baked = bake_vertex_colors(self.textures, mesh, pend)
+            corner_uvs = baked if baked is not None else corner_uvs
         if len(idx) == 0:
             return
         p0 = p[idx[:, 0]]
@@ -65,7 +76,9 @@ class SceneBuilder:
             n0, n1, n2 = (mesh.normals[idx[:, k]] for k in range(3))
         else:
             n0 = n1 = n2 = gn
-        if mesh.uvs is not None:
+        if corner_uvs is not None:
+            uv0, uv1, uv2 = (corner_uvs[:, k] for k in range(3))
+        elif mesh.uvs is not None:
             uv0, uv1, uv2 = (mesh.uvs[idx[:, k]] for k in range(3))
         else:
             uv0 = uv1 = uv2 = np.zeros((len(idx), 2))
@@ -101,7 +114,9 @@ class SceneBuilder:
 
         scene = Scene(
             geom=geom,
-            bsdfs=bc.build_table(self.bsdf_records, device=device),
+            bsdfs=bc.build_table(self.bsdf_records, device,
+                                 self.textures.type_arrays()),
+            textures=self.textures.build(device),
             emitters=emitters,
             sensor=sensor,
             shape_bsdf=torch.tensor(self.shape_bsdf or [0], dtype=torch.int32,

@@ -1,8 +1,9 @@
 """Host-side indexed triangle mesh (the container of
 ``mitsuba_im_tpu/scene/mesh.py``; its loaders are not ported).
 
-``scene/build.py`` reads only these four attributes, so a mesh from the
-reference's OBJ/PLY/serialized loaders can be passed in as it is.
+``scene/build.py`` reads only these attributes (``colors`` only for a
+vertexcolors texture), so a mesh from the reference's OBJ/PLY/serialized
+loaders can be passed in as it is.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ class TriMesh:
     indices: np.ndarray  # (F, 3)
     normals: np.ndarray | None = None  # (V, 3)
     uvs: np.ndarray | None = None  # (V, 2)
+    colors: np.ndarray | None = None  # (V, 3) linear rgb
 
     def compute_normals(self) -> "TriMesh":
         """Area-weighted smooth vertex normals (TriMesh::computeNormals),

@@ -2,9 +2,10 @@
 device (``mitsuba_im_tpu/scene/scene.py``).
 
 Scenes above ``BRUTE_FORCE_MAX`` triangles carry their two-level cluster
-hierarchy (``clusters``).  Bump mapping, deformable motion, instancing,
-participating media and subsurface scattering are not ported; a scene that
-needs them raises where it is built (:mod:`.bridge`) or used.
+hierarchy (``clusters``).  Bump and normal maps tilt the shading frame of
+every interaction (:meth:`Scene._perturb_frame_v`).  Deformable motion,
+instancing, participating media and subsurface scattering are not ported;
+a scene that needs them raises where it is built (:mod:`.bridge`).
 """
 from __future__ import annotations
 
@@ -15,9 +16,12 @@ import torch
 from ..core.types import INVALID, EPSILON
 from ..accel import intersect as isect
 from ..accel.hierarchy import Hierarchy
-from ..bsdf.common import BSDFTable, LaneParams3, resolve_v
+from ..bsdf.common import (BSDFTable, LaneParams3, resolve_v, BUMP_HEIGHT,
+                           BUMP_NORMAL, column_textures)
+from ..core import v3 as v
 from ..emitter.table import EmitterTable
 from ..sensor.table import Sensor
+from ..texture.texture import TextureTable, eval_texture_v
 from .geometry import Geometry, Hit, Interaction3, compute_interaction_v
 
 
@@ -25,6 +29,7 @@ from .geometry import Geometry, Hit, Interaction3, compute_interaction_v
 class Scene:
     geom: Geometry
     bsdfs: BSDFTable
+    textures: TextureTable
     emitters: EmitterTable
     sensor: Sensor
     shape_bsdf: torch.Tensor  # (S,) int32
@@ -47,13 +52,63 @@ class Scene:
                                 clusters=self.clusters, active=active)
 
     def interaction_v(self, o, d, hit: Hit) -> Interaction3:
+        it = compute_interaction_v(self.geom, o, d, hit)
         if self.bsdfs.has_bump:
-            raise NotImplementedError("bump / normal mapping is not ported yet")
-        return compute_interaction_v(self.geom, o, d, hit)
+            it = self._perturb_frame_v(it, d)
+        return it
 
-    def bsdf_at_v(self, it: Interaction3) -> LaneParams3:
+    def _perturb_frame_v(self, it: Interaction3, d) -> Interaction3:
+        """Bump and normal mapping (``bumpmap.cpp``, ``normalmap.cpp``): tilt
+        the shading frame by the row's texture before any BSDF sees it. A
+        height map tilts the normal by the one-sided differences of its mean
+        channel along u and v (eps 5e-4, times ``bump_scale``; the reference
+        calls them central, and computes these); a normal map's rgb is a
+        tangent-space normal in [-1, 1]^3. The new normal is flipped into ng's
+        hemisphere, and ``ss``, ``ts`` and ``wi_local`` follow it. Textures are
+        looked up unfiltered."""
         sid = torch.where(it.shape == INVALID, 0, it.shape)
-        return resolve_v(self.bsdfs, self.shape_bsdf[sid])
+        bid = v.gather_row(self.shape_bsdf, sid)
+        bid = torch.where(bid == INVALID, 0, bid)
+        b = self.bsdfs
+        bump_tex = v.gather_row(b.bump_tex, bid)
+        bump_kind = v.gather_row(b.bump_kind, bid)
+        active = (bump_kind > 0) & (bump_tex != INVALID) & it.valid
+
+        tex = column_textures(b, self.textures, "bump_tex")
+        c = eval_texture_v(tex, bump_tex, it.uv_u, it.uv_v, None)
+        ns = it.ns
+        if BUMP_HEIGHT in b.bump_kinds:
+            eps = 5e-4
+            bump_scale = v.gather_row(b.bump_scale, bid)
+            h0 = c.mean()
+            hu = eval_texture_v(tex, bump_tex, it.uv_u + eps, it.uv_v,
+                                None).mean()
+            hv = eval_texture_v(tex, bump_tex, it.uv_u, it.uv_v + eps,
+                                None).mean()
+            dhdu = (hu - h0) / eps * bump_scale
+            dhdv = (hv - h0) / eps * bump_scale
+            n_height = (it.ns - it.ss * dhdu - it.ts_ * dhdv).normalized()
+            ns = v.where(bump_kind == BUMP_HEIGHT, n_height, ns)
+        if BUMP_NORMAL in b.bump_kinds:
+            nt = (c * 2.0 - 1.0).normalized()
+            n_map = (it.ss * nt.x + it.ts_ * nt.y + it.ns * nt.z).normalized()
+            ns = v.where(bump_kind == BUMP_NORMAL, n_map, ns)
+        ns = v.where(active, ns, it.ns)
+        ns = v.where(ns.dot(it.ng) < 0, -ns, ns)
+        ss = (it.ss - ns * ns.dot(it.ss)).normalized()
+        ts = ns.cross(ss)
+        wi_local = v.to_local((ss, ts, ns), -d)
+        return dataclasses.replace(it, ns=ns, ss=ss, ts_=ts,
+                                   wi_local=wi_local)
+
+    def bsdf_at_v(self, it: Interaction3, u_sel=None,
+                  duv=None) -> LaneParams3:
+        """The lanes' BSDF parameters at their uvs; ``u_sel`` picks BLEND
+        components and ``duv`` (screen-space uv derivatives) filters
+        bitmaps through their MIP pyramids."""
+        sid = torch.where(it.shape == INVALID, 0, it.shape)
+        return resolve_v(self.bsdfs, self.textures, self.shape_bsdf[sid],
+                         it.uv_u, it.uv_v, u_sel, duv)
 
     def emitter_at_id(self, shape_id) -> torch.Tensor:
         sid = torch.where(shape_id == INVALID, 0, shape_id)

@@ -12,6 +12,7 @@ from .film.film import F_BOX
 from .scene.build import SceneBuilder
 from .scene.mesh import TriMesh
 from .sensor.table import make_sensor, S_PERSPECTIVE
+from . import texture as tex
 
 
 # the pinhole of the Cornell scenes (look_at origin, target, up; fov)
@@ -24,40 +25,52 @@ SUN_DIR = np.array([np.cos(np.radians(35)) * np.sin(np.radians(30)),
                     np.cos(np.radians(35)) * np.cos(np.radians(30))])
 
 
+# the Cornell box's quads: corners, wound so that the geometric normal
+# faces out of the box, and the shading normal, which faces in; the floor,
+# ceiling and back wall take white, the left wall red, the right green
+_CORNELL_WALLS = (
+    ([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], [0, 1, 0]),    # floor
+    ([[-1, 2, -1], [-1, 2, 1], [1, 2, 1], [1, 2, -1]], [0, -1, 0]),   # ceiling
+    ([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], [0, 0, 1]),  # back
+    ([[-1, 0, -1], [-1, 0, 1], [-1, 2, 1], [-1, 2, -1]], [1, 0, 0]),  # left
+    ([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]], [-1, 0, 0]),     # right
+)
+_CORNELL_LIGHT = [[-0.25, 1.99, -0.25], [0.25, 1.99, -0.25],
+                  [0.25, 1.99, 0.25], [-0.25, 1.99, 0.25]]
+_QUAD_UVS = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+
+
+def _quad(pts, normal, uvs: bool = False, flip: bool = False) -> TriMesh:
+    """Two triangles over four corners; per-corner uvs (0,0) (1,0) (1,1)
+    (0,1) with ``uvs``, else zeros (``_tiny_cornell``'s).  ``flip`` winds
+    them the other way, which turns their geometric normal around."""
+    tris = [[0, 2, 1], [2, 0, 3]] if flip else [[0, 1, 2], [2, 3, 0]]
+    m = TriMesh(np.asarray(pts, float), np.array(tris))
+    m.normals = np.tile(np.asarray(normal, float)[None], (4, 1))
+    m.uvs = _QUAD_UVS.copy() if uvs else np.zeros((4, 2))
+    return m
+
+
+def _cornell_light(b, uvs: bool = False):
+    """The small warm area light (emitter 0) under the ceiling."""
+    lsid = b.new_shape(b.add_bsdf(bc.default_record()))
+    b.add_trimesh(_quad(_CORNELL_LIGHT, [0, -1, 0], uvs), lsid)
+    b.add_emitter(dict(type=et.EM_AREA, radiance=np.array([17.0, 12.0, 4.0]),
+                       shape=lsid))
+    b.shape_emitter[lsid] = 0
+
+
 def _cornell_box(b):
     """The walls and the light of ``__graft_entry__._tiny_cornell`` into the
     builder ``b``: white floor, ceiling and back wall, red left and green
     right wall, a small warm area light (emitter 0) under the ceiling."""
-    def quad(pts, normal):
-        m = TriMesh(np.asarray(pts, float), np.array([[0, 1, 2], [2, 3, 0]]))
-        m.normals = np.tile(np.asarray(normal, float)[None], (4, 1))
-        m.uvs = np.zeros((4, 2))
-        return m
-
     white = bc.default_record(); white["refl"] = np.full(3, 0.72)
     red = bc.default_record(); red["refl"] = np.array([0.63, 0.065, 0.05])
     green = bc.default_record(); green["refl"] = np.array([0.14, 0.45, 0.09])
     wid, rid, gid = b.add_bsdf(white), b.add_bsdf(red), b.add_bsdf(green)
-
-    walls = [
-        ([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], [0, 1, 0], wid),   # floor
-        ([[-1, 2, -1], [-1, 2, 1], [1, 2, 1], [1, 2, -1]], [0, -1, 0], wid),  # ceiling
-        ([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], [0, 0, 1], wid), # back
-        ([[-1, 0, -1], [-1, 0, 1], [-1, 2, 1], [-1, 2, -1]], [1, 0, 0], rid), # left
-        ([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]], [-1, 0, 0], gid),    # right
-    ]
-    for pts, n, bid in walls:
-        b.add_trimesh(quad(pts, n), b.new_shape(bid))
-
-    lsid = b.new_shape(b.add_bsdf(bc.default_record()))
-    b.add_trimesh(
-        quad([[-0.25, 1.99, -0.25], [0.25, 1.99, -0.25],
-              [0.25, 1.99, 0.25], [-0.25, 1.99, 0.25]], [0, -1, 0]),
-        lsid,
-    )
-    b.add_emitter(dict(type=et.EM_AREA, radiance=np.array([17.0, 12.0, 4.0]),
-                       shape=lsid))
-    b.shape_emitter[lsid] = 0
+    for (pts, n), bid in zip(_CORNELL_WALLS, (wid, wid, wid, rid, gid)):
+        b.add_trimesh(_quad(pts, n), b.new_shape(bid))
+    _cornell_light(b)
 
 
 def _cornell_sensor(b):
@@ -83,6 +96,148 @@ def tiny_cornell(device="cuda"):
     b.settings.rfilter = F_BOX
     b.settings.integrator = "path"
     b.settings.integrator_props = dict(max_depth=4)
+    return b.build(device)
+
+
+def _noise_bitmap(gen, res: int, cells: int = 64) -> np.ndarray:
+    """A (res, res, 3) float32 rgb image in [0.15, 0.85): seeded noise on a
+    ``cells``^2 grid, interpolated bilinearly and periodically (so that
+    it tiles).  Smooth between grid points: white noise at full resolution
+    would make every unfiltered lookup at a secondary hit hang on the last
+    bits of the hit point (a 1e-5 shift moves the value by ~1%)."""
+    grid = gen.random((cells, cells, 3), np.float32)
+    x = (np.arange(res) + 0.5) * (cells / res) - 0.5
+    i0 = np.floor(x).astype(np.int64)
+    f = (x - i0)[:, None, None]
+    i0, i1 = i0 % cells, (i0 + 1) % cells
+    rows = grid[i0] * (1 - f) + grid[i1] * f
+    img = rows[:, i0] * (1 - f[:, 0][None]) + rows[:, i1] * f[:, 0][None]
+    return (0.15 + 0.7 * img).astype(np.float32)
+
+
+def _bump_maps(gen, res: int):
+    """(height, normals) images of res^2: a height field of eight seeded
+    sinusoids (1 to 4 cycles across) in [0, 1] and a tangent-space normal
+    map ((n + 1) / 2) of eight more, both float32."""
+    x = (np.arange(res) + 0.5) / res
+    X, Y = np.meshgrid(x, x, indexing="xy")
+
+    def waves():
+        f = gen.integers(1, 5, (8, 2))
+        ph = gen.random(8) * 2 * np.pi
+        return sum(np.sin(2 * np.pi * (fx * X + fy * Y) + p)
+                   for (fx, fy), p in zip(f, ph)) / 8.0
+
+    h = 0.5 + 0.5 * waves()
+    nt = np.stack([0.2 * waves(), 0.2 * waves(), np.ones_like(X)], -1)
+    nt /= np.linalg.norm(nt, axis=-1, keepdims=True)
+    return (np.repeat(h[..., None], 3, -1).astype(np.float32),
+            (0.5 * (nt + 1.0)).astype(np.float32))
+
+
+def _sphere_uvs(p: np.ndarray) -> np.ndarray:
+    """(V, 2) spherical uvs of points about the origin: u the azimuth in
+    [0, 1), v the polar angle from +y over pi."""
+    r = np.linalg.norm(p, axis=1)
+    u = np.arctan2(p[:, 2], p[:, 0]) / (2 * np.pi)
+    v = np.arccos(np.clip(p[:, 1] / np.maximum(r, 1e-30), -1, 1)) / np.pi
+    return np.stack([u % 1.0, v], -1)
+
+
+def _white_maps(gen, bitmap_res: int, bump_res: int):
+    """(bitmap, height, normals) of independent seeded texels: rgb in
+    [0.15, 0.85), heights in [0, 1), tangent-space normals tilted up to
+    ~0.2 in x and y, as ``_bump_maps`` encodes them."""
+    bitmap = 0.15 + 0.7 * gen.random((bitmap_res, bitmap_res, 3),
+                                     np.float32)
+    height = np.repeat(gen.random((bump_res, bump_res, 1), np.float32), 3,
+                       -1)
+    nt = np.concatenate([gen.uniform(-0.2, 0.2, (bump_res, bump_res, 2)),
+                         np.ones((bump_res, bump_res, 1))], -1)
+    nt /= np.linalg.norm(nt, axis=-1, keepdims=True)
+    return (bitmap.astype(np.float32), height,
+            (0.5 * (nt + 1.0)).astype(np.float32))
+
+
+def fill_textured_cornell(b, seed: int = 0, bitmap_res: int = 2048,
+                          bump_res: int = 1024, white_noise: bool = False):
+    """The content of :func:`textured_cornell` into the builder ``b``;
+    returns the texture ids by name."""
+    gen = np.random.default_rng(seed)
+    tb = b.textures
+    if white_noise:
+        image, height, normals = _white_maps(gen, bitmap_res, bump_res)
+    else:
+        height, normals = _bump_maps(gen, bump_res)
+        image = _noise_bitmap(gen, bitmap_res)
+    t = dict(
+        # tiled 4 x 2: the footprint's major axis stays clear of a tie on
+        # the walls that show it (the filter picks its axis by lx2 >= ly2,
+        # which rounding decides on a fronto-parallel wall of square texels)
+        bitmap=tex.bitmap(tb, image, uscale=4.0, vscale=2.0),
+        checker=tex.checkerboard(tb, 0.75, 0.2, uscale=4.0, vscale=4.0),
+        grid=tex.gridtexture(tb, color0=0.1, color1=0.8, line_width=0.05,
+                             uscale=3.0, vscale=3.0),
+        opacity=tex.checkerboard(tb, 1.0, 0.15, uscale=2.0, vscale=2.0),
+        height=tex.bitmap(tb, height, uscale=2.0, vscale=2.0),
+        normals=tex.bitmap(tb, normals),
+        alpha=tex.checkerboard(tb, 0.15, 0.4, uscale=3.0, vscale=3.0),
+    )
+    t["scaled"] = tex.scale(tb, t["bitmap"], scale=[0.9, 0.35, 0.25])
+
+    def diffuse(rgb, refl_tex=None):
+        rec = bc.diffuse_record(rgb)
+        if refl_tex is not None:
+            rec["refl_tex"] = refl_tex
+        return rec
+
+    floor = bc.bump(diffuse(0.72, t["checker"]), t["height"],
+                    bc.BUMP_HEIGHT, scale=0.01)
+    back = bc.bump(diffuse(0.72, t["bitmap"]), t["normals"], bc.BUMP_NORMAL)
+    red = b.add_bsdf(diffuse([0.63, 0.065, 0.05]))
+    scaled = b.add_bsdf(diffuse(0.5, t["scaled"]))
+    green = b.add_bsdf(diffuse([0.14, 0.45, 0.09]))
+    walls = (b.add_bsdf(floor), b.add_bsdf(diffuse(0.72, t["grid"])),
+             b.add_bsdf(back), b.add_bsdf(bc.blend_record(red, scaled, 0.5)),
+             b.add_bsdf(bc.mask_record(green, opacity_tex=t["opacity"])))
+    # the walls wound to face into the box, as bump mapping keeps the
+    # shading normal on the geometric normal's side
+    for (pts, n), bid in zip(_CORNELL_WALLS, walls):
+        b.add_trimesh(_quad(pts, n, uvs=True, flip=True), b.new_shape(bid))
+    _cornell_light(b, uvs=True)
+    metal = bc.conductor_record("Au", rough=True, distribution="ggx")
+    metal["alpha_tex"] = t["alpha"]
+    ball = icosahedron((-0.35, 0.3, -0.2), 0.28)
+    ball.uvs = _sphere_uvs(ball.positions - np.array([-0.35, 0.3, -0.2]))
+    b.add_trimesh(ball, b.new_shape(b.add_bsdf(metal)))
+    return t
+
+
+def textured_cornell(device="cuda", white_noise: bool = False):
+    """The Cornell box with textured walls and every wrapper: 12 triangles of
+    the walls and the light with uvs over each quad, and a 20-triangle GGX
+    rough gold icosahedron with spherical uvs (32 triangles, brute force). The
+    back wall shows a seeded 2048^2 rgb noise bitmap with its MIP pyramid,
+    tiled 4 x 2 so that the pixel footprint spans levels (and its major axis is
+    clear), under a normal map (1024^2); the floor a checkerboard under a
+    height bump (1024^2, scale 0.01); the ceiling a grid; the left wall blends
+    red diffuse with a diffuse of the bitmap scaled by (0.9, 0.35, 0.25)
+    (weight 0.5); the right wall is green diffuse under a MASK whose opacity is
+    a checkerboard of 1 and 0.15; the icosahedron's roughness is a checkerboard
+    of 0.15 and 0.4 (``alpha_tex``). ``bench.py``'s forward configuration, as
+    ``material_cornell``: 1024^2, depth 5, 4 spp, box filter. ``white_noise``
+    fills the bitmap and both bump maps with independent texels instead
+    (full-frequency content). Returns (Scene, settings) on ``device``, the card
+    unless the CPU is asked for."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_textured_cornell(b, white_noise=white_noise)
+    _cornell_sensor(b)
+    b.settings.width = b.settings.height = 1024
+    b.settings.spp = 4
+    b.settings.rfilter = F_BOX
+    b.settings.integrator = "path"
+    b.settings.integrator_props = dict(max_depth=5)
     return b.build(device)
 
 
@@ -199,8 +354,19 @@ def displaced_sphere(n_tris_target: int):
     return pos, idx.reshape(-1, 3).astype(np.int64)
 
 
+def _sphere_corner_uvs(idx: np.ndarray, n: int) -> np.ndarray:
+    """(T, 3, 2) per-corner uvs of :func:`displaced_sphere`'s grid (vertex
+    i n + j at u = j / n, v = i / (n - 1)); a triangle across the seam
+    takes u = 1 where its corner wraps to j = 0."""
+    i, j = idx // n, (idx % n).astype(np.float64)
+    seam = (j.max(1, keepdims=True) == n - 1) & (j == 0)
+    j = np.where(seam, float(n), j)
+    return np.stack([j / n, i / (n - 1.0)], -1)
+
+
 def large_scene(device="cuda", res: int = 768,
-                n_tris_target: int = 1_120_000, env="constant"):
+                n_tris_target: int = 1_120_000, env="constant",
+                texture: bool = False):
     """The large-scene configuration of ``bench.py``'s third metric
     (``bench_scenes.build_large_scene`` without the reference's bunny and
     envmap files): the displaced sphere (1,120,504 triangles at the
@@ -209,16 +375,27 @@ def large_scene(device="cuda", res: int = 768,
     at the origin, the box filter, 1 spp and path depth 3.  The
     environment is ``env``: ``"constant"`` (unit radiance) or ``"sky"`` (a
     Hosek sky in place of the bench's envmap file: resolution 512,
-    turbidity 3, albedo 0.15, the sun of ``SUN_DIR``).  Returns (Scene,
-    settings) on ``device``, the card unless the CPU is asked for; the
-    scene carries its cluster hierarchy."""
+    turbidity 3, albedo 0.15, the sun of ``SUN_DIR``).  With ``texture``
+    the mesh gets spherical per-corner uvs and a seeded 2048^2 rgb noise
+    bitmap with its MIP pyramid (tiled 2 x 1) on the conductor's specular
+    reflectance (a conductor does not read ``refl``), so the hierarchy's
+    path reads uvs from the packed shading rows and filters the bitmap.
+    Returns (Scene, settings) on ``device``, the card unless the CPU is
+    asked for; the scene carries its cluster hierarchy."""
     device = entry_device(device)
     b = SceneBuilder()
     pos, idx = displaced_sphere(n_tris_target)
     mesh = TriMesh(pos, idx).compute_normals()
-    bid = b.add_bsdf(bc.conductor_record(rough=True, alpha=0.2,
-                                         distribution="ggx"))
-    b.add_trimesh(mesh, b.new_shape(bid))
+    rec = bc.conductor_record(rough=True, alpha=0.2, distribution="ggx")
+    corner_uvs = None
+    if texture:
+        gen = np.random.default_rng(0)
+        rec["spec_tex"] = tex.bitmap(b.textures, _noise_bitmap(gen, 2048),
+                                     uscale=2.0)
+        corner_uvs = _sphere_corner_uvs(idx, int(np.sqrt(n_tris_target / 2))
+                                        + 1)
+    bid = b.add_bsdf(rec)
+    b.add_trimesh(mesh, b.new_shape(bid), corner_uvs=corner_uvs)
     if env == "constant":
         b.add_emitter(dict(type=et.EM_CONSTANT, radiance=np.ones(3),
                            weight=1.0))

@@ -4,12 +4,14 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 profile_pass.py [--scene large|cornell] [--grad] [--passes N]
-                            [--root DIR]
+    python3 profile_pass.py [--scene large|cornell|textured] [--grad]
+                            [--passes N] [--root DIR]
 
 ``--scene large`` (the default) builds ``scenes.large_scene`` (1,120,504
 triangles, 768^2, depth 3), ``--scene cornell`` the Cornell box of the
-main path (``scenes.tiny_cornell``, 12 triangles) at 1024^2, depth 5.
+main path (``scenes.tiny_cornell``, 12 triangles) at 1024^2, depth 5,
+``--scene textured`` ``scenes.textured_cornell`` (1024^2, depth 5, ray
+differentials on).
 Imports ``mitsuba_im_tpu_torch`` from DIR (default: this script's
 directory), so that two checkouts are profiled by the same code (see
 bench_pass.py).  Renders one warm-up pass, then ``--passes`` passes under
@@ -17,19 +19,21 @@ the profiler, and prints per pass: the device time (the sum of every
 kernel, copy and set the card ran), the scene's intersection kernels' time
 and share of it (the hierarchy kernels for the large scene, the
 brute-force kernels for the Cornell box), the device operations, the
-profiled wall time, and the device's idle share (1 - the union of the
+profiled wall time, the peak of allocated device memory over the warm-up
+and the profiled passes, and the device's idle share (1 - the union of the
 device intervals over the span from the first device start to the last
 device end).  The profiler slows the host's enqueue, so the idle share
 under it is an upper bound of the unprofiled pass's; the device times are
 not slowed.  When the profiler records no device activity every number is
-printed as "not measured".  ``--grad`` profiles fwd+bwd passes instead
-(d sum(Li)/d params of one sample per pixel through
+printed as "not measured". ``--grad`` profiles fwd+bwd passes instead (d
+sum(Li)/d params of one sample per pixel through
 ``diff.optimize.render_rays``, path replay): the Cornell box in
-bench.py's fwd+bwd configuration (``remat_group=4``, d/d ``bsdf.refl``),
-the large scene with per-bounce replay (d/d ``bsdf.alpha`` and
-``emitter.radiance``); it adds the share of the backward's scatter-adds
-into the scene tables (``index_put`` kernels).  The last line is a JSON
-object.
+bench.py's fwd+bwd configuration (``remat_group=4``, d/d ``bsdf.refl``;
+the textured box d/d ``texture.atlas`` and ``emitter.radiance``, without
+ray differentials, as ``render_rays`` traces), the large scene with
+per-bounce replay (d/d ``bsdf.alpha`` and ``emitter.radiance``); it adds
+the share of the backward's scatter-adds into the scene tables
+(``index_put`` kernels). The last line is a JSON object.
 """
 from __future__ import annotations
 
@@ -42,10 +46,12 @@ from pathlib import Path
 
 # name fragments of each scene's intersection kernels
 KERNELS = {"large": ("hier_kernel",),
-           "cornell": ("closest_kernel", "anyhit_kernel")}
+           "cornell": ("closest_kernel", "anyhit_kernel"),
+           "textured": ("closest_kernel", "anyhit_kernel")}
 # the gradients of --grad, and the kernels of the backward's gathers
 GRAD_LABELS = {"large": ("bsdf.alpha", "emitter.radiance"),
-               "cornell": ("bsdf.refl",)}
+               "cornell": ("bsdf.refl",),
+               "textured": ("texture.atlas", "emitter.radiance")}
 SCATTER = ("index_put", "indexing_backward")
 
 
@@ -59,12 +65,37 @@ def busy_union(spans):
     return total
 
 
+def device_events(run, passes):
+    """The device events (kernels, copies, sets) of ``run(passes)`` under
+    torch.profiler; the caller has warmed ``run`` up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(passes)
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_us(events, names=None):
+    """Summed device time (us) of the events whose name holds one of
+    ``names`` (of every event when None)."""
+    return sum(e.time_range.end - e.time_range.start for e in events
+               if names is None or any(k in e.name for k in names))
+
+
 def scene_of(name):
     """(scene, settings) of the named configuration on the card."""
-    from mitsuba_im_tpu_torch.scenes import large_scene, tiny_cornell
+    from mitsuba_im_tpu_torch.scenes import (large_scene, textured_cornell,
+                                             tiny_cornell)
 
     if name == "large":
         return large_scene("cuda")
+    if name == "textured":
+        return textured_cornell("cuda")
     scene, settings = tiny_cornell("cuda")
     settings.width = settings.height = 1024
     settings.integrator_props = dict(max_depth=5)
@@ -83,8 +114,6 @@ def main():
     sys.path.insert(0, str(root))
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import mitsuba_im_tpu_torch
     from mitsuba_im_tpu_torch.render.job import path_config, render_film
@@ -105,8 +134,8 @@ def main():
         from mitsuba_im_tpu_torch.diff import optimize as opt
 
         cfg = dataclasses.replace(path_config(settings), remat=True,
-                                  remat_group=4 if args.scene == "cornell"
-                                  else 1)
+                                  remat_group=1 if args.scene == "large"
+                                  else 4)
         labels = GRAD_LABELS[args.scene]
         pix = torch.arange(settings.width * settings.height,
                            device=scene.device)
@@ -120,31 +149,26 @@ def main():
     else:
         def run(passes):
             render_film(scene, settings, spp=passes)
+    torch.cuda.reset_peak_memory_stats()
     run(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(args.passes)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = device_events(run, args.passes)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rec = dict(device=smi, root=str(root), scene=args.scene,
-               grad=args.grad, passes=args.passes)
+               grad=args.grad, passes=args.passes, peak_gib=peak_gib)
     if not dev:
         rec.update(device_ms_per_pass="not measured",
                    kernel_share="not measured", idle_share="not measured",
                    scatter_share="not measured")
     else:
         spans = [(e.time_range.start, e.time_range.end) for e in dev]
-        busy_us = sum(b - a for a, b in spans)
-        kern_us = sum(b - a for e, (a, b) in zip(dev, spans)
-                      if any(k in e.name for k in KERNELS[args.scene]))
+        busy_us = device_us(dev)
+        kern_us = device_us(dev, KERNELS[args.scene])
         span_us = max(b for _, b in spans) - min(a for a, _ in spans)
         by_name = {}
         for e, (a, b) in zip(dev, spans):
             by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        scatter_us = sum(b - a for e, (a, b) in zip(dev, spans)
-                         if any(k in e.name for k in SCATTER))
+        scatter_us = device_us(dev, SCATTER)
         rec.update(
             device_ms_per_pass=busy_us / 1e3 / args.passes,
             scatter_ms_per_pass=scatter_us / 1e3 / args.passes,

@@ -180,7 +180,7 @@ def _resolve(jt, tt, ids):
     uv = np.zeros((2, N), np.float32)
     jp = jbc.resolve_v(jt, TextureBuilder().build(), jnp.asarray(ids),
                        *(jnp.asarray(a) for a in uv))
-    return jp, tbc.resolve_v(tt, torch.from_numpy(ids))
+    return jp, tbc.resolve_v(tt, None, torch.from_numpy(ids))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -225,19 +225,30 @@ def test_family_matches_reference(case):
 
 
 def test_ported_types():
-    """Fifteen ported types; IRAWAN and the wrapper codes still raise."""
+    """Fifteen ported types; IRAWAN and BUMPMAP_WRAP (a code no record
+    takes) still raise, while MASK and BLEND rows resolve into the rows
+    they wrap."""
     assert len(tev.PORTED) == 15
     w = tv3(np.tile([[0.0, 0.0, 1.0]], (4, 1)))
     u = torch.full((4,), 0.5)
-    for t in (tbc.IRAWAN, tbc.MASK, tbc.BLEND, tbc.BUMPMAP_WRAP):
+    zeros = torch.zeros(4, dtype=torch.int32)
+    for t in (tbc.IRAWAN, tbc.BUMPMAP_WRAP):
         rec = tbc.default_record()
         rec["type"] = t
         table = tbc.build_table([rec], "cpu")
         for fn, args in ((tev.bsdf_eval_v, (w, w)), (tev.bsdf_pdf_v, (w, w)),
                          (tev.bsdf_sample_v, (w, u, u, u))):
-            with pytest.raises(NotImplementedError):  # resolve (MASK, BLEND)
-                fn(tbc.resolve_v(table, torch.zeros(4, dtype=torch.int32)),
-                   *args)
+            with pytest.raises(NotImplementedError):
+                fn(tbc.resolve_v(table, None, zeros), *args)
+    inner = tbc.diffuse_record(0.25)
+    for wrapper in (tbc.mask_record(1, opacity=1.0),
+                    tbc.blend_record(1, 1, weight=0.3)):
+        table = tbc.build_table([wrapper, inner], "cpu")
+        p = tbc.resolve_v(table, None, zeros, w.x, w.y, u_sel=u)
+        np.testing.assert_array_equal(npy(p.type), tbc.DIFFUSE)
+        close_v3(tev.bsdf_eval_v(p, w, w), tv3(np.full((4, 3), 0.25 / np.pi)))
+        assert float(tev.bsdf_pdf_v(p, w, w)[0]) > 0
+        assert float(tev.bsdf_sample_v(p, w, u, u, u, u).weight.x[0]) > 0
 
 
 def _np_hk(g, tau, albedo, wi, wo):
@@ -264,7 +275,7 @@ def test_hk_back_scattering_unclamped():
     rec = tbc.hk_record([2.0, 1.5, 1.0], [0.05, 0.1, 0.2], thickness=0.5,
                         g=g)
     tt = tbc.build_table([rec], "cpu")
-    tp = tbc.resolve_v(tt, torch.zeros(N, dtype=torch.int32))
+    tp = tbc.resolve_v(tt, None, torch.zeros(N, dtype=torch.int32))
     assert float(tp.alpha_u[0]) == np.float32(g)
     jrec = _j("hk", {"phase": dict(g=g)}, sigmaS=[2.0, 1.5, 1.0],
               sigmaA=[0.05, 0.1, 0.2], thickness=0.5)
@@ -313,7 +324,7 @@ def test_eval_derivatives_match_jacfwd(case):
     # anomaly mode raises where any backward step returns a NaN: a masked
     # lane must not turn its zero cotangent into one
     with torch.autograd.detect_anomaly():
-        p = tbc.resolve_v(dataclasses.replace(tt, **cols),
+        p = tbc.resolve_v(dataclasses.replace(tt, **cols), None,
                           torch.from_numpy(ids))
         ev = tev.bsdf_eval_v(p, tv3(wi), tv3(wo))
         (ev.x.sum() + ev.y.sum() + ev.z.sum()).backward()
@@ -367,7 +378,7 @@ def test_twosided_mirrors_back_faces():
     rec = tbc.twosided(tbc.plastic_record(diffuse=[0.5, 0.3, 0.2],
                                           rough=True, alpha=0.3))
     tt = tbc.build_table([rec], "cpu")
-    p = tbc.resolve_v(tt, torch.zeros(N, dtype=torch.int32))
+    p = tbc.resolve_v(tt, None, torch.zeros(N, dtype=torch.int32))
     wi, wo = unit_vectors(rng, N), unit_vectors(rng, N)
     wi[:, 2] = -np.abs(wi[:, 2])
     m = np.array([1, 1, -1], np.float32)

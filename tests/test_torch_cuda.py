@@ -9,7 +9,8 @@ rays that overflow the kernel's per-ray super list, and 3000 supers),
 the Cornell and large-scene renders on the card against the CPU
 renders, and their gradients (path replay through the kernels) against
 the CPU's; the environment map's alias sampling and the thirteen-family
-``material_cornell`` render on the card against the CPU.
+``material_cornell`` render on the card against the CPU; the textured
+Cornell render and its atlas gradient on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -25,7 +26,8 @@ from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.scenes import (SUN_DIR, large_scene,
-                                         material_cornell, tiny_cornell)
+                                         material_cornell, textured_cornell,
+                                         tiny_cornell)
 
 pytestmark = pytest.mark.cuda
 
@@ -353,3 +355,43 @@ def test_material_cornell_render_card_vs_cpu(cuda):
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
     assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
     assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
+
+
+def test_textured_cornell_render_card_vs_cpu(cuda):
+    """Textures, MIP filtering with ray differentials, MASK, BLEND, bump
+    and normal maps at 32^2, depth 5, 2 spp: 5 closest + 4 any-hit
+    launches per pass, and the image within parity_check.py's gate of the
+    CPU's."""
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = textured_cornell(dev)
+        settings.width = settings.height = 32
+        ci.reset_launch_counts()
+        imgs.append(develop(render_film(scene, settings, spp=2)).cpu().numpy())
+        if dev.type == "cuda":
+            assert (ci.closest_tris_v.launches,
+                    ci.anyhit_tris_v.launches) == (2 * 5, 2 * 4)
+    a, b = (im.sum(-1).ravel() for im in imgs)
+    assert np.isfinite(a).all() and (a >= 0).all()
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
+    assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
+    assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
+
+
+def test_atlas_gradient_card_vs_cpu(cuda):
+    """d sum(Li)/d texture.atlas on textured_cornell at 32^2, depth 5,
+    remat_group 4: 5 + 4 launches forward, 9 + 8 with the replay, and the
+    gradient within parity_check.py's gradient gate (5e-3) of the CPU's."""
+    cfg = PathConfig(max_depth=5, remat=True, remat_group=4)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = textured_cornell(dev)
+        settings.width = settings.height = 32
+        ci.reset_launch_counts()
+        grads.append(_grads(scene, settings, cfg, ("texture.atlas",)))
+        if dev.type == "cuda":
+            assert (ci.closest_tris_v.launches,
+                    ci.anyhit_tris_v.launches) == (9, 8)
+    card, cpu = grads[0]["texture.atlas"], grads[1]["texture.atlas"]
+    assert torch.isfinite(card).all() and cpu.abs().max() > 0
+    assert (card - cpu).abs().max() / cpu.abs().max() < 5e-3

@@ -440,11 +440,17 @@ def test_autodiff_matches_finite_differences(label, index, eps):
 
 
 def test_texture_atlas_and_other_samplers_raise(cornell):
+    """``texture.atlas`` (which raised before textures were ported: the
+    name is kept) round-trips through get_params/set_params; samplers
+    other than independent raise."""
     _, tscene = cornell
-    with pytest.raises(NotImplementedError):
-        topt.get_params(tscene, ["texture.atlas"])
-    with pytest.raises(NotImplementedError):
-        topt.set_params(tscene, {"texture.atlas": torch.zeros(1)})
+    atlas = topt.get_params(tscene, ["texture.atlas"])["texture.atlas"]
+    assert atlas is tscene.textures.atlas
+    new = torch.rand_like(atlas)
+    moved = topt.set_params(tscene, {"texture.atlas": new})
+    assert moved.textures.atlas is new
+    assert moved.bsdfs is tscene.bsdfs and moved.geom is tscene.geom
+    assert topt.get_params(moved, ["texture.atlas"])["texture.atlas"] is new
     settings = RenderSettings(width=4, height=4, sampler="stratified")
     with pytest.raises(NotImplementedError):
         topt.render_rays(tscene, settings, tpath.PathConfig(max_depth=2),
@@ -500,7 +506,7 @@ def test_bsdf_gradients_match_reference():
 
     params = {k: torch.from_numpy(npy(getattr(tt, k)).copy())
               .requires_grad_(True) for k in cols}
-    p = tbc.resolve_v(dataclasses.replace(tt, **params),
+    p = tbc.resolve_v(dataclasses.replace(tt, **params), None,
                       torch.from_numpy(ids))
     combine(torch.from_numpy, tev.bsdf_eval_v(p, tv3(wi), tv3(wo)),
             tev.bsdf_pdf_v(p, tv3(wi), tv3(wo)),

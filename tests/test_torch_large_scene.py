@@ -181,7 +181,7 @@ def test_roughconductor(dist):
     uv = rng.random((2, n), dtype=np.float32)
     jp = jbc.resolve_v(jt, TextureBuilder().build(), jnp.asarray(ids),
                        *(jnp.asarray(a) for a in uv))
-    tp = tbc.resolve_v(tt, torch.from_numpy(ids))
+    tp = tbc.resolve_v(tt, None, torch.from_numpy(ids))
     for k in ("alpha_u", "alpha_v", "dist"):
         np.testing.assert_array_equal(npy(getattr(tp, k)),
                                       npy(getattr(jp, k)), err_msg=k)

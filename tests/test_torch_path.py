@@ -81,10 +81,18 @@ def test_mi_weight():
 
 
 def test_ray_differentials_raise():
+    """Ray differentials, which raised before textures were ported (the
+    name is kept), change nothing in a scene without MIP pyramids, as in
+    the reference; the samplers other than independent still raise."""
     scene = bridged(jax_cornell()[0])
-    pix = torch.arange(4)
-    s = trng.make_sampler_v(pix, 0, 0)
-    o, d, _ = t_sample_ray_v(scene.sensor, *(torch.rand(4) for _ in range(4)))
+    assert not scene.textures.has_mip
+    pix = torch.arange(64)
+    o, d, _ = t_sample_ray_v(scene.sensor, *(torch.rand(64)
+                                            for _ in range(4)))
+    cfg = tpath.PathConfig(max_depth=3)
+    li = [tpath.path_li_v(scene, trng.make_sampler_v(pix, 0, 0), o, d, cfg,
+                          **kw)[0] for kw in ({}, dict(dddx=d, dddy=d))]
+    for a, b in zip(*li):
+        assert torch.equal(a, b)
     with pytest.raises(NotImplementedError):
-        tpath.path_li_v(scene, s, o, d, tpath.PathConfig(max_depth=3),
-                        dddx=d, dddy=d)
+        trng.make_sampler_v(pix, 0, 0, kind=trng.STRATIFIED)

@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 def _leaves(scene):
     """{name: tensor or static} of a port Scene."""
     out = {}
-    for part in ("geom", "bsdfs", "emitters", "sensor"):
+    for part in ("geom", "bsdfs", "textures", "emitters", "sensor"):
         obj = getattr(scene, part)
         for f in dataclasses.fields(obj):
             out[f"{part}.{f.name}"] = getattr(obj, f.name)
@@ -47,11 +47,9 @@ def test_bridge_leaves_bit_exact(which):
     tscene = scene_from_numpy(arrays, statics, "cpu")
     leaves = {k: t for k, t in _leaves(tscene).items()
               if isinstance(t, torch.Tensor)}
-    # the texture columns only decide ``textured``; every other exported
-    # table is a leaf of the port's scene
-    tex = {f"bsdfs.{k}" for k in tbc.TEXTURE_COLUMNS}
-    assert set(arrays) == set(leaves) | tex
-    assert not tscene.bsdfs.textured
+    # every exported table is a leaf of the port's scene
+    assert set(arrays) == set(leaves)
+    assert not tscene.bsdfs.tex_columns
     for key, t in leaves.items():
         a = arrays[key]
         assert t.shape == a.shape, key
@@ -124,7 +122,7 @@ def _lane_params(rng, n):
     tt = tbc.build_table(recs, "cpu")
     jp = jbc.resolve_v(jt, TextureBuilder().build(), jnp.asarray(ids),
                        *(jnp.asarray(a) for a in uv))
-    tp = tbc.resolve_v(tt, torch.from_numpy(ids))
+    tp = tbc.resolve_v(tt, None, torch.from_numpy(ids))
     return jt, tt, jp, tp
 
 
@@ -134,7 +132,7 @@ def test_build_table_and_resolve_v_exact():
     for k in tbc.BSDF_LEAVES:
         np.testing.assert_array_equal(npy(getattr(tt, k)),
                                       npy(getattr(jt, k)), err_msg=k)
-    assert tt.used_types == jt.used_types and not tt.textured
+    assert tt.used_types == jt.used_types and not tt.tex_columns
     for k in ("type", "flags"):
         np.testing.assert_array_equal(npy(getattr(tp, k)),
                                       npy(getattr(jp, k)), err_msg=k)
@@ -142,6 +140,7 @@ def test_build_table_and_resolve_v_exact():
         np.testing.assert_array_equal(npy(a), npy(b))
     # no texture or mask: the reference's opacity is 1, which the port drops
     np.testing.assert_array_equal(npy(jp.opacity), 1.0)
+    assert tp.opacity is None
 
 
 def test_diffuse_bsdf():
@@ -232,7 +231,8 @@ def test_area_emitters(which):
 def test_unported_features_raise(case):
     """Emitters and BSDFs the port has not reached raise where they are
     built or evaluated: the sun (a directional record) beside a map, a
-    point light, a textured BSDF, IRAWAN."""
+    point light, a bridged scene with an IRAWAN weave (``textured_bsdf``,
+    the name from before textures were ported), IRAWAN's type code."""
     if case in ("env_emitter", "point_emitter"):
         recs = ([tem.envmap_record(np.ones((2, 4, 3))),
                  dict(type=tem.EM_DIRECTIONAL, intensity=np.ones(3),
@@ -244,13 +244,24 @@ def test_unported_features_raise(case):
         return
     rec = tbc.default_record()
     if case == "textured_bsdf":
-        rec["refl_tex"] = 0
-        table = tbc.build_table([rec], "cpu")
-        with pytest.raises(NotImplementedError):
-            tbc.resolve_v(table, torch.zeros(4, dtype=torch.int32))
+        from mitsuba_im_tpu.core.properties import Properties
+        from mitsuba_im_tpu.core.registry import create
+        from mitsuba_im_tpu.scene.build import SceneBuilder
+        from mitsuba_im_tpu.scene.mesh import TriMesh
+
+        b = SceneBuilder()
+        quad = TriMesh(np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1],
+                                 [-1, 0, 1]], float),
+                       np.array([[0, 1, 2], [2, 3, 0]]))
+        b.add_trimesh(quad, b.new_shape(b.add_bsdf(
+            create("bsdf", Properties("irawan")))))
+        arrays, statics = export_tables(b.build()[0])
+        assert statics["bsdfs.weaves"] == 1
+        with pytest.raises(NotImplementedError, match="irawan"):
+            scene_from_numpy(arrays, statics, "cpu")
         return
     rec["type"] = tbc.IRAWAN
-    p = tbc.resolve_v(tbc.build_table([rec], "cpu"),
+    p = tbc.resolve_v(tbc.build_table([rec], "cpu"), None,
                       torch.zeros(4, dtype=torch.int32))
     w = tv3(np.tile([[0.0, 0.0, 1.0]], (4, 1)))
     with pytest.raises(NotImplementedError):
