@@ -119,7 +119,35 @@ Phases, in order; any failure raises and the run exits non-zero:
    device memory; the fwd+bwd pass time and its ratio to phase 17's pass;
    the share of a pass's device time in the gathers' backward
    (``index_put``/``indexing_backward``); card vs CPU atlas gradient at
-   64^2, max rel < 5e-3.
+   64^2, max rel < 5e-3;
+21. samplers: every kind (independent, stratified, ldsampler, sobol,
+   halton, hammersley) on the card against the same call on the CPU, bit
+   for bit: 2^20 lanes x 6 blocks of ``next_block4_v`` with the shared
+   sample index of a render pass, and 2^16 lanes with an index per lane;
+   device operations and card ms of one block at 2^20 lanes;
+22. lights: ``render_film`` on ``scenes.lights_cornell("cuda")`` (the
+   Cornell box's triangle light, an analytic sphere and a disk area
+   light, a point, a spot and a collimated beam; a thin lens; ldsampler;
+   the Gaussian filter of radius 2) at 1024^2, depth 5, 4 spp: 5 closest
+   and 4 any-hit launches per pass, no hierarchy launch; the image finite
+   and non-negative; the pass time, device operations, device time, idle
+   share and peak memory; the pass time and device operations of
+   ldsampler/independent x Gaussian/box, timed in turns; at 128^2 each
+   light alone lights the image (the collimated beam alone leaves it
+   black, as in the reference);
+23. card vs CPU on lights_cornell at 128^2, depth 5, then at 64^2, depth
+   3, one option at a time: each of the 7 sensor types, 6 samplers and 6
+   filters, all through ``render_film`` under parity_check.py's gate;
+24. the large scene under the Preetham sky and the sun
+   (``large_scene("cuda", env="sunsky")``: sobol, the Mitchell filter) at
+   768^2, depth 3, 2 spp: 3 + 2 hierarchy launches per pass, no
+   brute-force launch; the image finite; 18 pixels of its top rows, which
+   see the sky, the sky map's radiance toward them (within 5%, the sky
+   positive at each); the pass time, device operations,
+   peak memory; card vs CPU at 64^2 under the gate;
+25. the lights_cornell gradient at 128^2, depth 5, ``remat_group=4``: d
+   sum(Li)/d ``bsdf.refl`` and ``emitter.radiance``; 5 + 4 launches
+   forward and 9 + 8 with the replay; finite; card vs CPU max rel < 5e-3.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -147,13 +175,19 @@ from mitsuba_im_tpu_torch.core.types import EPSILON, SHADOW_EPSILON, Int
 from mitsuba_im_tpu_torch.core.v3 import V3
 from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
     set_params
-from mitsuba_im_tpu_torch.film.film import develop
+from mitsuba_im_tpu_torch.core.transform import Transform
+from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
+                                                eval_environment_v)
+from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
-from mitsuba_im_tpu_torch.scenes import (large_scene, material_cornell,
-                                         textured_cornell, tiny_cornell)
-from mitsuba_im_tpu_torch.sensor.table import sample_ray_v
+from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
+from mitsuba_im_tpu_torch.scenes import (CORNELL_CAMERA, LIGHTS, LIGHTS_LENS,
+                                         large_scene, lights_cornell,
+                                         material_cornell, textured_cornell,
+                                         tiny_cornell)
+from mitsuba_im_tpu_torch.sensor.table import make_sensor, sample_ray_v
 from profile_pass import SCATTER, busy_union, device_events, device_us
 from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
 
@@ -176,6 +210,9 @@ M_LABELS = ("bsdf.refl", "bsdf.spec", "bsdf.alpha", "emitter.radiance")
 M_GRAD_RES = 128  # the material_cornell gradient
 T_LABELS = ("texture.atlas", "emitter.radiance")  # the textured gradient
 T_GRAD_PARITY_RES = 64
+SWEEP_RES = 64  # the lights_cornell sweep of sensors, samplers and filters
+SWEEP_DEPTH = 3
+N_BLOCKS = 6  # sampler blocks checked card vs CPU
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): memory rate
 # and float32 rate outside the tensor cores
@@ -502,7 +539,7 @@ def luminance(img):
         + 0.072169 * img[..., 2]
 
 
-def pass_time(scene, settings, k_lo, k_hi, rays):
+def pass_time(scene, settings, k_lo, k_hi, rays, tag="main"):
     """Per-pass ms from differencing two pass counts (cancels the fixed
     costs), as bench.py does."""
     def run(k):
@@ -511,7 +548,7 @@ def pass_time(scene, settings, k_lo, k_hi, rays):
     t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
     t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
-    log(f"[main] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
+    log(f"[{tag}] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
         f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
         f"{rays / (per_pass * 1e-3):.4e} rays/s")
     return per_pass
@@ -1495,6 +1532,309 @@ def texture_grad_phase(dev, fwd_ms):
     return launches, per_pass, peak, share
 
 
+# ---------------------------------------------------------------------------
+# samplers, sensors, filters and lights: lights_cornell and the sun and sky
+# ---------------------------------------------------------------------------
+
+def sampler_blocks(where, kind, sample, n):
+    """N_BLOCKS blocks of ``kind`` for pixels 0..n-1 on ``where``, as
+    (N_BLOCKS * 4) CPU tensors."""
+    pix = torch.arange(n, dtype=torch.int64, device=where)
+    if isinstance(sample, torch.Tensor):
+        sample = sample.to(where)
+    s = rng.make_sampler_v(pix, sample, 77, kind=kind, spp=4)
+    out = []
+    for _ in range(N_BLOCKS):
+        s, u = rng.next_block4_v(s)
+        out += [t.cpu() for t in u]
+    return out
+
+
+def sampler_phase(dev):
+    """21. Every sampler kind on the card against the same call on the
+    CPU, bit for bit: 2^20 lanes x N_BLOCKS blocks with the sample index
+    every lane shares (a render pass), and 2^16 lanes with one index per
+    lane; then device operations and card ms of one block at 2^20 lanes."""
+    per_lane = torch.randint(0, 64, (1 << 16,), generator=torch.Generator()
+                             .manual_seed(21))
+    bad = {}
+    for name, kind in KIND_BY_NAME.items():
+        for sample, n in ((5, N_RAYS), (per_lane, 1 << 16)):
+            card = sampler_blocks(dev, kind, sample, n)
+            cpu = sampler_blocks("cpu", kind, sample, n)
+            m = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(card, cpu))
+            bad[(name, n)] = m
+    log("[samplers] card vs CPU, " + f"{N_BLOCKS} blocks: mismatches "
+        + ", ".join(f"{k} {n} lanes {m}" for (k, n), m in bad.items()))
+    if any(bad.values()):
+        raise AssertionError(f"sampler words differ card vs CPU: {bad}")
+    pix = torch.arange(N_RAYS, dtype=torch.int64, device=dev)
+    ops = {}
+    for name in KIND_BY_NAME:
+        s = rng.make_sampler_v(pix, 5, 77, kind=KIND_BY_NAME[name], spp=4)
+        ev = device_events(lambda k: [rng.next_block4_v(s)
+                                      for _ in range(k)], 4)
+        ms = cuda_ms(lambda: rng.next_block4_v(s), 20)
+        ops[name] = (len(ev) / 4 if ev else None, ms)
+    log("[samplers] one block at 2^20 lanes: " + ", ".join(
+        f"{k} {fmt(o)} device operations, {ms:.4f} ms"
+        for k, (o, ms) in ops.items()))
+    return ops
+
+
+def film_luminance(scene, settings, res, depth, spp=1):
+    """Per-pixel Li sum of a render_film at res^2 through the settings'
+    sampler and filter (CPU numpy)."""
+    st = dataclasses.replace(settings, width=res, height=res,
+                             integrator_props=dict(max_depth=depth))
+    return develop(render_film(scene, st, spp=spp)).sum(-1).cpu().numpy()
+
+
+def with_options(settings, sampler=None, rfilter=None):
+    kw = {}
+    if sampler is not None:
+        kw["sampler"] = sampler
+    if rfilter is not None:
+        kw.update(rfilter=rfilter, rfilter_radius=None)
+    return dataclasses.replace(settings, **kw)
+
+
+def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=2):
+    """{name: [per-pass ms, ...]} of each settings variant, differencing
+    k_lo and k_hi passes, the variants in turns (forward, then back,
+    ``rounds`` times)."""
+    order = (list(variants) + list(reversed(variants))) * rounds
+    out = {k: [] for k in variants}
+    for k in variants:  # warm up
+        render_film(scene, variants[k], spp=1)
+    for k in order:
+        def run(n, st=variants[k]):
+            return lambda: render_film(scene, st, spp=n)
+        out[k].append((cuda_ms(run(k_hi), 1) - cuda_ms(run(k_lo), 1))
+                      / (k_hi - k_lo))
+    return out
+
+
+def lights_path_phase(dev):
+    """22. lights_cornell through render_film at bench.py's forward
+    configuration with ldsampler, the Gaussian filter and the thin lens;
+    the sampler's and the filter's cost in turns; each light alone."""
+    t0 = time.perf_counter()
+    scene, settings = lights_cornell(dev)
+    em = scene.emitters
+    log(f"[lights] scene built on the host in {time.perf_counter() - t0:.2f}"
+        f" s: {scene.geom.n_tris} triangles, {scene.geom.n_spheres} sphere, "
+        f"{scene.geom.n_disks} disk; emitter types {em.used_types}, area "
+        f"kinds {em.used_area_kinds}; sensor type {scene.sensor.type}; "
+        f"sampler {settings.sampler}, filter {settings.rfilter} radius "
+        f"{settings.rfilter_radius}")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    hier = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    spp, depth = settings.spp, settings.integrator_props["max_depth"]
+    log(f"[lights] render_film {settings.width}x{settings.height} depth "
+        f"{depth} spp {spp}: closest launches {launches[0]}, anyhit "
+        f"launches {launches[1]}, hierarchy launches {hier}; peak device "
+        f"memory {peak:.3f} GiB")
+    if launches != (depth * spp, (depth - 1) * spp) or any(hier):
+        raise AssertionError(f"expected {depth} closest and {depth - 1} "
+                             f"any-hit launches per pass, no hierarchy "
+                             f"launch, got {launches}, {hier}")
+    img = develop(film).cpu().numpy()
+    lum = luminance(img)
+    log(f"[lights] image mean luminance {lum.mean():.5f}, max "
+        f"{lum.max():.5f}")
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("image has non-finite or negative pixels")
+    if not 0.02 < lum.mean() < 50.0:
+        raise AssertionError(f"implausible mean luminance {lum.mean()}")
+    rays = settings.width * settings.height * (1 + 2 * (depth - 1))
+    per_pass = pass_time(scene, settings, 2, 6, rays, "lights")
+    prof = device_profile("lights",
+                          lambda k: render_film(scene, settings, spp=k))
+
+    # each sampler with the Gaussian, and the box filter's saving
+    pairs = [(k, "gaussian") for k in KIND_BY_NAME] + [
+        ("ldsampler", "box"), ("independent", "box")]
+    variants = {f"{smp}+{flt}": with_options(settings, smp,
+                                             FILTER_NAMES[flt])
+                for smp, flt in pairs}
+    times = pass_times_in_turns(scene, variants, 1, 3)
+    costs = {}
+    for k, st in variants.items():
+        p = device_profile(f"lights {k}",
+                           lambda n, st=st: render_film(scene, st, spp=n))
+        costs[k] = (times[k], p and p["ops"], p and p["device_ms"])
+    log("[lights] pass ms in turns (there and back, twice; median) and "
+        "device operations and device ms per pass: " + "; ".join(
+            f"{k} {statistics.median(ts):.3f} ms ("
+            f"{', '.join(f'{t:.3f}' for t in ts)}), {fmt(o)} ops, "
+            f"{fmt(d)} device ms" for k, (ts, o, d) in costs.items()))
+    del scene, film
+
+    alone = {}
+    for light in LIGHTS:
+        sc, st = lights_cornell(dev, lights=(light,))
+        img = develop(render_film(sc, dataclasses.replace(
+            st, width=128, height=128, spp=1))).cpu().numpy()
+        alone[light] = float(luminance(img).mean())
+        if not np.isfinite(img).all() or (img < 0).any():
+            raise AssertionError(f"{light} alone: non-finite or negative")
+        if (alone[light] > 0) != (light != "collimated"):
+            raise AssertionError(f"{light} alone: mean luminance "
+                                 f"{alone[light]}")
+    log("[lights] each light alone at 128^2 (1 spp), mean luminance: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in alone.items()))
+    return launches, per_pass, peak, prof, costs
+
+
+def sweep_sensor(scene, stype, where):
+    """lights_cornell's camera as a sensor of type ``stype`` (thin-lens and
+    telecentric apertures, orthographic half-extents 1.1)."""
+    c = CORNELL_CAMERA
+    return dataclasses.replace(scene, sensor=make_sensor(
+        stype, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], scale_x=1.1, scale_y=1.1, **LIGHTS_LENS,
+        device=where))
+
+
+def lights_parity_phase(dev):
+    """23. lights_cornell card vs CPU at 128^2, depth 5, then one option
+    at a time at SWEEP_RES^2, depth SWEEP_DEPTH: each sensor type, sampler
+    and filter, all under parity_check.py's gate."""
+    card, settings = lights_cornell(dev)
+    cpu, _ = lights_cornell("cpu")
+    parity_gate(f"lights_cornell 128^2 depth {DEPTH} (thin lens, "
+                f"ldsampler, gaussian)",
+                film_luminance(card, settings, 128, DEPTH),
+                film_luminance(cpu, settings, 128, DEPTH))
+    cases = [(f"sensor {t}", sweep_sensor(card, t, dev),
+              sweep_sensor(cpu, t, "cpu"), settings) for t in range(7)]
+    cases += [(f"sampler {k}", card, cpu, with_options(settings, sampler=k))
+              for k in KIND_BY_NAME]
+    cases += [(f"filter {k}", card, cpu, with_options(settings, rfilter=f))
+              for k, f in FILTER_NAMES.items()]
+    for name, g, c, st in cases:
+        # the samplers at the scene's spp, so that the strata differ
+        spp = st.spp if name.startswith("sampler") else 1
+        parity_gate(f"lights_cornell {SWEEP_RES}^2 depth {SWEEP_DEPTH} spp "
+                    f"{spp}, {name}",
+                    film_luminance(g, st, SWEEP_RES, SWEEP_DEPTH, spp),
+                    film_luminance(c, st, SWEEP_RES, SWEEP_DEPTH, spp))
+    return len(cases)
+
+
+def sunsky_path_phase(dev):
+    """24. The large scene under the Preetham sky and the sun (sobol,
+    Mitchell, 2 spp); its top rows against the sky's radiance; card vs CPU
+    at 64^2."""
+    t0 = time.perf_counter()
+    scene, settings = large_scene(dev, env="sunsky")
+    em = scene.emitters
+    sun = em.type.cpu().tolist().index(EM_DIRECTIONAL)
+    log(f"[sunsky] scene built on the host in {time.perf_counter() - t0:.2f}"
+        f" s: {scene.geom.n_tris} triangles, emitter types {em.used_types}, "
+        f"map {tuple(em.env_rows.shape)}, sun irradiance "
+        f"{em.intensity[sun].tolist()} along {em.direction[sun].tolist()}; "
+        f"sampler {settings.sampler}, filter {settings.rfilter}, spp "
+        f"{settings.spp}")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    spp = settings.spp
+    log(f"[sunsky] render_film {L_RES}x{L_RES} depth {L_DEPTH} spp {spp}: "
+        f"hier_closest launches {launches[0]}, hier_anyhit launches "
+        f"{launches[1]}, brute-force launches {brute}; peak device memory "
+        f"{peak:.3f} GiB")
+    if launches != (L_DEPTH * spp, (L_DEPTH - 1) * spp) or any(brute):
+        raise AssertionError(f"expected {L_DEPTH} hier_closest, "
+                             f"{L_DEPTH - 1} hier_anyhit and no brute-force "
+                             f"launches per pass, got {launches}, {brute}")
+    img = develop(film).cpu().numpy()
+    if not np.isfinite(img).all():
+        raise AssertionError("image has non-finite pixels")
+    # the top rows see the sky above the horizon, far from the mesh: a
+    # pixel's value is the map's radiance toward its centre, to the
+    # filter's averaging over +-2 pixels (the bottom rows look below the
+    # horizon, where the map is 0, and would hold nothing)
+    r = L_RES
+    band = [(y, int(x)) for y in (0, r // 16)
+            for x in np.linspace(0, r - 1, 9).round()]
+    uu = torch.tensor([(x + 0.5) / r for _, x in band], device=dev)
+    vv = torch.tensor([(y + 0.5) / r for y, _ in band], device=dev)
+    z = torch.zeros_like(uu)
+    _, d, _ = sample_ray_v(scene.sensor, uu, vv, z, z)
+    sky = luminance(torch.stack(list(eval_environment_v(em, d)),
+                                -1).cpu().numpy())
+    got = np.array([luminance(img[y, x]) for y, x in band])
+    log(f"[sunsky] luminance of {len(band)} pixels in rows 0 and {r // 16}: "
+        f"{got.tolist()}, the sky's toward them {sky.tolist()}")
+    if not (sky > 0.0).all():
+        raise AssertionError("a checked pixel looks where the sky is 0")
+    if not (np.abs(got - sky) <= 0.05 * sky).all():
+        raise AssertionError("the top rows are not the sky's radiance")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)), "sunsky")
+    prof = device_profile("sunsky", lambda k: render_film(scene, settings,
+                                                          spp=k))
+    parity_gate(f"large scene under sunsky 64^2 depth {L_DEPTH} (sobol, "
+                f"mitchell)",
+                film_luminance(scene, settings, 64, L_DEPTH),
+                film_luminance(large_scene("cpu", env="sunsky")[0],
+                               settings, 64, L_DEPTH))
+    return launches, per_pass, peak, prof
+
+
+def lights_grad_phase(dev):
+    """25. d sum(Li)/d bsdf.refl and emitter.radiance on lights_cornell at
+    128^2, depth 5, remat_group 4: launches forward and with the replay,
+    finite, card vs CPU."""
+    cfg = PathConfig(max_depth=DEPTH, remat=True, remat_group=4)
+
+    def counts():
+        return (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+
+    g = {}
+    for where in (dev, "cpu"):
+        scene, settings = lights_cornell(where)
+        settings.width = settings.height = M_GRAD_RES
+        ci.reset_launch_counts()
+        grads, _, fwd = grad_pass(scene, settings, cfg, G_LABELS, 0, counts)
+        g[str(where)] = {k: v.cpu() for k, v in grads.items()}
+        if where == dev:
+            launches = (fwd, counts())
+    log(f"[lights grad] {M_GRAD_RES}^2 depth {DEPTH} remat_group 4: "
+        f"launches forward {launches[0]}, forward+backward {launches[1]}")
+    want = ((DEPTH, DEPTH - 1), (2 * DEPTH - 1, 2 * (DEPTH - 1)))
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    card, cpu = g[str(dev)], g["cpu"]
+    check_finite("lights grad", card)
+    rels = {k: ((card[k] - cpu[k]).abs().max() / cpu[k].abs().max()).item()
+            for k in G_LABELS}
+    log(f"[lights grad] card vs CPU max rel " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rels.items()) + "; d sum(Li)/d radiance "
+        f"rows {card['emitter.radiance'].sum(1).tolist()}")
+    if not all(v < 5e-3 for v in rels.values()):
+        raise AssertionError(f"card vs CPU gradient parity failed: {rels}")
+    if not all(cpu[k].abs().max() > 0 for k in G_LABELS):
+        raise AssertionError("a gradient of lights_cornell is zero")
+    return launches, rels
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None):
     bnd = timing[key + "_bound"]
@@ -1543,6 +1883,23 @@ def main():
         f"{tl_launches}, peak {tl_peak:.3f} GiB; atlas fwd+bwd pass "
         f"{tg_ms:.3f} ms, launches {tg_launches}, peak {tg_peak:.3f} GiB, "
         f"scatter share {fmt(tg_share)}")
+    s_ops = sampler_phase(dev)
+    l_launches, l_ms, l_peak, l_prof, l_costs = lights_path_phase(dev)
+    n_sweep = lights_parity_phase(dev)
+    ss_launches, ss_ms, ss_peak, ss_prof = sunsky_path_phase(dev)
+    lg_launches, lg_rels = lights_grad_phase(dev)
+    log(f"[summary] lights_cornell pass {l_ms:.3f} ms, launches "
+        f"{l_launches}, device ops per pass {fmt(l_prof and l_prof['ops'])},"
+        f" peak {l_peak:.3f} GiB; in turns " + "; ".join(
+            f"{k} {statistics.median(t):.3f} ms {fmt(o)} ops"
+            for k, (t, o, _) in l_costs.items())
+        + f"; one LDS block {fmt(s_ops['ldsampler'][0])} device ops "
+        f"(independent {fmt(s_ops['independent'][0])}); {n_sweep} sweep "
+        f"gates passed; sunsky pass {ss_ms:.3f} ms, launches {ss_launches},"
+        f" device ops per pass {fmt(ss_prof and ss_prof['ops'])}, peak "
+        f"{ss_peak:.3f} GiB; lights grad launches {lg_launches}, card vs "
+        f"CPU max rel " + ", ".join(f"{k} {v:.3e}"
+                                    for k, v in lg_rels.items()))
     log(f"[summary] material_cornell pass {m_ms:.3f} ms, launches "
         f"{m_launches}, device ops per pass "
         f"{fmt(m_prof and m_prof['ops'])}; sky scene pass {s_ms:.3f} ms, "

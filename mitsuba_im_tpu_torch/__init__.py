@@ -12,17 +12,19 @@ Covered so far: the forward wavefront path tracer
 with every BSDF family but IRAWAN, the MASK and BLEND wrappers, textured
 parameters (constant, bitmap with MIP/anisotropic filtering through ray
 differentials, checker, grid, scale, vertexcolors), bump and normal maps,
-triangle-mesh area emitters,
-the constant environment and the lat-long environment map (given as pixels
-or baked from the Hosek-Wilkie sky, ``emitter/hosek.py``), a perspective
-sensor and the box-filter film, on the
+every emitter (area lights on meshes, spheres and disks; point, spot,
+directional, collimated; the sun; the constant environment and the
+lat-long environment map, given as pixels or baked from the Hosek-Wilkie
+or the Preetham sky), every sampler kind (``core/qmc.py``), every sensor
+and every reconstruction filter, with the plugins' keyword factories, on
+the
 Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and on
 large scenes (the two-level cluster hierarchy, ``csrc/hier_traverse.cu``),
 both through hand-written CUDA kernels; its reverse-mode gradients with
 respect to BSDF, texture-atlas and emitter parameters by path replay
 (``torch.utils.checkpoint``) and the inverse-rendering loop
-(``diff/optimize.py``).  Everything else raises ``NotImplementedError``.  Public entry points run on the card unless the
-CPU is asked for.
+(``diff/optimize.py``).  Everything else raises ``NotImplementedError``.
+Public entry points run on the card unless the CPU is asked for.
 """
 
 __version__ = "0.1.0"

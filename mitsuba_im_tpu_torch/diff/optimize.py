@@ -15,7 +15,8 @@ Parameters are substituted into the frozen scene tables with
 ``dataclasses.replace``.  ``render_rays`` traces without ray
 differentials, as the reference's does, so bitmaps are looked up
 unfiltered there and the atlas gradient reaches base-level texels only.
-Samplers other than ``independent`` raise, as ``render_film`` does.
+The sampler is the settings' kind with ``settings.spp`` (the reference's
+``render_rays``; ``render_film`` passes the call's ``spp`` instead).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 from ..core import rng as mrng
 from ..core.types import Float
 from ..integrators.path import PathConfig, path_li_v
-from ..render.job import RenderSettings
+from ..render.job import RenderSettings, sampler_kind
 from ..scene.scene import Scene
 from ..sensor.table import sample_ray_v
 
@@ -72,11 +73,10 @@ def render_rays(scene: Scene, settings: RenderSettings, cfg: PathConfig,
                 pix: torch.Tensor, sample_idx, seed) -> torch.Tensor:
     """Differentiable per-pixel radiance estimate (N, 3) for a batch of
     pixel indices: one sample each, the reference's ``render_rays``."""
-    if settings.sampler != "independent":
-        raise NotImplementedError(
-            f"sampler '{settings.sampler}': only 'independent' is ported")
     W, H = settings.width, settings.height
-    sampler = mrng.make_sampler_v(pix, sample_idx, seed, spp=settings.spp)
+    sampler = mrng.make_sampler_v(pix, sample_idx, seed,
+                                  kind=sampler_kind(settings),
+                                  spp=settings.spp)
     sampler, blk0 = mrng.next_block4_v(sampler)
     px = (pix % W).to(Float) + blk0[0]
     py = (pix // W).to(Float) + blk0[1]

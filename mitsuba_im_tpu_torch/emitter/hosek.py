@@ -19,8 +19,9 @@ integrated against the CIE 1931 fits and taken to linear sRGB with the
 reference's XYZ-to-RGB matrix in float32 (the last bits of that product
 may differ from the JAX package's, whose matrix product XLA computes).
 
-Only the Hosek model with an explicit sun direction is ported: the
-Preetham model, the sun, sunsky and the time ephemeris are not.
+The Preetham sky, the sun and the time ephemeris are in :mod:`.sunsky`;
+the ``sky``, ``sun`` and ``sunsky`` factories of :mod:`..emitter` choose
+between the two skies.
 """
 from __future__ import annotations
 

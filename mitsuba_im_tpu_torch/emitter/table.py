@@ -1,17 +1,22 @@
 """Emitter tables and next-event-estimation sampling
 (``mitsuba_im_tpu/emitter/table.py``): area emitters on triangle meshes,
-the constant environment and the lat-long environment map.
+analytic spheres and disks, point, spot, directional and collimated
+emitters, the constant environment and the lat-long environment map.
 
 Emitter selection follows the reference's Distribution1D (uniform weights
-by default); an area emitter samples a point uniformly by area through its
-triangle CDF and converts to solid angle.  An environment places its point
-``2 r + 1`` away (r: the scene's bounding-sphere radius): the constant one
-samples the uniform sphere, the map (``EM_ENVMAP``, +y up, u = atan2(x,
+by default).  An area emitter samples a point uniformly by area (through
+its triangle CDF on a mesh, the uniform sphere or the concentric disk on
+an analytic shape) and converts to solid angle.  Point and spot lights are
+delta positions (intensity / r^2); the spot's falloff is the reference's
+linear ramp from ``cos_cutoff`` to ``cos_falloff``, not ``spot.cpp``'s
+smooth one.  A directional light (the sun among them) and an environment
+place their point ``2 r + 1`` away (r: the scene's bounding-sphere
+radius).  A collimated beam is never hit by direct sampling and carries no
+light along the path, as in the reference.  The constant environment
+samples the uniform sphere; the map (``EM_ENVMAP``, +y up, u = atan2(x,
 -z) / 2 pi, v = acos(y) / pi in its local frame) importance-samples its
 luminance x sin(theta) through a :class:`Distribution2D` of alias tables,
 and both packages bilinearly interpolate its texels (u wraps, v clamps).
-Point, spot, directional and collimated emitters and analytic area
-emitters are not ported yet and raise.
 
 The map's (u, v) of a direction go through ``atan2`` and ``acos``, whose
 derivatives are 0/0 on the pole axis (and infinite at the poles); there the
@@ -46,19 +51,24 @@ AK_SPHERE = 1
 AK_DISK = 2
 
 INV_FOURPI = 1.0 / (4.0 * math.pi)
-PORTED = (EM_AREA, EM_CONSTANT, EM_ENVMAP)
 ENV_DIST_LEAVES = ("marg_pmf", "cond_pmf", "marg_aprob", "marg_alias",
                    "cond_aprob", "cond_alias")
 
 
 @dataclasses.dataclass(frozen=True)
 class EmitterTable:
-    """The columns that triangle-mesh area emitters and the environment
-    emitters read; the reference's point/spot/directional and
-    analytic-shape columns join with those emitters."""
+    """The reference's emitter columns (its ``shape`` column aside: the
+    scene's ``shape_emitter`` maps shapes to rows)."""
 
     type: torch.Tensor  # (E,) int32 EM_*
     radiance: torch.Tensor  # (E, 3) area / constant radiance, map scale
+    intensity: torch.Tensor  # (E, 3) point/spot intensity, irradiance
+    position: torch.Tensor  # (E, 3)
+    direction: torch.Tensor  # (E, 3) unit
+    cos_cutoff: torch.Tensor  # (E,) spot: cos of the total angle
+    cos_falloff: torch.Tensor  # (E,) spot: cos where the falloff begins
+    area_kind: torch.Tensor  # (E,) int32 AK_*
+    prim: torch.Tensor  # (E,) int32 sphere/disk row of an analytic emitter
     total_area: torch.Tensor  # (E,)
     tri_cdf: torch.Tensor  # (E, Tm+1) per-emitter triangle area CDF
     tri_idx: torch.Tensor  # (E, Tm) global triangle ids
@@ -79,6 +89,7 @@ class EmitterTable:
     env_is_map: bool = False  # that row is EM_ENVMAP (else EM_CONSTANT)
     n_emitters: int = 0
     used_types: tuple = ()
+    used_area_kinds: tuple = ()
 
     @property
     def env_dist(self) -> Distribution2D:
@@ -86,11 +97,23 @@ class EmitterTable:
                                  for k in ENV_DIST_LEAVES})
 
 
-EMITTER_LEAVES = ("type", "radiance", "total_area", "tri_cdf", "tri_idx",
+EMITTER_LEAVES = ("type", "radiance", "intensity", "position", "direction",
+                  "cos_cutoff", "cos_falloff", "area_kind", "prim",
+                  "total_area", "tri_cdf", "tri_idx",
                   "select_pmf", "select_cdf", "env_rows",
                   *("env_" + k for k in ENV_DIST_LEAVES), "env_to_world",
                   "env_to_local", "bsphere_center", "bsphere_radius")
-_INT_LEAVES = ("type", "tri_idx", "env_marg_alias", "env_cond_alias")
+_INT_LEAVES = ("type", "area_kind", "prim", "tri_idx", "env_marg_alias",
+               "env_cond_alias")
+# the per-row columns from the records: (default, numpy dtype)
+_RECORD_COLUMNS = {
+    "type": (EM_POINT, np.int32), "radiance": (np.zeros(3), np.float32),
+    "intensity": (np.zeros(3), np.float32),
+    "position": (np.zeros(3), np.float32),
+    "direction": (np.array([0, 0, 1.0]), np.float32),
+    "cos_cutoff": (-1.0, np.float32), "cos_falloff": (-1.0, np.float32),
+    "area_kind": (AK_TRIMESH, np.int32), "prim": (0, np.int32),
+}
 
 
 class DirectSample3(NamedTuple):
@@ -107,13 +130,7 @@ def table_from_arrays(arrays: dict, n_emitters: int, used_types,
                       used_area_kinds, env_index: int,
                       device) -> EmitterTable:
     """An EmitterTable from numpy columns (used by ``scene/build.py`` and the
-    bridge).  Raises for what the port cannot evaluate yet."""
-    if n_emitters and (not set(used_types) <= set(PORTED)
-                       or not set(used_area_kinds) <= {AK_TRIMESH}):
-        raise NotImplementedError(
-            f"emitter types {tuple(used_types)}, area kinds "
-            f"{tuple(used_area_kinds)}: only triangle-mesh area emitters "
-            "and the constant environment are ported")
+    bridge)."""
     cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                            else np.float32, device)
             for k in EMITTER_LEAVES}
@@ -121,7 +138,8 @@ def table_from_arrays(arrays: dict, n_emitters: int, used_types,
               and int(np.asarray(arrays["type"])[env_index]) == EM_ENVMAP)
     return EmitterTable(**cols, env_index=int(env_index), env_is_map=is_map,
                         n_emitters=int(n_emitters),
-                        used_types=tuple(used_types))
+                        used_types=tuple(used_types),
+                        used_area_kinds=tuple(used_area_kinds))
 
 
 def envmap_record(pixels, scale: float = 1.0, to_world_rot=None,
@@ -209,9 +227,9 @@ def build_emitters(records: list[dict], geom_host: dict, bsphere,
 
     center, radius = bsphere
     arrays = dict(
-        type=np.array([r.get("type", EM_POINT) for r in recs]),
-        radiance=np.stack([np.asarray(r.get("radiance", np.zeros(3)),
-                                      np.float64) for r in recs]),
+        **{k: np.stack([np.asarray(r.get(k, dflt), np.float64)
+                        for r in recs]).astype(dt)
+           for k, (dflt, dt) in _RECORD_COLUMNS.items()},
         total_area=total_area, tri_cdf=tri_cdf, tri_idx=tri_idx,
         select_pmf=pmf.numpy(), select_cdf=cdf.numpy(), env_rows=env_pix,
         **{"env_" + k: a for k, a in env_dist.items()},
@@ -350,9 +368,9 @@ def emitted_radiance_v(em: EmitterTable, shape_emitter_id, n_surf: V3,
               torch.where(valid, rad.z, 0.0))
 
 
-def _sample_area_position_v(em: EmitterTable, geom: Geometry, eid, u2a, u2b,
-                            total_area):
-    """Uniform-by-area point on a triangle-mesh emitter -> (p, n, pdf_a)."""
+def _sample_tri_position_v(em: EmitterTable, geom: Geometry, eid, u2a,
+                           u2b):
+    """Uniform-by-area point on a triangle-mesh emitter -> (p, n)."""
     Tm = em.tri_idx.shape[1]
     u0 = u2a
     # index = #{k >= 1 : cdf[k] <= u0}, the reference's compare count:
@@ -374,8 +392,40 @@ def _sample_area_position_v(em: EmitterTable, geom: Geometry, eid, u2a, u2b,
     p0 = v.gather_v3(geom.tri_p0, tri)
     e1 = v.gather_v3(geom.tri_e1, tri)
     e2 = v.gather_v3(geom.tri_e2, tri)
-    p = p0 + e1 * b0 + e2 * b1
-    n = e1.cross(e2).normalized()
+    return p0 + e1 * b0 + e2 * b1, e1.cross(e2).normalized()
+
+
+def _sample_area_position_v(em: EmitterTable, geom: Geometry, eid, u2a, u2b,
+                            total_area):
+    """Uniform-by-area point on an area emitter of any kind the table uses
+    -> (p, n, pdf_area)."""
+    shape, dev = u2a.shape, u2a.device
+    p, n = v.zeros(shape, dev), v.zeros(shape, dev)
+    kinds = em.used_area_kinds or (AK_TRIMESH,)
+    kind = v.gather_row(em.area_kind, eid) if len(kinds) > 1 else None
+    prim = v.gather_row(em.prim, eid)
+
+    def put(k, pk, nk):
+        if kind is None:
+            return pk, nk
+        sel = kind == k
+        return v.where(sel, pk, p), v.where(sel, nk, n)
+
+    if AK_TRIMESH in kinds:
+        p, n = put(AK_TRIMESH, *_sample_tri_position_v(em, geom, eid, u2a,
+                                                       u2b))
+    if AK_SPHERE in kinds:
+        dir_s = v.square_to_uniform_sphere(u2a, u2b)
+        p_sph = (v.gather_v3(geom.sph_center, prim)
+                 + dir_s * v.gather_row(geom.sph_radius, prim))
+        p, n = put(AK_SPHERE, p_sph, dir_s)
+    if AK_DISK in kinds:
+        px, py = v.square_to_uniform_disk_concentric(u2a, u2b)
+        dr = v.gather_row(geom.disk_radius, prim)
+        p_disk = (v.gather_v3(geom.disk_center, prim)
+                  + v.gather_v3(geom.disk_s, prim) * (px * dr)
+                  + v.gather_v3(geom.disk_t, prim) * (py * dr))
+        p, n = put(AK_DISK, p_disk, v.gather_v3(geom.disk_n, prim))
     return p, n, 1.0 / torch.clamp_min(total_area, 1e-12)
 
 
@@ -406,9 +456,12 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
     d, value, n_out = v.zeros(shape, dev), v.zeros(shape, dev), v.zeros(
         shape, dev)
     dist = torch.ones(shape, dtype=Float, device=dev)
-    pdf = z
+    pdf, delta = z, no
+    far = (2.0 * em.bsphere_radius + 1.0).expand(shape)
+    ones = torch.ones(shape, dtype=Float, device=dev)
     for t in em.used_types:
         sel = etype == t
+        is_delta = False
         if t == EM_AREA:
             p_s, n_s, pos_pdf_a = _sample_area_position_v(
                 em, geom, eid, u2a, u2b, v.gather_row(em.total_area, eid))
@@ -422,22 +475,43 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
             val = v.where(front, radiance, v.zeros(shape, dev))
             pdf_t = torch.where(front, pdf_sa, 0.0)
             n_t = n_s
-        else:
+        elif t in (EM_POINT, EM_SPOT):
+            dvec = v.gather_v3(em.position, eid) - ref_p
+            r2 = torch.clamp_min(dvec.dot(dvec), 1e-12)
+            r = torch.sqrt(r2)
+            du = dvec * (1.0 / r)
+            val = v.gather_v3(em.intensity, eid) * (1.0 / r2)
+            if t == EM_SPOT:
+                cd = (-du).dot(v.gather_v3(em.direction, eid))
+                cc = v.gather_row(em.cos_cutoff, eid)
+                cf = v.gather_row(em.cos_falloff, eid)
+                fall = torch.clamp((cd - cc) / torch.clamp_min(cf - cc, 1e-6),
+                                   0.0, 1.0)
+                val = val * torch.where(cd > cc, fall, 0.0)
+            pdf_t, n_t, is_delta = ones, -du, True
+        elif t == EM_DIRECTIONAL:
+            du = -v.gather_v3(em.direction, eid)
+            val = v.gather_v3(em.intensity, eid)
+            r, pdf_t, n_t, is_delta = far, ones, -du, True
+        elif t in (EM_CONSTANT, EM_ENVMAP):
             if t == EM_CONSTANT:
                 du = v.square_to_uniform_sphere(u2a, u2b)
                 val = radiance
                 pdf_t = torch.full(shape, INV_FOURPI, dtype=Float, device=dev)
-            else:  # EM_ENVMAP
+            else:
                 uu, vv, pdf_uv = em.env_dist.sample_continuous(u2a, u2b)
                 du = _env_dir_from_uv_v(em, uu, vv)
                 pdf_t = _env_pdf_sa(pdf_uv, vv)
                 val = _env_lookup_v(em, uu, vv, radiance)
-            r = (2.0 * em.bsphere_radius + 1.0).expand(shape)
-            n_t = -du
+            r, n_t = far, -du
+        else:  # EM_COLLIMATED: a measure-zero beam, never sampled
+            continue
         d = v.where(sel, du, d)
         dist = torch.where(sel, r, dist)
         value = v.where(sel, val, value)
         pdf = torch.where(sel, pdf_t, pdf)
+        if is_delta:
+            delta = delta | sel
         n_out = v.where(sel, n_t, n_out)
     return DirectSample3(d=d, dist=dist, value=value, pdf=pdf * sel_pmf,
-                         delta=no, n=n_out, emitter=eid)
+                         delta=delta, n=n_out, emitter=eid)

@@ -4,7 +4,10 @@
 The whole image is one flat wavefront; each pass takes one sample per
 pixel (``_render_pass``, the reference's job.py:88-121), with the primary
 rays' differentials when the scene's textures have MIP pyramids, and
-splats it into the film in place.  Other integrators and samplers raise.
+splats it into the film in place, through the settings' reconstruction
+filter (the Gaussian of radius 2 by default, as the reference's).  Every
+sampler kind draws the pass; its stratification reads the call's ``spp``,
+as the reference's ``render_film`` passes it.  Other integrators raise.
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ import torch
 from ..core.types import Float
 from ..core import rng as mrng
 from ..core.v3 import V3
-from ..film.film import F_BOX, Film, make_film, splat
+from ..film.film import F_GAUSSIAN, Film, make_film, splat
 from ..integrators.path import PathConfig, path_li_v
 from .raydiff import camera_ray_differentials
 from ..sensor.table import sample_ray_v
+from ..sampler import KIND_BY_NAME
 from ..scene.scene import Scene
 
 
@@ -31,7 +35,7 @@ class RenderSettings:
     seed: int = 0
     integrator: str = "path"
     integrator_props: dict = dataclasses.field(default_factory=dict)
-    rfilter: int = F_BOX
+    rfilter: int = F_GAUSSIAN
     rfilter_radius: float | None = None
 
 
@@ -50,12 +54,19 @@ def path_config(settings: RenderSettings) -> PathConfig:
     )
 
 
+def sampler_kind(settings: RenderSettings) -> int:
+    """The sampler kind of the settings' sampler name (the reference's
+    ``KIND_BY_NAME.get(settings.sampler, INDEPENDENT)``)."""
+    return KIND_BY_NAME.get(settings.sampler, mrng.INDEPENDENT)
+
+
 def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
-                cfg: PathConfig) -> Film:
-    """One sample-per-pixel pass over the full image, splatted into film."""
+                cfg: PathConfig, kind: int, spp: int) -> Film:
+    """One sample-per-pixel pass over the full image, splatted into film;
+    ``kind`` and ``spp`` set the sampler."""
     W, H = film.width, film.height
     pix = torch.arange(W * H, dtype=torch.int64, device=scene.device)
-    sampler = mrng.make_sampler_v(pix, sample_idx, seed)
+    sampler = mrng.make_sampler_v(pix, sample_idx, seed, kind=kind, spp=spp)
     sampler, blk0 = mrng.next_block4_v(sampler)
     px = (pix % W).to(Float) + blk0[0]
     py = (pix // W).to(Float) + blk0[1]
@@ -78,9 +89,7 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
     """Render ``spp`` passes into a (new or given) film.  Forward only, as
     the reference's ``render``: the passes run under ``torch.no_grad``."""
     spp = spp if spp is not None else settings.spp
-    if settings.sampler != "independent":
-        raise NotImplementedError(
-            f"sampler '{settings.sampler}': only 'independent' is ported")
+    kind = sampler_kind(settings)
     cfg = path_config(settings)
     if film is None:
         film = make_film(settings.width, settings.height, settings.rfilter,
@@ -88,5 +97,5 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
     with torch.no_grad():
         for s in range(spp):
             film = render_pass(scene, film, sample_offset + s, settings.seed,
-                               cfg)
+                               cfg, kind, spp)
     return film

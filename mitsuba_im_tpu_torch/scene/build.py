@@ -2,9 +2,9 @@
 torch on a given device.
 
 The subset the ported path needs: BSDF and texture records (the
-vertexcolors bake included), shapes, triangle meshes, area, constant and
-environment-map emitters, a sensor, and the two-level cluster hierarchy of
-scenes above ``BRUTE_FORCE_MAX`` triangles (analytic shapes, media,
+vertexcolors bake included), shapes, triangle meshes, analytic spheres and
+disks, emitter records of every type, a sensor, and the two-level cluster
+hierarchy of scenes above ``BRUTE_FORCE_MAX`` triangles (media,
 subsurface, motion and instancing are not ported).  The host arithmetic
 (float64 numpy, then one cast to float32) is the reference's, so a scene
 built here has the same tables bit for bit as the same scene built by the
@@ -31,6 +31,8 @@ from .geometry import make_geometry
 from .scene import Scene
 
 _TRI_KEYS = ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "shape")
+_SPH_KEYS = ("center", "radius", "shape")
+_DISK_KEYS = ("center", "n", "s", "t", "radius", "shape")
 
 
 class SceneBuilder:
@@ -40,6 +42,8 @@ class SceneBuilder:
         self.pending_vertexcolors: list[int] = []  # awaiting a mesh's bake
         self.emitter_records: list[dict] = []
         self._tri: dict[str, list] = {k: [] for k in _TRI_KEYS}
+        self._sph: dict[str, list] = {k: [] for k in _SPH_KEYS}
+        self._disk: dict[str, list] = {k: [] for k in _DISK_KEYS}
         self.shape_bsdf: list[int] = []
         self.shape_emitter: list[int] = []
         self.sensor: Sensor | None = None
@@ -86,6 +90,26 @@ class SceneBuilder:
                                     np.full(len(idx), shape_id, np.int32))):
             self._tri[k].append(a)
 
+    def add_sphere(self, center, radius: float, shape_id: int) -> int:
+        """An analytic sphere; returns its row."""
+        s = self._sph
+        s["center"].append(np.asarray(center, np.float64).reshape(3))
+        s["radius"].append(np.float64(radius))
+        s["shape"].append(np.int32(shape_id))
+        return len(s["radius"]) - 1
+
+    def add_disk(self, center, n, s_axis, t_axis, radius: float,
+                 shape_id: int) -> int:
+        """An analytic disk of normal ``n`` and in-plane frame (``s_axis``,
+        ``t_axis``); returns its row."""
+        d = self._disk
+        for k, a in zip(("center", "n", "s", "t"),
+                        (center, n, s_axis, t_axis)):
+            d[k].append(np.asarray(a, np.float64).reshape(3))
+        d["radius"].append(np.float64(radius))
+        d["shape"].append(np.int32(shape_id))
+        return len(d["radius"]) - 1
+
     def add_emitter(self, record: dict) -> int:
         self.emitter_records.append(record)
         return len(self.emitter_records) - 1
@@ -96,7 +120,11 @@ class SceneBuilder:
         tri = None
         if self._tri["p0"]:
             tri = {k: np.concatenate(a, axis=0) for k, a in self._tri.items()}
-        geom = make_geometry(tri, device=device)
+        sph = ({k: np.stack(a) for k, a in self._sph.items()}
+               if self._sph["center"] else None)
+        disk = ({k: np.stack(a) for k, a in self._disk.items()}
+                if self._disk["center"] else None)
+        geom = make_geometry(tri, sph, disk, device=device)
         clusters = None
         if geom.n_tris > BRUTE_FORCE_MAX:
             clusters = build_hierarchy(
@@ -104,7 +132,8 @@ class SceneBuilder:
                 device=device)
         emitters = em.build_emitters(self.emitter_records,
                                      tri if tri is not None else {},
-                                     bounding_sphere(tri), device=device)
+                                     bounding_sphere(tri, sph, disk),
+                                     device=device)
         sensor = self.sensor or make_sensor(
             S_PERSPECTIVE, Transform.look_at([0, 0, -5], [0, 0, 0], [0, 1, 0]),
             aspect=self.settings.width / max(self.settings.height, 1),
@@ -128,14 +157,22 @@ class SceneBuilder:
         return scene, self.settings
 
 
-def bounding_sphere(tri: dict | None):
-    """(center, radius) of the scene's bounding sphere, for environment
-    emitters: the reference's host arithmetic (``scene/build.py:384-399``)
-    over the triangle corners (the port's builder adds no other shapes)."""
-    if tri is None:
+def bounding_sphere(tri: dict | None, sph: dict | None = None,
+                    disk: dict | None = None):
+    """(center, radius) of the scene's bounding sphere, for environment and
+    directional emitters: the reference's host arithmetic
+    (``scene/build.py:384-399``) over the triangle corners and the spheres'
+    and disks' centres plus and minus their radii."""
+    pts = []
+    if tri is not None:
+        pts += [tri["p0"], tri["p0"] + tri["e1"], tri["p0"] + tri["e2"]]
+    for prims in (sph, disk):
+        if prims is not None:
+            pts += [prims["center"] - prims["radius"][:, None],
+                    prims["center"] + prims["radius"][:, None]]
+    if not pts:
         return np.zeros(3), 1.0
-    allp = np.concatenate([tri["p0"], tri["p0"] + tri["e1"],
-                           tri["p0"] + tri["e2"]], axis=0)
+    allp = np.concatenate(pts, axis=0)
     c = 0.5 * (allp.min(0) + allp.max(0))
     r = float(np.linalg.norm(allp - c, axis=1).max()) + 1e-3
     return c, r

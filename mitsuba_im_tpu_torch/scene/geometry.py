@@ -95,11 +95,12 @@ def pack_shading_rows(e1, e2, n0, n1, n2, uv0, uv1, uv2) -> np.ndarray:
     return np.concatenate([e1, e2, n0, n1, n2, uv0, uv1, uv2, pad], axis=1)
 
 
-def make_geometry(tri_data: dict | None, device) -> Geometry:
-    """Build a Geometry from a host numpy triangle dict (keys p0 e1 e2 n0
-    n1 n2 uv0 uv1 uv2 shape).  Every kind is padded to one unhittable entry
-    when empty, as in the reference; ``scene/build.py`` adds no spheres or
-    disks (the bridge carries the reference's)."""
+def make_geometry(tri_data: dict | None, spheres: dict | None = None,
+                  disks: dict | None = None, *, device) -> Geometry:
+    """Build a Geometry from host numpy dicts: triangles (keys p0 e1 e2 n0
+    n1 n2 uv0 uv1 uv2 shape), spheres (center radius shape) and disks
+    (center n s t radius shape).  Every kind is padded to one unhittable
+    entry when empty, as in the reference."""
     if tri_data is None or len(tri_data.get("p0", ())) == 0:
         far = 3.0e37
         z = np.zeros((1, 3), np.float32)
@@ -110,15 +111,23 @@ def make_geometry(tri_data: dict | None, device) -> Geometry:
         n_tris = 0
     else:
         n_tris = len(tri_data["p0"])
-    spheres = dict(center=np.full((1, 3), 3.0e37, np.float32),
-                   radius=np.zeros(1, np.float32),
-                   shape=np.full(1, INVALID, np.int32))
-    disks = dict(center=np.full((1, 3), 3.0e37, np.float32),
-                 n=np.array([[0, 0, 1]], np.float32),
-                 s=np.array([[1, 0, 0]], np.float32),
-                 t=np.array([[0, 1, 0]], np.float32),
-                 radius=np.zeros(1, np.float32),
-                 shape=np.full(1, INVALID, np.int32))
+    if spheres is None or len(spheres.get("center", ())) == 0:
+        spheres = dict(center=np.full((1, 3), 3.0e37, np.float32),
+                       radius=np.zeros(1, np.float32),
+                       shape=np.full(1, INVALID, np.int32))
+        n_spheres = 0
+    else:
+        n_spheres = len(spheres["center"])
+    if disks is None or len(disks.get("center", ())) == 0:
+        disks = dict(center=np.full((1, 3), 3.0e37, np.float32),
+                     n=np.array([[0, 0, 1]], np.float32),
+                     s=np.array([[1, 0, 0]], np.float32),
+                     t=np.array([[0, 1, 0]], np.float32),
+                     radius=np.zeros(1, np.float32),
+                     shape=np.full(1, INVALID, np.int32))
+        n_disks = 0
+    else:
+        n_disks = len(disks["center"])
 
     def f(x):
         return host_tensor(x, np.float32, device)
@@ -138,7 +147,7 @@ def make_geometry(tri_data: dict | None, device) -> Geometry:
         disk_s=f(disks["s"]), disk_t=f(disks["t"]),
         disk_radius=f(disks["radius"]), disk_shape=i(disks["shape"]),
         tri_shad=f(shad),
-        n_tris=n_tris,
+        n_tris=n_tris, n_spheres=n_spheres, n_disks=n_disks,
     )
 
 

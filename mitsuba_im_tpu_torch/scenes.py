@@ -6,12 +6,16 @@ import numpy as np
 from .bsdf import common as bc
 from .core.transform import Transform
 from .core.types import entry_device
+from . import emitter as emf
+from . import film as filmf
+from . import sampler as smp
 from .emitter import hosek
 from .emitter import table as et
 from .film.film import F_BOX
+from .scene import shapes
 from .scene.build import SceneBuilder
 from .scene.mesh import TriMesh
-from .sensor.table import make_sensor, S_PERSPECTIVE
+from .sensor.table import make_sensor, S_PERSPECTIVE, S_THINLENS
 from . import texture as tex
 
 
@@ -51,26 +55,29 @@ def _quad(pts, normal, uvs: bool = False, flip: bool = False) -> TriMesh:
     return m
 
 
-def _cornell_light(b, uvs: bool = False):
-    """The small warm area light (emitter 0) under the ceiling."""
+def _cornell_light(b, uvs: bool = False, emit: bool = True):
+    """The small warm area light under the ceiling (a quad that does not
+    emit without ``emit``)."""
     lsid = b.new_shape(b.add_bsdf(bc.default_record()))
     b.add_trimesh(_quad(_CORNELL_LIGHT, [0, -1, 0], uvs), lsid)
-    b.add_emitter(dict(type=et.EM_AREA, radiance=np.array([17.0, 12.0, 4.0]),
-                       shape=lsid))
-    b.shape_emitter[lsid] = 0
+    if emit:
+        b.shape_emitter[lsid] = b.add_emitter(dict(
+            type=et.EM_AREA, radiance=np.array([17.0, 12.0, 4.0]),
+            shape=lsid))
 
 
-def _cornell_box(b):
+def _cornell_box(b, light: bool = True):
     """The walls and the light of ``__graft_entry__._tiny_cornell`` into the
     builder ``b``: white floor, ceiling and back wall, red left and green
-    right wall, a small warm area light (emitter 0) under the ceiling."""
+    right wall, a small warm area light (emitter 0; a quad that does not
+    emit without ``light``) under the ceiling."""
     white = bc.default_record(); white["refl"] = np.full(3, 0.72)
     red = bc.default_record(); red["refl"] = np.array([0.63, 0.065, 0.05])
     green = bc.default_record(); green["refl"] = np.array([0.14, 0.45, 0.09])
     wid, rid, gid = b.add_bsdf(white), b.add_bsdf(red), b.add_bsdf(green)
     for (pts, n), bid in zip(_CORNELL_WALLS, (wid, wid, wid, rid, gid)):
         b.add_trimesh(_quad(pts, n), b.new_shape(bid))
-    _cornell_light(b)
+    _cornell_light(b, emit=light)
 
 
 def _cornell_sensor(b):
@@ -335,6 +342,68 @@ def material_cornell(device="cuda"):
     return b.build(device)
 
 
+# the lights of lights_cornell, by name, in the order they are added
+LIGHTS = ("triangle", "sphere", "disk", "point", "spot", "collimated")
+# its thin lens: the Cornell pinhole's place and field of view, focused on
+# the box's centre
+LIGHTS_LENS = dict(aperture_radius=0.05,
+                   focus_distance=float(np.linalg.norm(
+                       np.subtract(CORNELL_CAMERA["origin"],
+                                   CORNELL_CAMERA["target"]))))
+
+
+def fill_lights_cornell(b, lights=LIGHTS):
+    """The content of :func:`lights_cornell` into the builder ``b`` (the
+    JAX package's too): the Cornell box with an analytic sphere and a disk
+    in it; of ``lights``, only the named ones emit (the shapes stay)."""
+    _cornell_box(b, light="triangle" in lights)
+    white = b.add_bsdf(bc.diffuse_record(0.72))
+    shapes.sphere(b, white, center=(-0.45, 0.3, 0.25), radius=0.18,
+                  emitter=(emf.area([2.0, 4.0, 9.0]) if "sphere" in lights
+                           else None))
+    shapes.disk(b, white, to_world=(Transform.translate([0.45, 1.55, -0.35])
+                                    @ Transform.rotate([1, 0, 0], 90.0)
+                                    @ Transform.scale(0.16)),
+                emitter=(emf.area([9.0, 6.0, 2.0]) if "disk" in lights
+                         else None))
+    if "point" in lights:
+        b.add_emitter(emf.point([1.2, 1.2, 1.0], position=[0.55, 0.9, 0.5]))
+    if "spot" in lights:
+        b.add_emitter(emf.spot([6.0, 3.0, 3.0], cutoff_angle=25.0,
+                               to_world=Transform.look_at(
+                                   [-0.6, 1.8, -0.5], [-0.2, 0.0, 0.3],
+                                   [0, 1, 0])))
+    if "collimated" in lights:
+        b.add_emitter(emf.collimated([5.0, 5.0, 5.0], to_world=(
+            Transform.look_at([0.1, 1.8, 0.6], [0.1, 0.0, 0.4], [0, 0, 1]))))
+
+
+def lights_cornell(device="cuda", lights=LIGHTS):
+    """The Cornell box (``_tiny_cornell``'s 12 triangles and its triangle
+    area light) with an analytic sphere area light (radius 0.18, bluish)
+    on the floor and a disk area light (radius 0.16, warm) facing down
+    under the ceiling, a point light, a spot light aimed at the floor
+    (cutoff 25 degrees) and a collimated beam; of ``lights`` (names in
+    ``LIGHTS``) only the named ones emit.  Seen through a thin lens at the
+    Cornell pinhole's place (aperture radius 0.05, focused on the box's
+    centre).  ``bench.py``'s forward configuration with hdrfilm's
+    defaults: 1024^2, depth 5, 4 spp of ``ldsampler``, the Gaussian filter
+    of radius 2.  12 triangles: the brute-force kernels.  Returns (Scene,
+    settings) on ``device``, the card unless the CPU is asked for."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_lights_cornell(b, lights)
+    c = CORNELL_CAMERA
+    b.sensor = make_sensor(
+        S_THINLENS, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], **LIGHTS_LENS, device="cpu")
+    filmf.hdrfilm(b.settings, 1024, 1024, rfilter=filmf.gaussian())
+    smp.ldsampler(sample_count=4, settings=b.settings)
+    b.settings.integrator = "path"
+    b.settings.integrator_props = dict(max_depth=5)
+    return b.build(device)
+
+
 def displaced_sphere(n_tris_target: int):
     """(positions, indices) of the large scene's procedural mesh: a UV
     sphere of radius 0.08 with radial noise, 2 (n - 1) n triangles for
@@ -364,26 +433,15 @@ def _sphere_corner_uvs(idx: np.ndarray, n: int) -> np.ndarray:
     return np.stack([j / n, i / (n - 1.0)], -1)
 
 
-def large_scene(device="cuda", res: int = 768,
-                n_tris_target: int = 1_120_000, env="constant",
-                texture: bool = False):
-    """The large-scene configuration of ``bench.py``'s third metric
-    (``bench_scenes.build_large_scene`` without the reference's bunny and
-    envmap files): the displaced sphere (1,120,504 triangles at the
-    default target) with smooth vertex normals, a GGX rough copper
-    conductor of alpha 0.2, a 40-degree pinhole at (0, 0.05, 0.3) looking
-    at the origin, the box filter, 1 spp and path depth 3.  The
-    environment is ``env``: ``"constant"`` (unit radiance) or ``"sky"`` (a
-    Hosek sky in place of the bench's envmap file: resolution 512,
-    turbidity 3, albedo 0.15, the sun of ``SUN_DIR``).  With ``texture``
-    the mesh gets spherical per-corner uvs and a seeded 2048^2 rgb noise
-    bitmap with its MIP pyramid (tiled 2 x 1) on the conductor's specular
-    reflectance (a conductor does not read ``refl``), so the hierarchy's
-    path reads uvs from the packed shading rows and filters the bitmap.
-    Returns (Scene, settings) on ``device``, the card unless the CPU is
-    asked for; the scene carries its cluster hierarchy."""
-    device = entry_device(device)
-    b = SceneBuilder()
+ENVS = ("constant", "sky", "sunsky")
+
+
+def fill_large_scene(b, n_tris_target: int = 1_120_000, env="constant",
+                     texture: bool = False):
+    """The content of :func:`large_scene` (mesh, material, emitters) into
+    the builder ``b`` (the JAX package's too, without ``texture``)."""
+    if env not in ENVS:
+        raise ValueError(f"env {env!r}: one of {ENVS}")
     pos, idx = displaced_sphere(n_tris_target)
     mesh = TriMesh(pos, idx).compute_normals()
     rec = bc.conductor_record(rough=True, alpha=0.2, distribution="ggx")
@@ -397,19 +455,54 @@ def large_scene(device="cuda", res: int = 768,
     bid = b.add_bsdf(rec)
     b.add_trimesh(mesh, b.new_shape(bid), corner_uvs=corner_uvs)
     if env == "constant":
-        b.add_emitter(dict(type=et.EM_CONSTANT, radiance=np.ones(3),
-                           weight=1.0))
+        b.add_emitter(emf.constant(1.0))
     elif env == "sky":
         b.add_emitter(hosek.sky_record(SUN_DIR, resolution=512))
     else:
-        raise ValueError(f"env {env!r}: 'constant' or 'sky'")
+        for rec in emf.sunsky(sky_model="preetham", resolution=512,
+                              turbidity=3.0):
+            b.add_emitter(rec)
+
+
+# the large scene's pinhole (look_at origin, target, up; fov)
+LARGE_CAMERA = dict(origin=[0.0, 0.05, 0.3], target=[0, 0, 0], up=[0, 1, 0],
+                    fov_deg=40.0)
+
+
+def large_scene(device="cuda", res: int = 768,
+                n_tris_target: int = 1_120_000, env="constant",
+                texture: bool = False):
+    """The large-scene configuration of ``bench.py``'s third metric
+    (``bench_scenes.build_large_scene`` without the reference's bunny and
+    envmap files): the displaced sphere (1,120,504 triangles at the
+    default target) with smooth vertex normals, a GGX rough copper
+    conductor of alpha 0.2, a 40-degree pinhole at (0, 0.05, 0.3) looking
+    at the origin, the box filter, 1 spp and path depth 3.  The
+    environment is ``env``: ``"constant"`` (unit radiance), ``"sky"`` (a
+    Hosek sky in place of the bench's envmap file: resolution 512,
+    turbidity 3, albedo 0.15, the sun of ``SUN_DIR``) or ``"sunsky"`` (a
+    Preetham sky of resolution 512 and turbidity 3 and the sun, a
+    directional delta light, both at the ephemeris's default date and
+    place; 2 spp of the ``sobol`` sampler and the Mitchell filter).  With
+    ``texture`` the mesh gets spherical per-corner uvs and a seeded 2048^2
+    rgb noise bitmap with its MIP pyramid (tiled 2 x 1) on the conductor's
+    specular reflectance (a conductor does not read ``refl``), so the
+    hierarchy's path reads uvs from the packed shading rows and filters
+    the bitmap.  Returns (Scene, settings) on ``device``, the card unless
+    the CPU is asked for; the scene carries its cluster hierarchy."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_large_scene(b, n_tris_target, env, texture)
+    c = LARGE_CAMERA
     b.sensor = make_sensor(  # a host copy; build() moves it to device
-        S_PERSPECTIVE,
-        Transform.look_at([0.0, 0.05, 0.3], [0, 0, 0], [0, 1, 0]),
-        fov_deg=40.0, device="cpu")
+        S_PERSPECTIVE, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], device="cpu")
     b.settings.width = b.settings.height = res
     b.settings.spp = 1
     b.settings.rfilter = F_BOX
+    if env == "sunsky":
+        filmf.hdrfilm(b.settings, res, res, rfilter=filmf.mitchell())
+        smp.sobol(sample_count=2, settings=b.settings)
     b.settings.integrator = "path"
     b.settings.integrator_props = dict(max_depth=3)
     return b.build(device)

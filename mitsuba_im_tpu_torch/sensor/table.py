@@ -1,8 +1,10 @@
-"""Sensors (``mitsuba_im_tpu/sensor/table.py``): perspective only.
+"""Sensors (``mitsuba_im_tpu/sensor/table.py``): perspective, thinlens,
+orthographic, telecentric, spherical, radiancemeter and irradiancemeter.
 
 A sensor is a dataclass of float32 tensors plus a static type;
-:func:`sample_ray_v` maps film-plane uv in [0,1)^2 to world-space primary
-rays over the flat wavefront.  Other sensor types raise.
+:func:`sample_ray_v` maps film-plane uv in [0,1)^2 (and an aperture
+sample) to world-space primary rays over the flat wavefront.  Light-tracing
+connections (``connect``) come with the particle tracer.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from ..core.types import Float, host_tensor
 from ..core import v3 as v
-from ..core.v3 import V3
+from ..core.v3 import V3, PI
 from ..core.transform import Transform
 
 S_PERSPECTIVE = 0
@@ -28,16 +30,30 @@ S_IRRADIANCEMETER = 6
 @dataclasses.dataclass(frozen=True)
 class Sensor:
     to_world: torch.Tensor  # (4, 4) camera -> world
+    to_camera: torch.Tensor  # (4, 4) world -> camera
     tan_x: torch.Tensor  # () tan(fov_x / 2)
     tan_y: torch.Tensor  # ()
+    near: torch.Tensor
+    far: torch.Tensor
+    aperture_radius: torch.Tensor
+    focus_distance: torch.Tensor
+    scale_x: torch.Tensor  # orthographic half-extents
+    scale_y: torch.Tensor
+    shutter_open: torch.Tensor
+    shutter_time: torch.Tensor
     type: int = S_PERSPECTIVE
 
 
-SENSOR_LEAVES = ("to_world", "tan_x", "tan_y")
+SENSOR_LEAVES = tuple(f.name for f in dataclasses.fields(Sensor)
+                      if f.name != "type")
 
 
 def make_sensor(stype: int, to_world: Transform, fov_deg: float = 45.0,
                 fov_axis: str = "x", aspect: float = 1.0,
+                near: float = 1e-2, far: float = 1e4,
+                aperture_radius: float = 0.0, focus_distance: float = 1.0,
+                scale_x: float = 1.0, scale_y: float = 1.0,
+                shutter_open: float = 0.0, shutter_time: float = 0.0,
                 *, device) -> Sensor:
     """aspect = width/height of the crop window."""
     t = np.tan(np.deg2rad(fov_deg) / 2.0)
@@ -51,24 +67,61 @@ def make_sensor(stype: int, to_world: Transform, fov_deg: float = 45.0,
     else:  # diagonal
         d = np.hypot(aspect, 1.0)
         tan_x, tan_y = t * aspect / d, t / d
-    return Sensor(to_world=host_tensor(to_world.m, np.float32, device),
-                  tan_x=host_tensor(tan_x, np.float32, device),
-                  tan_y=host_tensor(tan_y, np.float32, device), type=stype)
+    vals = dict(to_world=to_world.m, to_camera=to_world.inv, tan_x=tan_x,
+                tan_y=tan_y, near=near, far=far,
+                aperture_radius=aperture_radius,
+                focus_distance=focus_distance, scale_x=scale_x,
+                scale_y=scale_y, shutter_open=shutter_open,
+                shutter_time=shutter_time)
+    return Sensor(**{k: host_tensor(vals[k], np.float32, device)
+                     for k in SENSOR_LEAVES}, type=stype)
+
+
+def _lens(sensor: Sensor, u_lens_a, u_lens_b):
+    """Aperture offset on the lens disk (concentric map times the radius)."""
+    px, py = v.square_to_uniform_disk_concentric(u_lens_a, u_lens_b)
+    return px * sensor.aperture_radius, py * sensor.aperture_radius
 
 
 def sample_ray_v(sensor: Sensor, uv_u, uv_v, u_lens_a, u_lens_b):
     """Flat (N,) film/aperture coordinates -> (o: V3, d: V3, weight).
 
     Film-to-camera mapping of the reference perspective.cpp: u=0 maps to
-    camera +x (the lookAt "left" vector), v=0 to camera +y.  The pinhole
-    ignores the aperture sample."""
-    if sensor.type != S_PERSPECTIVE:
-        raise NotImplementedError(
-            f"sensor type {sensor.type}: only the perspective sensor is ported")
+    camera +x (the lookAt "left" vector), v=0 to camera +y.  The pinhole,
+    spherical and meter sensors ignore the aperture sample; the weight is 1
+    for every sensor, as in the reference."""
     x = (1.0 - 2.0 * uv_u) * sensor.tan_x
     y = (1.0 - 2.0 * uv_v) * sensor.tan_y
-    d_cam = V3(x, y, torch.ones_like(x)).normalized()
+    zeros = torch.zeros_like(x)
+    ones = torch.ones_like(x)
     o_cam = v.zeros(x.shape, x.device)
+
+    if sensor.type == S_PERSPECTIVE:
+        d_cam = V3(x, y, ones).normalized()
+    elif sensor.type == S_THINLENS:
+        fd = sensor.focus_distance
+        p_focus = V3(x * fd, y * fd, fd.expand(x.shape))
+        ax, ay = _lens(sensor, u_lens_a, u_lens_b)
+        o_cam = V3(ax, ay, zeros)
+        d_cam = (p_focus - o_cam).normalized()
+    elif sensor.type in (S_ORTHOGRAPHIC, S_TELECENTRIC):
+        o_cam = V3((1.0 - 2.0 * uv_u) * sensor.scale_x,
+                   (1.0 - 2.0 * uv_v) * sensor.scale_y, zeros)
+        if sensor.type == S_TELECENTRIC:
+            ax, ay = _lens(sensor, u_lens_a, u_lens_b)
+            o_cam = o_cam + V3(ax, ay, zeros)
+        d_cam = V3(zeros, zeros, ones)
+    elif sensor.type == S_SPHERICAL:
+        phi = (1.0 - 2.0 * uv_u) * PI
+        theta = uv_v * PI
+        st, ct = torch.sin(theta), torch.cos(theta)
+        d_cam = V3(st * torch.sin(phi), ct, -st * torch.cos(phi))
+    elif sensor.type == S_IRRADIANCEMETER:
+        d_cam = v.square_to_cosine_hemisphere(uv_u, uv_v)
+    elif sensor.type == S_RADIANCEMETER:
+        d_cam = V3(zeros, zeros, ones)
+    else:
+        raise ValueError(f"unknown sensor type {sensor.type}")
 
     tw = sensor.to_world
     o = V3(

@@ -4,14 +4,22 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 profile_pass.py [--scene large|cornell|textured] [--grad]
-                            [--passes N] [--root DIR]
+    python3 profile_pass.py [--scene large|cornell|textured|lights]
+                            [--grad] [--per-lane-index] [--passes N]
+                            [--root DIR]
 
 ``--scene large`` (the default) builds ``scenes.large_scene`` (1,120,504
 triangles, 768^2, depth 3), ``--scene cornell`` the Cornell box of the
 main path (``scenes.tiny_cornell``, 12 triangles) at 1024^2, depth 5,
 ``--scene textured`` ``scenes.textured_cornell`` (1024^2, depth 5, ray
-differentials on).
+differentials on), ``--scene lights`` ``scenes.lights_cornell`` (1024^2,
+depth 5, 4 spp of ldsampler, the Gaussian filter, a thin lens).
+``--per-lane-index`` makes every sampler compute the words that depend on
+the sample index alone per lane, as it does when the lanes do not share
+one, in place of the host's once-per-pass words; with ``--scene lights``
+the record also holds one ldsampler block at 2^20 lanes (device
+operations, device ms), so two runs with and without the option compare
+both paths.
 Imports ``mitsuba_im_tpu_torch`` from DIR (default: this script's
 directory), so that two checkouts are profiled by the same code (see
 bench_pass.py).  Renders one warm-up pass, then ``--passes`` passes under
@@ -25,7 +33,8 @@ device intervals over the span from the first device start to the last
 device end).  The profiler slows the host's enqueue, so the idle share
 under it is an upper bound of the unprofiled pass's; the device times are
 not slowed.  When the profiler records no device activity every number is
-printed as "not measured". ``--grad`` profiles fwd+bwd passes instead (d
+printed as "not measured".  ``wall_ms_per_pass`` is the unprofiled
+median of three timed runs of ``--passes`` passes.  ``--grad`` profiles fwd+bwd passes instead (d
 sum(Li)/d params of one sample per pixel through
 ``diff.optimize.render_rays``, path replay): the Cornell box in
 bench.py's fwd+bwd configuration (``remat_group=4``, d/d ``bsdf.refl``;
@@ -40,18 +49,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 # name fragments of each scene's intersection kernels
 KERNELS = {"large": ("hier_kernel",),
            "cornell": ("closest_kernel", "anyhit_kernel"),
-           "textured": ("closest_kernel", "anyhit_kernel")}
+           "textured": ("closest_kernel", "anyhit_kernel"),
+           "lights": ("closest_kernel", "anyhit_kernel")}
 # the gradients of --grad, and the kernels of the backward's gathers
 GRAD_LABELS = {"large": ("bsdf.alpha", "emitter.radiance"),
                "cornell": ("bsdf.refl",),
-               "textured": ("texture.atlas", "emitter.radiance")}
+               "textured": ("texture.atlas", "emitter.radiance"),
+               "lights": ("bsdf.refl", "emitter.radiance")}
 SCATTER = ("index_put", "indexing_backward")
 
 
@@ -87,13 +100,31 @@ def device_us(events, names=None):
                if names is None or any(k in e.name for k in names))
 
 
+def lds_block(torch, n=1 << 20, reps=4):
+    """Device operations and device ms of one ldsampler block at ``n``
+    lanes sharing a sample index (under torch.profiler)."""
+    from mitsuba_im_tpu_torch.core import rng
+
+    pix = torch.arange(n, dtype=torch.int64, device="cuda")
+    s = rng.make_sampler_v(pix, 5, 77, kind=rng.LDSAMPLER, spp=4)
+    rng.next_block4_v(s)
+    ev = device_events(lambda k: [rng.next_block4_v(s) for _ in range(k)],
+                       reps)
+    if not ev:
+        return dict(block_ops="not measured", block_device_ms="not measured")
+    return dict(block_ops=len(ev) / reps,
+                block_device_ms=device_us(ev) / 1e3 / reps)
+
+
 def scene_of(name):
     """(scene, settings) of the named configuration on the card."""
-    from mitsuba_im_tpu_torch.scenes import (large_scene, textured_cornell,
-                                             tiny_cornell)
+    from mitsuba_im_tpu_torch.scenes import (large_scene, lights_cornell,
+                                             textured_cornell, tiny_cornell)
 
     if name == "large":
         return large_scene("cuda")
+    if name == "lights":
+        return lights_cornell("cuda")
     if name == "textured":
         return textured_cornell("cuda")
     scene, settings = tiny_cornell("cuda")
@@ -107,6 +138,9 @@ def main():
     ap.add_argument("--scene", choices=sorted(KERNELS), default="large")
     ap.add_argument("--grad", action="store_true",
                     help="profile fwd+bwd passes (path replay)")
+    ap.add_argument("--per-lane-index", action="store_true",
+                    help="the sample index's words per lane, not once on "
+                    "the host")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     args = ap.parse_args()
@@ -129,6 +163,11 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
 
+    if args.per_lane_index:
+        from mitsuba_im_tpu_torch.core import rng
+
+        rng._index_parts = lambda s: rng._index_words(s.sample, s.kind,
+                                                      s.spp)
     scene, settings = scene_of(args.scene)
     if args.grad:
         from mitsuba_im_tpu_torch.diff import optimize as opt
@@ -153,8 +192,19 @@ def main():
     run(1)
     dev = device_events(run, args.passes)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(args.passes)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / args.passes)
     rec = dict(device=smi, root=str(root), scene=args.scene,
-               grad=args.grad, passes=args.passes, peak_gib=peak_gib)
+               grad=args.grad, per_lane_index=args.per_lane_index,
+               passes=args.passes, peak_gib=peak_gib,
+               wall_ms_per_pass=statistics.median(walls))
+    if args.scene == "lights":
+        rec.update(lds_block(torch))
     if not dev:
         rec.update(device_ms_per_pass="not measured",
                    kernel_share="not measured", idle_share="not measured",

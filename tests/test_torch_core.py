@@ -48,10 +48,21 @@ def test_sampler_blocks_bit_exact(sample, seed):
 
 
 def test_other_sampler_kinds_raise():
-    pix = torch.arange(4)
-    with pytest.raises(NotImplementedError):
-        trng.make_sampler_v(pix, 0, 0, kind=trng.SOBOL)
-    s = trng.make_sampler_v(pix, 0, 0).replace(table=torch.zeros(4, 2, 4))
+    """The SOBOL kind, which raised before the samplers were ported (the
+    name is kept), draws the reference's blocks bit for bit (every kind:
+    test_torch_sampler.py); the MCMC table mode still raises."""
+    pix = np.arange(64, dtype=np.uint32)
+    js = jrng.make_sampler_v(jnp.asarray(pix), jnp.uint32(3), jnp.uint32(9),
+                             kind=jrng.SOBOL, spp=4)
+    ts = trng.make_sampler_v(torch.from_numpy(pix.astype(np.int64)), 3, 9,
+                             kind=trng.SOBOL, spp=4)
+    for _ in range(2):
+        js, ju = jrng.next_block4_v(js)
+        ts, tu = trng.next_block4_v(ts)
+        for a, b in zip(ju, tu):
+            np.testing.assert_array_equal(npy(b), npy(a))
+    s = trng.make_sampler_v(torch.arange(4), 0, 0).replace(
+        table=torch.zeros(4, 2, 4))
     with pytest.raises(NotImplementedError):
         trng.next_block4_v(s)
 
@@ -118,10 +129,18 @@ def test_sample_ray_v():
 
 
 def test_other_sensor_types_raise():
-    tscene = bridged(jax_cornell()[0])
+    """The orthographic sensor, which raised before the sensors were
+    ported (the name is kept), maps film samples to the reference's rays
+    (every type: test_torch_sensor_film.py)."""
     import dataclasses
 
-    s = dataclasses.replace(tscene.sensor, type=tsensor.S_ORTHOGRAPHIC)
-    x = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        tsensor.sample_ray_v(s, x, x, x, x)
+    jscene = jax_cornell()[0]
+    tscene = bridged(jscene)
+    js = jscene.sensor.replace(type=jsensor.S_ORTHOGRAPHIC)
+    ts = dataclasses.replace(tscene.sensor, type=tsensor.S_ORTHOGRAPHIC)
+    u = _uniforms(np.random.default_rng(5), 1024)
+    jo, jd, _ = jsensor.sample_ray_v(js, *(jnp.asarray(a) for a in (*u, *u)))
+    to, td, _ = tsensor.sample_ray_v(ts, *(torch.from_numpy(a)
+                                           for a in (*u, *u)))
+    close_v3(to, jo)
+    close_v3(td, jd)

@@ -10,7 +10,9 @@ the Cornell and large-scene renders on the card against the CPU
 renders, and their gradients (path replay through the kernels) against
 the CPU's; the environment map's alias sampling and the thirteen-family
 ``material_cornell`` render on the card against the CPU; the textured
-Cornell render and its atlas gradient on the card against the CPU.
+Cornell render and its atlas gradient on the card against the CPU; every
+sampler kind's blocks and the ``lights_cornell`` render (thin lens,
+ldsampler, the Gaussian filter, every light) on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -25,9 +27,11 @@ from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.integrators.path import PathConfig
 from mitsuba_im_tpu_torch.render.job import render_film
+from mitsuba_im_tpu_torch.core import rng
+from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
 from mitsuba_im_tpu_torch.scenes import (SUN_DIR, large_scene,
-                                         material_cornell, textured_cornell,
-                                         tiny_cornell)
+                                         lights_cornell, material_cornell,
+                                         textured_cornell, tiny_cornell)
 
 pytestmark = pytest.mark.cuda
 
@@ -395,3 +399,47 @@ def test_atlas_gradient_card_vs_cpu(cuda):
     card, cpu = grads[0]["texture.atlas"], grads[1]["texture.atlas"]
     assert torch.isfinite(card).all() and cpu.abs().max() > 0
     assert (card - cpu).abs().max() / cpu.abs().max() < 5e-3
+
+
+@pytest.mark.parametrize("name", list(KIND_BY_NAME))
+def test_sampler_blocks_card_vs_cpu(cuda, name):
+    """Six blocks of each sampler kind on the card equal the CPU's bit for
+    bit, with a shared sample index and with one per lane."""
+    idx = torch.randint(0, 64, (1 << 14,),
+                        generator=torch.Generator().manual_seed(3))
+    for sample in (7, idx):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            s = rng.make_sampler_v(torch.arange(1 << 14, device=dev),
+                                   sample if isinstance(sample, int)
+                                   else sample.to(dev), 5,
+                                   kind=KIND_BY_NAME[name], spp=9)
+            blocks = []
+            for _ in range(6):
+                s, u = rng.next_block4_v(s)
+                blocks += [t.cpu() for t in u]
+            out.append(blocks)
+        assert _same(*out)
+
+
+def test_lights_cornell_render_card_vs_cpu(cuda):
+    """lights_cornell at 32^2, depth 5, 2 spp: 5 closest + 4 any-hit
+    launches per pass, no hierarchy launch, the image within
+    parity_check.py's gate of the CPU's."""
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = lights_cornell(dev)
+        settings.width = settings.height = 32
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        imgs.append(develop(render_film(scene, settings, spp=2)).cpu().numpy())
+        if dev.type == "cuda":
+            assert (ci.closest_tris_v.launches,
+                    ci.anyhit_tris_v.launches) == (2 * 5, 2 * 4)
+            assert (ch.hier_closest.launches, ch.hier_anyhit.launches) == (
+                0, 0)
+    a, b = (im.sum(-1).ravel() for im in imgs)
+    assert np.isfinite(a).all() and (a >= 0).all()
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
+    assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
+    assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3

@@ -441,8 +441,10 @@ def test_autodiff_matches_finite_differences(label, index, eps):
 
 def test_texture_atlas_and_other_samplers_raise(cornell):
     """``texture.atlas`` (which raised before textures were ported: the
-    name is kept) round-trips through get_params/set_params; samplers
-    other than independent raise."""
+    name is kept) round-trips through get_params/set_params; a sampler
+    other than independent (which raised before the samplers were ported)
+    draws render_rays' estimate as the reference's does, with
+    ``settings.spp`` strata."""
     _, tscene = cornell
     atlas = topt.get_params(tscene, ["texture.atlas"])["texture.atlas"]
     assert atlas is tscene.textures.atlas
@@ -451,10 +453,17 @@ def test_texture_atlas_and_other_samplers_raise(cornell):
     assert moved.textures.atlas is new
     assert moved.bsdfs is tscene.bsdfs and moved.geom is tscene.geom
     assert topt.get_params(moved, ["texture.atlas"])["texture.atlas"] is new
-    settings = RenderSettings(width=4, height=4, sampler="stratified")
-    with pytest.raises(NotImplementedError):
-        topt.render_rays(tscene, settings, tpath.PathConfig(max_depth=2),
-                         torch.arange(16), 0, 0)
+    jscene, _ = cornell
+    settings = RenderSettings(width=8, height=8, spp=9,
+                              sampler="stratified")
+    from mitsuba_im_tpu.scene.build import RenderSettings as JSettings
+
+    jsettings = JSettings(width=8, height=8, spp=9, sampler="stratified")
+    out = topt.render_rays(tscene, settings, tpath.PathConfig(max_depth=2),
+                           torch.arange(64), 5, 0)
+    ref = jopt.render_rays(jscene, jsettings, jpath.PathConfig(max_depth=2),
+                           jnp.arange(64, dtype=jnp.uint32), 5, 0)
+    np.testing.assert_allclose(npy(out), npy(ref), rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

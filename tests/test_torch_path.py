@@ -83,7 +83,7 @@ def test_mi_weight():
 def test_ray_differentials_raise():
     """Ray differentials, which raised before textures were ported (the
     name is kept), change nothing in a scene without MIP pyramids, as in
-    the reference; the samplers other than independent still raise."""
+    the reference; the MCMC table mode of the sampler raises."""
     scene = bridged(jax_cornell()[0])
     assert not scene.textures.has_mip
     pix = torch.arange(64)
@@ -94,5 +94,7 @@ def test_ray_differentials_raise():
                           **kw)[0] for kw in ({}, dict(dddx=d, dddy=d))]
     for a, b in zip(*li):
         assert torch.equal(a, b)
+    # the MCMC table mode, the one sampler mode left unported, raises
+    s = trng.make_sampler_v(pix, 0, 0).replace(table=torch.zeros(64, 2, 4))
     with pytest.raises(NotImplementedError):
-        trng.make_sampler_v(pix, 0, 0, kind=trng.STRATIFIED)
+        tpath.path_li_v(scene, s, o, d, cfg)
