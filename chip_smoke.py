@@ -147,7 +147,32 @@ Phases, in order; any failure raises and the run exits non-zero:
    peak memory; card vs CPU at 64^2 under the gate;
 25. the lights_cornell gradient at 128^2, depth 5, ``remat_group=4``: d
    sum(Li)/d ``bsdf.refl`` and ``emitter.radiance``; 5 + 4 launches
-   forward and 9 + 8 with the replay; finite; card vs CPU max rel < 5e-3.
+   forward and 9 + 8 with the replay; finite; card vs CPU max rel < 5e-3;
+26. ``[xml cornell]``: tests/test_render.py's Cornell box as a scene file
+   (six ``rectangle`` shapes, the area light, the box filter) through the
+   port's command line (``cli.main.main``) at 1024^2, depth 5, 4 spp:
+   the scene file's load and build seconds; 5 closest and 4 any-hit
+   launches per pass; the EXR and the PNG it writes read back by the
+   port's codecs, red on the left and green on the right; its film (the
+   checkpoint of ``-c``) bit for bit the film of ``render_film`` called
+   directly on the loaded scene; ``-s 2 -c`` then ``-z`` to 4 spp bit for
+   bit the uninterrupted film (the box splat sums a pixel's samples in
+   sample order, ``film/film.py``); the pass time; card vs CPU at 128^2
+   under the gate;
+27. ``[xml large]``: the 1,120,504-triangle displaced sphere written as a
+   binary little-endian PLY with normals and uvs, under an ``envmap``
+   read from an EXR that the port's ``write_exr`` wrote from the Hosek
+   sky (resolution 512), GGX rough copper (alpha 0.2), through the command
+   line at 768^2, depth 3, 2 spp: the seconds of the PLY load, the EXR
+   read, the hierarchy build and the whole load; 3 + 2 hierarchy launches
+   per pass and no brute-force launch; the top-row pixels lit by the map;
+   the pass time and peak device memory; card vs CPU at 64^2 under the
+   gate;
+28. ``[xml plugins]``: three small scene files (meshes: ``obj``,
+   ``serialized`` written by ``save_serialized``, ``cube``, ``cylinder``;
+   textures: a PNG ``bitmap`` and ``curvature``; lights: ``blackbody`` and
+   ``spectrum`` values, and an ``ldrfilm`` whose command-line PNG is
+   Reinhard tone mapped) at 64^2, depth 3, card vs CPU under the gate.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -156,6 +181,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -164,6 +190,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mitsuba_im_tpu_torch.cli import main as cli_main
 from mitsuba_im_tpu_torch.accel import bvh
 from mitsuba_im_tpu_torch.accel import cuda_hierarchy as ch
 from mitsuba_im_tpu_torch.accel import cuda_intersect as ci
@@ -179,6 +206,7 @@ from mitsuba_im_tpu_torch.core.transform import Transform
 from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
                                                 eval_environment_v)
 from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
+from mitsuba_im_tpu_torch.io import bitmap, exr, png
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
@@ -187,6 +215,11 @@ from mitsuba_im_tpu_torch.scenes import (CORNELL_CAMERA, LIGHTS, LIGHTS_LENS,
                                          large_scene, lights_cornell,
                                          material_cornell, textured_cornell,
                                          tiny_cornell)
+from mitsuba_im_tpu_torch.scenes import LARGE_CAMERA, SUN_DIR, displaced_sphere
+from mitsuba_im_tpu_torch.emitter import hosek
+from mitsuba_im_tpu_torch.scene import build as scene_build
+from mitsuba_im_tpu_torch.scene import mesh as mesh_mod
+from mitsuba_im_tpu_torch.scene import xml as scene_xml
 from mitsuba_im_tpu_torch.sensor.table import make_sensor, sample_ray_v
 from profile_pass import SCATTER, busy_union, device_events, device_us
 from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
@@ -243,7 +276,8 @@ def device_phase():
 
 def build_phase():
     libs = {"tri_intersect.cu": ci.LIBRARY, "hier_traverse.cu": ch.LIBRARY,
-            "bvh_build.cpp": bvh.LIBRARY, "alias_build.cpp": dist.LIBRARY}
+            "bvh_build.cpp": bvh.LIBRARY, "alias_build.cpp": dist.LIBRARY,
+            "obj_load.cpp": mesh_mod.OBJ_LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load) for lib in libs.values()]:
@@ -1835,14 +1869,406 @@ def lights_grad_phase(dev):
     return launches, rels
 
 
+# ---------------------------------------------------------------------------
+# a user's scene from disk: the scene loader and the command line
+# ---------------------------------------------------------------------------
+
+XML_DIR = os.path.join("build", "chip_smoke_xml")  # gitignored (build/)
+
+# tests/test_render.py's Cornell box (copied: the smoke imports no test)
+CORNELL_XML = """\
+<scene version="0.6.0">
+    <integrator type="path">
+        <integer name="maxDepth" value="{max_depth}"/>
+    </integrator>
+    <sensor type="perspective">
+        <float name="fov" value="39.3"/>
+        <transform name="toWorld">
+            <lookat origin="0, 1, 3.9" target="0, 1, 0" up="0, 1, 0"/>
+        </transform>
+        <sampler type="independent">
+            <integer name="sampleCount" value="{spp}"/>
+        </sampler>
+        <film type="hdrfilm">
+            <integer name="width" value="{res}"/>
+            <integer name="height" value="{res}"/>
+            <rfilter type="box"/>
+        </film>
+    </sensor>
+    <bsdf type="diffuse" id="white"><rgb name="reflectance" value="0.725 0.71 0.68"/></bsdf>
+    <bsdf type="diffuse" id="red"><rgb name="reflectance" value="0.63 0.065 0.05"/></bsdf>
+    <bsdf type="diffuse" id="green"><rgb name="reflectance" value="0.14 0.45 0.091"/></bsdf>
+
+    <!-- floor -->
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="1"/></transform>
+        <ref id="white"/>
+    </shape>
+    <!-- ceiling -->
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="90"/><translate y="2"/></transform>
+        <ref id="white"/>
+    </shape>
+    <!-- back wall -->
+    <shape type="rectangle">
+        <transform name="toWorld"><translate z="-1"/><translate y="1"/></transform>
+        <ref id="white"/>
+    </shape>
+    <!-- left wall (red) -->
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate y="1" angle="90"/><translate x="-1" y="1"/></transform>
+        <ref id="red"/>
+    </shape>
+    <!-- right wall (green) -->
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate y="1" angle="-90"/><translate x="1" y="1"/></transform>
+        <ref id="green"/>
+    </shape>
+    <!-- light -->
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="90"/><scale value="0.25"/><translate y="1.99"/></transform>
+        <ref id="white"/>
+        <emitter type="area"><rgb name="radiance" value="17 12 4"/></emitter>
+    </shape>
+</scene>
+"""
+
+
+def xml_file(name, text):
+    os.makedirs(XML_DIR, exist_ok=True)
+    path = os.path.join(XML_DIR, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_cli(*args):
+    """The port's command line, in this process, as a user calls it."""
+    if cli_main.main([str(a) for a in args] + ["-q"]) != 0:
+        raise AssertionError(f"the command line failed: {args}")
+
+
+class Spy:
+    """Wraps ``module.name`` while active: the seconds of its calls and
+    its last result."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.seconds, self.result = 0.0, None
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            self.result = self.orig(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+            return self.result
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def film_of(ckpt):
+    return np.load(ckpt + ".npz")["film"]
+
+
+def film_diff(a, b):
+    """'bit for bit', or how many film entries differ and by how much."""
+    d = np.abs(a - b)
+    if not d.any():
+        return "bit for bit"
+    return f"DIFFERENT in {int((d > 0).sum())} entries, max {d.max():.3e}"
+
+
+def left_right(img):
+    n = img.shape[1]
+    rows = slice(int(0.3 * img.shape[0]), int(0.7 * img.shape[0]))
+    lo, hi = int(0.05 * n), int(0.15 * n)
+    return img[rows, lo:hi].mean((0, 1)), img[rows, n - hi:n - lo].mean((0, 1))
+
+
+def xml_cornell_phase(dev, smi):
+    path = xml_file("cornell.xml", CORNELL_XML.format(max_depth=DEPTH,
+                                                      spp=SPP, res=RES))
+    t0 = time.perf_counter()
+    scene, settings = scene_xml.load_scene(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[xml cornell] {path}: load and build {load_s:.4f} s, "
+        f"{scene.geom.n_tris} triangles ({smi})")
+    out, ckpt = os.path.join(XML_DIR, "cornell"), os.path.join(XML_DIR, "ck")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    run_cli(path, "-o", out + ".exr", "-c", ckpt + "_full")
+    torch.cuda.synchronize()
+    launches = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    hier = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    log(f"[xml cornell] command line {RES}x{RES} depth {DEPTH} spp {SPP}: "
+        f"closest launches {launches[0]}, anyhit launches {launches[1]}, "
+        f"hierarchy launches {hier}")
+    if launches != (DEPTH * SPP, (DEPTH - 1) * SPP) or any(hier):
+        raise AssertionError(f"expected {DEPTH} + {DEPTH - 1} brute-force "
+                             f"launches per pass, got {launches}, {hier}")
+    img, meta = exr.read_exr(out + ".exr")
+    left, right = left_right(img)
+    lum = luminance(img)
+    log(f"[xml cornell] EXR {img.shape} renderTime {meta['renderTime']}, "
+        f"mean luminance {lum.mean():.5f}, left rgb "
+        f"{np.round(left, 4).tolist()}, right rgb "
+        f"{np.round(right, 4).tolist()}")
+    if (img.shape != (RES, RES, 3) or not np.isfinite(img).all()
+            or (img < 0).any() or not 0.05 < lum.mean() < 2.0):
+        raise AssertionError("implausible EXR from the command line")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("red wall not on the left / green not on right")
+
+    direct = render_film(scene, settings).data.cpu().numpy()
+    full = film_of(ckpt + "_full")
+    same = film_diff(full, direct)
+    log(f"[xml cornell] command-line film vs render_film on the loaded "
+        f"scene: {same}")
+    if same != "bit for bit":
+        raise AssertionError("the command line's film is not render_film's")
+
+    run_cli(path, "-s", SPP // 2, "-o", out + ".png", "-c", ckpt + "_half")
+    run_cli(path, "-o", out + "_resumed.exr", "-z", ckpt + "_half",
+            "-c", ckpt + "_resumed")
+    same = film_diff(film_of(ckpt + "_resumed"), full)
+    ldr = png.read_png(out + ".png")
+    pl, pr = left_right(ldr)
+    log(f"[xml cornell] -s {SPP // 2} -c then -z to {SPP} spp: {same}; PNG "
+        f"{ldr.shape} left rgb {np.round(pl, 4).tolist()} right rgb "
+        f"{np.round(pr, 4).tolist()}")
+    if same != "bit for bit":
+        raise AssertionError("the resumed film is not the uninterrupted one")
+    if ldr.shape != (RES, RES, 3) or not (pl[0] > pl[1] and pr[1] > pr[0]):
+        raise AssertionError("implausible PNG from the command line")
+    per_pass = pass_time(scene, settings, 2, 6,
+                         RES * RES * (1 + 2 * (DEPTH - 1)), "xml cornell")
+    cpu_scene, _ = scene_xml.load_scene(path, device="cpu")
+    parity_gate("xml cornell 128^2", path_luminance(scene, 128, DEPTH),
+                path_luminance(cpu_scene, 128, DEPTH))
+    return launches, load_s, per_pass
+
+
+LARGE_XML = """<scene version="0.6.0">
+  <integrator type="path"><integer name="maxDepth" value="{depth}"/>
+  </integrator>
+  <sensor type="perspective">
+    <float name="fov" value="{fov}"/>
+    <transform name="toWorld"><lookat origin="{origin}" target="{target}"
+      up="{up}"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/>
+    </sampler>
+    <film type="hdrfilm"><integer name="width" value="{res}"/>
+      <integer name="height" value="{res}"/><rfilter type="box"/></film>
+  </sensor>
+  <emitter type="envmap"><string name="filename" value="sky.exr"/></emitter>
+  <shape type="ply"><string name="filename" value="sphere.ply"/>
+    <bsdf type="roughconductor"><string name="material" value="Cu"/>
+      <float name="alpha" value="0.2"/>
+      <string name="distribution" value="ggx"/></bsdf>
+  </shape>
+</scene>
+"""
+
+
+def write_large_files():
+    """The displaced sphere as a binary PLY (float32 positions, normals and
+    uvs; uchar-counted int triangles) and the Hosek sky as a float EXR."""
+    pos, idx = displaced_sphere(1_120_000)
+    nrm = mesh_mod.TriMesh(pos, idx).compute_normals().normals
+    n = int(np.sqrt(1_120_000 / 2)) + 1
+    k = np.arange(len(pos))
+    uv = np.stack([(k % n) / n, (k // n) / (n - 1.0)], 1)
+    vert = np.zeros(len(pos), [(c, "<f4") for c in
+                               ("x", "y", "z", "nx", "ny", "nz", "u", "v")])
+    for j, c in enumerate(("x", "y", "z")):
+        vert[c], vert["n" + c] = pos[:, j], nrm[:, j]
+    vert["u"], vert["v"] = uv[:, 0], uv[:, 1]
+    face = np.zeros(len(idx), [("n", "u1"), ("i", "<i4", 3)])
+    face["n"], face["i"] = 3, idx
+    header = "\n".join(
+        ["ply", "format binary_little_endian 1.0",
+         f"element vertex {len(pos)}"]
+        + [f"property float {c}" for c in vert.dtype.names]
+        + [f"element face {len(idx)}",
+           "property list uchar int vertex_indices", "end_header", ""])
+    os.makedirs(XML_DIR, exist_ok=True)
+    with open(os.path.join(XML_DIR, "sphere.ply"), "wb") as f:
+        f.write(header.encode() + vert.tobytes() + face.tobytes())
+    exr.write_exr(os.path.join(XML_DIR, "sky.exr"),
+                  hosek.hosek_sky_pixels(512, SUN_DIR), half=False)
+    return len(idx)
+
+
+def xml_large_phase(dev, smi):
+    t0 = time.perf_counter()
+    n_tris = write_large_files()
+    c = LARGE_CAMERA
+    path = xml_file("large.xml", LARGE_XML.format(
+        depth=L_DEPTH, fov=c["fov_deg"], res=L_RES, spp=L_SPP,
+        **{k: ", ".join(map(str, c[k])) for k in ("origin", "target",
+                                                    "up")}))
+    log(f"[xml large] wrote {n_tris} triangles as a binary PLY and the "
+        f"Hosek sky as an EXR in {time.perf_counter() - t0:.2f} s")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = os.path.join(XML_DIR, "large.exr")
+    with Spy(mesh_mod, "load_ply") as ply, Spy(bitmap, "read_exr") as rd, \
+            Spy(scene_build, "build_hierarchy") as hb, \
+            Spy(scene_xml, "load_scene") as ld:
+        run_cli(path, "-o", out)
+    torch.cuda.synchronize()
+    launches = (ch.hier_closest.launches, ch.hier_anyhit.launches)
+    brute = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    scene, settings = ld.result
+    log(f"[xml large] load: PLY {ply.seconds:.3f} s, EXR read "
+        f"{rd.seconds:.3f} s, hierarchy build {hb.seconds:.3f} s, whole "
+        f"load and build {ld.seconds:.3f} s; {scene.geom.n_tris} triangles "
+        f"({smi})")
+    log(f"[xml large] command line {L_RES}x{L_RES} depth {L_DEPTH} spp "
+        f"{L_SPP}: hier_closest launches {launches[0]}, hier_anyhit launches "
+        f"{launches[1]}, brute-force launches {brute}; peak device memory "
+        f"{peak:.3f} GiB")
+    if (launches != (L_DEPTH * L_SPP, (L_DEPTH - 1) * L_SPP) or any(brute)
+            or scene.geom.n_tris != n_tris or scene.clusters is None):
+        raise AssertionError(f"expected {L_DEPTH} + {L_DEPTH - 1} hierarchy "
+                             f"launches per pass and no brute-force launch, "
+                             f"got {launches}, {brute}")
+    img, _ = exr.read_exr(out)
+    lum = luminance(img)
+    top = lum[0]
+    log(f"[xml large] image mean luminance {lum.mean():.5f}, top row "
+        f"min {top.min():.5f} mean {top.mean():.5f}, centre "
+        f"{lum[L_RES // 2 - 8:L_RES // 2 + 8].mean():.5f}")
+    if not np.isfinite(img).all() or (img < 0).any() or top.min() <= 0:
+        raise AssertionError("the top row is not lit by the map")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)), "xml large")
+    cpu_scene, _ = scene_xml.load_scene(path, device="cpu")
+    parity_gate(f"xml large ({n_tris} tris) 64^2 depth {L_DEPTH}",
+                path_luminance(scene, 64, L_DEPTH),
+                path_luminance(cpu_scene, 64, L_DEPTH))
+    return launches, dict(ply=ply.seconds, exr=rd.seconds,
+                          hierarchy=hb.seconds, load=ld.seconds,
+                          pass_ms=per_pass, peak_gib=peak)
+
+
+PLUGIN_HEAD = """<scene version="0.6.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective"><float name="fov" value="45"/>
+    <transform name="toWorld"><lookat origin="0, 1.2, 4" target="0, 0.5, 0"
+      up="0, 1, 0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="1"/>
+    </sampler>
+    {film}
+  </sensor>
+  <shape type="rectangle"><transform name="toWorld"><rotate x="1"
+    angle="-90"/><scale value="3"/></transform></shape>
+"""
+HDR_FILM = """<film type="hdrfilm"><integer name="width" value="64"/>
+      <integer name="height" value="64"/></film>"""
+PLUGIN_XML = {
+    "meshes": """
+  <shape type="obj"><string name="filename" value="grid.obj"/>
+    <transform name="toWorld"><scale value="0.5"/><translate x="-1"
+      y="0.6"/></transform><bsdf type="plastic"/></shape>
+  <shape type="serialized"><string name="filename" value="grid.serialized"/>
+    <integer name="shapeIndex" value="1"/>
+    <transform name="toWorld"><scale value="0.4"/><translate x="1"
+      y="0.5"/></transform></shape>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    <rotate y="1" angle="30"/><translate y="0.3"/></transform>
+    <bsdf type="roughconductor"/></shape>
+  <shape type="cylinder"><point name="p0" x="0" y="1" z="-0.5"/>
+    <point name="p1" x="0" y="1.5" z="-0.5"/><float name="radius" value="0.2"/>
+    <emitter type="area"><rgb name="radiance" value="4, 3, 2"/></emitter>
+  </shape>
+  <emitter type="constant"><spectrum name="radiance" value="0.3"/></emitter>
+""",
+    "textures": """
+  <shape type="sphere"><point name="center" x="-0.6" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/><bsdf type="diffuse">
+    <texture name="reflectance" type="bitmap">
+      <string name="filename" value="noise.png"/></texture></bsdf></shape>
+  <shape type="sphere"><point name="center" x="0.6" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/><bsdf type="diffuse">
+    <texture name="reflectance" type="curvature"/></bsdf></shape>
+  <emitter type="directional"><vector name="direction" x="0.2" y="-1"
+    z="-0.3"/><rgb name="irradiance" value="3"/></emitter>
+""",
+    "lights": """
+  <shape type="sphere"><point name="center" x="0" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/><bsdf type="roughplastic"/></shape>
+  <shape type="disk"><transform name="toWorld"><scale value="0.3"/>
+    <rotate x="1" angle="90"/><translate y="2"/></transform>
+    <emitter type="area"><blackbody name="radiance" temperature="3500"
+      scale="5e-5"/></emitter></shape>
+  <emitter type="point"><point name="position" x="1" y="1.5" z="1"/>
+    <spectrum name="intensity" value="400:1, 500:4, 600:6, 700:2"/>
+  </emitter>
+""",
+}
+
+
+def write_plugin_files():
+    pos, idx = displaced_sphere(800)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in pos / 0.08]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in idx]
+    with open(os.path.join(XML_DIR, "grid.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    meshes = [mesh_mod.TriMesh(pos / 0.08 * s, idx, name=f"ball{k}")
+              for k, s in enumerate((1.0, 0.8))]
+    mesh_mod.save_serialized(os.path.join(XML_DIR, "grid.serialized"),
+                             meshes)
+    gen = np.random.default_rng(9)
+    png.write_png(os.path.join(XML_DIR, "noise.png"),
+                  gen.random((32, 64, 3)).astype(np.float32))
+
+
+def xml_plugins_phase(dev):
+    os.makedirs(XML_DIR, exist_ok=True)
+    write_plugin_files()
+    for name, body in PLUGIN_XML.items():
+        film = HDR_FILM
+        if name == "lights":  # the ldrfilm, Reinhard tone mapped
+            film = ('<film type="ldrfilm"><integer name="width" value="64"/>'
+                    '<integer name="height" value="64"/><string '
+                    'name="tonemapMethod" value="reinhard"/></film>')
+        path = xml_file(f"{name}.xml", PLUGIN_HEAD.format(film=film) + body
+                        + "</scene>\n")
+        cuda_scene, settings = scene_xml.load_scene(path, device=dev)
+        cpu_scene, _ = scene_xml.load_scene(path, device="cpu")
+        parity_gate(f"xml plugins {name} 64^2 depth 3",
+                    path_luminance(cuda_scene, 64, 3),
+                    path_luminance(cpu_scene, 64, 3))
+        if name == "lights":
+            out = os.path.join(XML_DIR, "lights.png")
+            run_cli(path, "-o", out)
+            ldr = png.read_png(out)
+            log(f"[xml plugins] ldrfilm tonemap {settings.tonemap}: PNG "
+                f"{ldr.shape}, mean {ldr.mean():.4f}")
+            if (settings.tonemap != "reinhard" or ldr.shape != (64, 64, 3)
+                    or not 0.0 < ldr.mean() < 1.0):
+                raise AssertionError("implausible Reinhard PNG")
+    return len(PLUGIN_XML)
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
-                  grad_launches, device_ms=None):
+                  grad_launches, device_ms=None, xml_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
                 plain_ms=timing[key + "_plain"], bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None, device_ms=device_ms,
-                grad_launches=grad_launches)
+                grad_launches=grad_launches, xml_launches=xml_launches)
 
 
 def main():
@@ -1888,6 +2314,16 @@ def main():
     n_sweep = lights_parity_phase(dev)
     ss_launches, ss_ms, ss_peak, ss_prof = sunsky_path_phase(dev)
     lg_launches, lg_rels = lights_grad_phase(dev)
+    t0 = time.perf_counter()
+    x_launches, x_load, x_ms = xml_cornell_phase(dev, smi)
+    xl_launches, xl = xml_large_phase(dev, smi)
+    n_xml = xml_plugins_phase(dev)
+    log(f"[summary] xml phases {time.perf_counter() - t0:.1f} s: cornell "
+        f"load {x_load:.4f} s, pass {x_ms:.3f} ms, launches {x_launches}; "
+        f"large PLY {xl['ply']:.3f} s, EXR {xl['exr']:.3f} s, hierarchy "
+        f"{xl['hierarchy']:.3f} s, load {xl['load']:.3f} s, pass "
+        f"{xl['pass_ms']:.3f} ms, launches {xl_launches}, peak "
+        f"{xl['peak_gib']:.3f} GiB; {n_xml} plugin scene files ({smi})")
     log(f"[summary] lights_cornell pass {l_ms:.3f} ms, launches "
         f"{l_launches}, device ops per pass {fmt(l_prof and l_prof['ops'])},"
         f" peak {l_peak:.3f} GiB; in turns " + "; ".join(
@@ -1911,17 +2347,21 @@ def main():
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
                       launches[0], timing["closest_err"], timing, "closest",
-                      grad_launches[0], timing["closest_device"]),
+                      grad_launches[0], timing["closest_device"],
+                      x_launches[0]),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], timing["anyhit_err"], timing, "anyhit",
-                      grad_launches[1], timing["anyhit_device"]),
+                      grad_launches[1], timing["anyhit_device"],
+                      x_launches[1]),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[0], err_h, htiming, "closest",
-                      hgrad_launches[0], htiming["closest_device"]),
+                      hgrad_launches[0], htiming["closest_device"],
+                      xl_launches[0]),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
-                      hgrad_launches[1], htiming["anyhit_device"]),
+                      hgrad_launches[1], htiming["anyhit_device"],
+                      xl_launches[1]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Host-side 4x4 transforms (the numpy part of
 ``mitsuba_im_tpu/core/transform.py``): the constructors, composition and
-point/vector application that sensors, emitters and shapes need."""
+point/vector/normal application that sensors, emitters, shapes and the
+scene loader need."""
 from __future__ import annotations
 
 import numpy as np
@@ -70,3 +71,9 @@ class Transform:
 
     def apply_vector(self, v):
         return np.asarray(v, np.float64) @ self.m[:3, :3].T
+
+    def apply_normal(self, n):
+        return np.asarray(n, np.float64) @ self.inv[:3, :3]
+
+    def det3(self) -> float:
+        return float(np.linalg.det(self.m[:3, :3]))

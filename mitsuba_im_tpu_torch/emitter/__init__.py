@@ -1,5 +1,6 @@
-"""Emitter record factories (``mitsuba_im_tpu/emitter/__init__.py``),
-taking keyword arguments where the reference reads a ``Properties`` bag.
+"""Emitter record factories (``mitsuba_im_tpu/emitter/__init__.py``): the
+keyword factories, and the registered plugins that read a ``Properties``
+bag and call them.
 
 Each returns the host record that ``SceneBuilder.add_emitter`` takes
 (``sunsky`` returns two).  An ``area`` record is attached to a shape by the
@@ -7,13 +8,17 @@ builder (``SceneBuilder.attach_area_emitter``), which adds the shape's
 kind, row and surface area.  The sun's direction is ``sun_direction`` when
 given, else the solar position at the given date, time and place (the
 JAX package's defaults: 15:00 on 10 July 2010 in Tokyo), turned by
-``to_world``.  ``envmap`` records come from pixel arrays
-(``table.envmap_record``); loading image files is not ported.
+``to_world``.  The keyword ``envmap`` record takes pixel arrays
+(``table.envmap_record``); the ``envmap`` plugin loads its ``filename``
+through ``io/bitmap.py`` (linear: EXR, RGBE, PFM; 8-bit formats
+sRGB-decoded).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.properties import Properties
+from ..core.registry import register
 from ..core.transform import Transform
 from . import hosek
 from . import sunsky as ss  # the module; ``sunsky`` below is the factory
@@ -141,3 +146,117 @@ def sunsky(sky_model: str = "hosek", resolution: int = 512,
     return [sky(sky_model, resolution, ground_albedo=ground_albedo,
                 stretch=stretch, extend=extend, **shared),
             sun(sun_radius_scale=sun_radius_scale, **shared)]
+
+
+# -- the registered plugins ------------------------------------------------
+
+def _weight(props: Properties) -> float:
+    return props.get_float("samplingWeight", 1.0)
+
+
+@register("emitter", "area")
+def _area(props: Properties, ctx=None):
+    return area(props.get_spectrum("radiance", np.ones(3)), _weight(props))
+
+
+@register("emitter", "point")
+def _point(props: Properties, ctx=None):
+    xf = props.get_transform("toWorld", Transform())
+    pos = props.get_point("position", None) if "position" in props else None
+    return point(props.get_spectrum("intensity", np.ones(3)), pos, xf,
+                 _weight(props))
+
+
+@register("emitter", "spot")
+def _spot(props: Properties, ctx=None):
+    xf = props.get_transform("toWorld", Transform())
+    cutoff = props.get_float("cutoffAngle", 20.0)
+    beam = props.get_float("beamWidth", cutoff * 3.0 / 4.0)
+    return spot(props.get_spectrum("intensity", np.ones(3)), cutoff, beam,
+                xf, _weight(props))
+
+
+@register("emitter", "directional")
+def _directional(props: Properties, ctx=None):
+    xf = props.get_transform("toWorld", Transform())
+    d = props.get_vector("direction", None) if "direction" in props else None
+    return directional(props.get_spectrum("irradiance", np.ones(3)), d, xf,
+                       _weight(props))
+
+
+@register("emitter", "collimated")
+def _collimated(props: Properties, ctx=None):
+    xf = props.get_transform("toWorld", Transform())
+    return collimated(props.get_spectrum("power", np.ones(3)), xf,
+                      _weight(props))
+
+
+@register("emitter", "constant")
+def _constant(props: Properties, ctx=None):
+    return constant(props.get_spectrum("radiance", np.ones(3)),
+                    _weight(props))
+
+
+@register("emitter", "envmap")
+def _envmap(props: Properties, ctx=None):
+    from ..io import bitmap as bmp
+
+    path = props.get_string("filename")
+    if ctx is not None:
+        path = ctx.resolve_path(path)
+    pixels = bmp.load(path)[..., :3]
+    xf = props.get_transform("toWorld", Transform())
+    return et.envmap_record(pixels, props.get_float("scale", 1.0),
+                            xf.m[:3, :3], _weight(props))
+
+
+def _sun_position(props: Properties) -> dict:
+    """:func:`sun_direction`'s keywords from the reference's SunParameters
+    properties."""
+    if "sunDirection" in props:
+        return dict(sun_direction=props.get_vector("sunDirection"))
+    return dict(
+        year=props.get_int("year", 2010), month=props.get_int("month", 7),
+        day=props.get_int("day", 10), hour=props.get_float("hour", 15.0),
+        minute=props.get_float("minute", 0.0),
+        second=props.get_float("second", 0.0),
+        latitude=props.get_float("latitude", 35.6894),
+        longitude=props.get_float("longitude", 139.6917),
+        timezone=props.get_float("timezone", 9.0))
+
+
+def _sky_record(props: Properties) -> dict:
+    model = props.get_string("skyModel", "hosek")
+    kw = dict(resolution=props.get_int("resolution", 512),
+              turbidity=props.get_float("turbidity", 3.0),
+              stretch=props.get_float("stretch", 1.0),
+              scale=props.get_float("scale", 1.0),
+              extend=props.get_bool("extend", True))
+    if model != "preetham":
+        kw["ground_albedo"] = props.get_spectrum("groundAlbedo",
+                                                 [0.15, 0.15, 0.15])
+    return sky(model, to_world=props.get_transform("toWorld", Transform()),
+               sampling_weight=_weight(props), **kw, **_sun_position(props))
+
+
+def _sun_record(props: Properties) -> dict:
+    return sun(props.get_float("turbidity", 3.0),
+               props.get_float("scale", 1.0),
+               props.get_float("sunRadiusScale", 1.0),
+               props.get_transform("toWorld", Transform()), _weight(props),
+               **_sun_position(props))
+
+
+@register("emitter", "sky")
+def _sky(props: Properties, ctx=None):
+    return _sky_record(props)
+
+
+@register("emitter", "sun")
+def _sun(props: Properties, ctx=None):
+    return _sun_record(props)
+
+
+@register("emitter", "sunsky")
+def _sunsky(props: Properties, ctx=None):
+    return [_sky_record(props), _sun_record(props)]

@@ -3,14 +3,19 @@
 
 The film is an ``(H, W, 4)`` tensor (RGB premultiplied by the filter
 weight, plus the weight).  A box-filter sample of radius <= 0.5 lands in
-exactly one pixel.  Every other filter splats each sample to its
-``ceil(2 r)`` x ``ceil(2 r)`` neighbourhood (16 taps for the Gaussian at
-radius 2) with the separable weight ``f(dx) f(dy)``; a tap outside the
-image goes to pixel 0 with weight 0, as in the reference.  All taps of a
-pass are accumulated with one ``index_add_``, in place, tap-major (the
-order of the reference's per-tap scatters).  On the card ``index_add_`` is
-atomic, so the film differs from the CPU's in the last bits and from run
-to run.
+the one pixel its position truncates to; a jitter that rounds up to 1
+moves it to the next pixel, so a pixel may take two samples of a pass.
+They are summed with ``index_put_(accumulate=True)``: on the card the box
+film then came out the same bit for bit from run to run and between a
+render and its resumed checkpoint (``chip_smoke.py``'s ``[xml cornell]``),
+where ``index_add_``'s atomics had differed in a few entries.  Every other
+filter splats each sample to its ``ceil(2 r)`` x ``ceil(2 r)``
+neighbourhood (16 taps for the Gaussian at radius 2) with the separable
+weight ``f(dx) f(dy)``; a tap outside the image goes to pixel 0 with
+weight 0, as in the reference.  All taps of a pass are accumulated with
+one ``index_add_``, in place, tap-major (the order of the reference's
+per-tap scatters).  On the card ``index_add_`` is atomic, so that film
+differs from the CPU's in the last bits and from run to run.
 """
 from __future__ import annotations
 
@@ -106,7 +111,8 @@ def splat(film: Film, px: torch.Tensor, py: torch.Tensor, value,
     if film.ftype == F_BOX and film.radius <= 0.5:
         ix = torch.clamp(px.to(Int), 0, W - 1)
         iy = torch.clamp(py.to(Int), 0, H - 1)
-        flat.index_add_(0, iy * W + ix, torch.stack(cols, dim=-1))
+        flat.index_put_((iy * W + ix,), torch.stack(cols, dim=-1),
+                        accumulate=True)
         return film
 
     r = film.radius

@@ -8,11 +8,17 @@ splats it into the film in place, through the settings' reconstruction
 filter (the Gaussian of radius 2 by default, as the reference's).  Every
 sampler kind draws the pass; its stratification reads the call's ``spp``,
 as the reference's ``render_film`` passes it.  Other integrators raise.
+
+The develop and output half (``tonemap_ldr``, ``save_render``) is the
+reference's host numpy: EXR as the JAX package writes it, PNG/PPM through
+its exposure, Reinhard and sRGB/gamma chain.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 from ..core.types import Float
@@ -37,6 +43,12 @@ class RenderSettings:
     integrator_props: dict = dataclasses.field(default_factory=dict)
     rfilter: int = F_GAUSSIAN
     rfilter_radius: float | None = None
+    film_format: str = "exr"
+    banner: bool = False
+    gamma: float = -1.0  # ldrfilm: <= 0 means sRGB
+    tonemap: str = "gamma"
+    exposure: float = 0.0
+    key: float = 0.18
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -85,9 +97,11 @@ def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
 
 
 def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
-                film: Film | None = None, sample_offset: int = 0) -> Film:
+                film: Film | None = None, sample_offset: int = 0,
+                progress_cb=None) -> Film:
     """Render ``spp`` passes into a (new or given) film.  Forward only, as
-    the reference's ``render``: the passes run under ``torch.no_grad``."""
+    the reference's ``render``: the passes run under ``torch.no_grad``.
+    ``progress_cb(done, spp, film)`` runs after each pass."""
     spp = spp if spp is not None else settings.spp
     kind = sampler_kind(settings)
     cfg = path_config(settings)
@@ -98,4 +112,40 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
         for s in range(spp):
             film = render_pass(scene, film, sample_offset + s, settings.seed,
                                cfg, kind, spp)
+            if progress_cb is not None:
+                progress_cb(s + 1, spp, film)
     return film
+
+
+def tonemap_ldr(img: np.ndarray, settings: RenderSettings) -> np.ndarray:
+    """The ldrfilm develop chain (films/ldrfilm.cpp): exposure, optional
+    Reinhard, then sRGB (``gamma`` <= 0) or a power gamma, in [0, 1]."""
+    img = np.asarray(img, np.float32) * (2.0 ** settings.exposure)
+    if settings.tonemap == "reinhard":
+        lum = (img[..., 0] * 0.212671 + img[..., 1] * 0.715160
+               + img[..., 2] * 0.072169)
+        avg = np.exp(np.mean(np.log(np.maximum(lum, 1e-6))))
+        scaled = img * (settings.key / max(avg, 1e-9))
+        img = scaled / (1.0 + scaled)
+    g = settings.gamma
+    if g <= 0:
+        c = np.clip(img, 0, 1)
+        img = np.where(c <= 0.0031308, c * 12.92,
+                       1.055 * c ** (1 / 2.4) - 0.055)
+    else:
+        img = np.clip(img, 0, 1) ** (1.0 / g)
+    return np.clip(img, 0.0, 1.0)
+
+
+def save_render(path: str, img, settings: RenderSettings,
+                metadata: dict | None = None) -> None:
+    """Write a developed (H, W, 3) image (a tensor on any device, or numpy)
+    by the extension of ``path``; PNG, JPEG and PPM go through
+    :func:`tonemap_ldr`."""
+    from ..io import bitmap as bmp
+
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu().numpy()
+    if os.path.splitext(path)[1].lower() in (".png", ".jpg", ".ppm"):
+        img = tonemap_ldr(img, settings)
+    bmp.save(path, img, metadata=metadata)

@@ -1,5 +1,6 @@
-"""Sampler factories (``mitsuba_im_tpu/sampler/__init__.py``), taking
-keyword arguments where the reference reads a ``Properties`` bag.
+"""Sampler factories (``mitsuba_im_tpu/sampler/__init__.py``): the keyword
+factories, and the registered plugins that read ``sampleCount`` and
+``scramble`` from a ``Properties`` bag and set the builder's settings.
 
 Every sampler shares the stateless counter-based substrate of
 :mod:`..core.rng`; the plugin picks the stratification or low-discrepancy
@@ -10,6 +11,8 @@ scramble), as the reference's scene context does.
 from __future__ import annotations
 
 from ..core import rng as mrng
+from ..core.properties import Properties
+from ..core.registry import register
 
 NAMES = {
     mrng.INDEPENDENT: "independent",
@@ -44,3 +47,16 @@ ldsampler = _factory(mrng.LDSAMPLER)
 sobol = _factory(mrng.SOBOL)
 halton = _factory(mrng.HALTON)
 hammersley = _factory(mrng.HAMMERSLEY)
+
+
+def _plugin(factory):
+    def make(props: Properties, ctx=None):
+        return factory(props.get_int("sampleCount", 4),
+                       props.get_int("scramble", 0),
+                       None if ctx is None else ctx.settings)
+
+    return make
+
+
+for _make in (independent, stratified, ldsampler, sobol, halton, hammersley):
+    register("sampler", _make.__name__)(_plugin(_make))

@@ -1,14 +1,16 @@
 """Host-side scene assembly (``mitsuba_im_tpu/scene/build.py``), numpy to
 torch on a given device.
 
-The subset the ported path needs: BSDF and texture records (the
-vertexcolors bake included), shapes, triangle meshes, analytic spheres and
-disks, emitter records of every type, a sensor, and the two-level cluster
-hierarchy of scenes above ``BRUTE_FORCE_MAX`` triangles (media,
-subsurface, motion and instancing are not ported).  The host arithmetic
-(float64 numpy, then one cast to float32) is the reference's, so a scene
-built here has the same tables bit for bit as the same scene built by the
-JAX package.
+What the plugins of the ported path give it: BSDF and texture records
+(the vertexcolors bake included), shapes, triangle meshes (smooth or face
+normals), analytic spheres and disks, emitter records of every type, a
+sensor and the render settings, and the two-level cluster hierarchy of
+scenes above ``BRUTE_FORCE_MAX`` triangles (media, subsurface, motion and
+instancing are not ported).  The scene loader (``scene/xml.py``) drives it
+through the registered plugins and sets ``resolve_path`` to its search
+path.  The host arithmetic (float64 numpy, then one cast to float32) is
+the reference's, so a scene built here has the same tables bit for bit as
+the same scene built by the JAX package.
 """
 from __future__ import annotations
 
@@ -49,19 +51,32 @@ class SceneBuilder:
         self.sensor: Sensor | None = None
         self.settings = RenderSettings()
 
+    @staticmethod
+    def resolve_path(path: str) -> str:
+        """A file a plugin names, as given (``SceneLoader`` replaces this
+        with its search over the scene's directory)."""
+        return path
+
     def add_bsdf(self, record: dict) -> int:
         self.bsdf_records.append(record)
         return len(self.bsdf_records) - 1
+
+    def default_bsdf(self) -> int:
+        """A row for a shape without a BSDF (diffuse 0.5, as in the
+        reference)."""
+        return self.add_bsdf(bc.default_record())
 
     def new_shape(self, bsdf_id: int, emitter_id: int = INVALID) -> int:
         self.shape_bsdf.append(bsdf_id)
         self.shape_emitter.append(emitter_id)
         return len(self.shape_bsdf) - 1
 
-    def add_trimesh(self, mesh, shape_id: int, corner_uvs=None):
+    def add_trimesh(self, mesh, shape_id: int, face_normals: bool = False,
+                    corner_uvs=None):
         """mesh: anything with positions, indices, normals and uvs (and
         colors, for a pending vertexcolors texture, which this mesh bakes).
-        ``corner_uvs`` (T, 3, 2) replaces the mesh's per-vertex uvs."""
+        ``face_normals`` shades with the geometric normal; ``corner_uvs``
+        (T, 3, 2) replaces the mesh's per-vertex uvs."""
         p = np.asarray(mesh.positions, np.float64)
         idx = np.asarray(mesh.indices, np.int64)
         if self.pending_vertexcolors:
@@ -76,7 +91,7 @@ class SceneBuilder:
         gn = np.cross(e1, e2)
         ln = np.linalg.norm(gn, axis=1, keepdims=True)
         gn = np.divide(gn, ln, out=np.zeros_like(gn), where=ln > 0)
-        if mesh.normals is not None:
+        if mesh.normals is not None and not face_normals:
             n0, n1, n2 = (mesh.normals[idx[:, k]] for k in range(3))
         else:
             n0 = n1 = n2 = gn

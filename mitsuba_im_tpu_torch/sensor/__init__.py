@@ -1,15 +1,18 @@
-"""Sensor factories (``mitsuba_im_tpu/sensor/__init__.py``), taking keyword
-arguments where the reference reads a ``Properties`` bag.
+"""Sensor factories (``mitsuba_im_tpu/sensor/__init__.py``): the keyword
+factories, and the registered plugins that read a ``Properties`` bag and
+call them.
 
 Each returns a host (CPU) :class:`~.table.Sensor`; ``SceneBuilder.build``
 moves it to the scene's device.  ``settings`` (a ``RenderSettings``), when
 given, sets the crop aspect from its width and height, as the reference's
-scene context does.
+scene context does (the plugins take the builder's).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.properties import Properties
+from ..core.registry import register
 from ..core.transform import Transform
 from . import table as st
 
@@ -88,3 +91,65 @@ def irradiancemeter(to_world=None, **common) -> st.Sensor:
 def fluencemeter(to_world=None, **common) -> st.Sensor:
     """A radiance meter, as in the reference."""
     return _common(st.S_RADIANCEMETER, to_world, **common)
+
+
+# -- the registered plugins ------------------------------------------------
+
+def _common_props(props: Properties, ctx) -> dict:
+    xf = props.get_transform("toWorld", Transform())
+    return dict(to_world=xf, near_clip=props.get_float("nearClip", 1e-2),
+                far_clip=props.get_float("farClip", 1e4),
+                shutter_open=props.get_float("shutterOpen", 0.0),
+                shutter_close=props.get_float("shutterClose", 0.0),
+                settings=None if ctx is None else ctx.settings)
+
+
+@register("sensor", "perspective")
+def _perspective(props: Properties, ctx=None):
+    fov = props.get_float("fov", 0.0) if "fov" in props else None
+    fl = (props.get_string("focalLength", "50") if fov is None
+          and "focalLength" in props else None)
+    return perspective(fov=fov, focal_length=fl,
+                       fov_axis=props.get_string("fovAxis", "x"),
+                       **_common_props(props, ctx))
+
+
+@register("sensor", "perspective_rdist")
+def _perspective_rdist(props: Properties, ctx=None):
+    props.get_string("kc", "0, 0")
+    return _perspective(props, ctx)
+
+
+@register("sensor", "thinlens")
+def _thinlens(props: Properties, ctx=None):
+    return thinlens(fov=props.get_float("fov", 45.0),
+                    fov_axis=props.get_string("fovAxis", "x"),
+                    aperture_radius=props.get_float("apertureRadius", 0.1),
+                    focus_distance=props.get_float("focusDistance", 1.0),
+                    **_common_props(props, ctx))
+
+
+@register("sensor", "orthographic")
+def _orthographic(props: Properties, ctx=None):
+    return orthographic(**_common_props(props, ctx))
+
+
+@register("sensor", "telecentric")
+def _telecentric(props: Properties, ctx=None):
+    return telecentric(
+        aperture_radius=props.get_float("apertureRadius", 0.1),
+        focus_distance=props.get_float("focusDistance", 1.0),
+        **_common_props(props, ctx))
+
+
+def _plain(factory):
+    def make(props: Properties, ctx=None):
+        return factory(**_common_props(props, ctx))
+
+    return make
+
+
+register("sensor", "spherical")(_plain(spherical))
+register("sensor", "radiancemeter")(_plain(radiancemeter))
+register("sensor", "irradiancemeter")(_plain(irradiancemeter))
+register("sensor", "fluencemeter")(_plain(fluencemeter))

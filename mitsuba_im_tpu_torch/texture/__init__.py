@@ -1,10 +1,13 @@
-"""Texture record factories (``mitsuba_im_tpu/texture/__init__.py``), taking
-keyword arguments where the reference reads a ``Properties`` bag.
+"""Texture record factories (``mitsuba_im_tpu/texture/__init__.py``): the
+keyword factories, and the registered plugins that read a ``Properties``
+bag and call them.
 
 Each factory adds its record to a :class:`~.texture.TextureBuilder` (a
 ``SceneBuilder``'s ``textures``) and returns the texture id that a BSDF
-record's ``*_tex`` column takes.  Bitmaps come from pixel arrays; loading
-image files is not ported.
+record's ``*_tex`` column takes.  The keyword ``bitmap`` takes pixel
+arrays; the ``bitmap`` plugin loads its ``filename`` through
+``io/bitmap.py``, sRGB-decoding 8-bit formats unless ``gamma`` is 1, as the
+reference does.  ``curvature`` is the reference's constant 0.5.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import warnings
 
 import numpy as np
 
+from ..core.properties import Properties
+from ..core.registry import register
 from ..core.types import INVALID
 from . import texture as tx
 
@@ -80,10 +85,10 @@ def vertexcolors(builder) -> int:
     return tid
 
 
-def curvature(*_, **__):
-    """``curvature`` needs per-vertex curvature, which the reference
-    replaces by a constant; it is not ported."""
-    raise NotImplementedError("the curvature texture is not ported")
+def curvature(tb: tx.TextureBuilder) -> int:
+    """``curvature``: the reference stands a constant 0.5 in for the
+    per-vertex curvature, and so does the port."""
+    return tb.add_constant(np.full(3, 0.5))
 
 
 def bake_vertex_colors(tb: tx.TextureBuilder, mesh, tex_ids):
@@ -124,3 +129,88 @@ def bake_vertex_colors(tb: tx.TextureBuilder, mesh, tex_ids):
     uv[:, 2, 0] = u0
     uv[:, 2, 1] = 0.75
     return uv
+
+
+# -- the registered plugins ------------------------------------------------
+
+def _uv_props(props: Properties) -> dict:
+    return dict(uscale=props.get_float("uscale", 1.0),
+                vscale=props.get_float("vscale", 1.0),
+                uoffset=props.get_float("uoffset", 0.0),
+                voffset=props.get_float("voffset", 0.0))
+
+
+@register("texture", "bitmap")
+def _bitmap(props: Properties, ctx=None):
+    from ..io import bitmap as bmp
+
+    path = props.get_string("filename")
+    if ctx is not None:
+        path = ctx.resolve_path(path)
+    gamma = props.get_float("gamma", -1.0)
+    pixels = bmp.load(path, gamma_correct=(gamma != 1.0))[..., :3]
+    wrap = props.get_string("wrapMode", "repeat")
+    props.get_string("filterType", "ewa")
+    uv = _uv_props(props)
+    if ctx is None:
+        return INVALID
+    return bitmap(ctx.textures, pixels, wrap=wrap, **uv)
+
+
+@register("texture", "checkerboard")
+def _checkerboard(props: Properties, ctx=None):
+    c0 = props.get_spectrum("color0", np.full(3, 0.4))
+    c1 = props.get_spectrum("color1", np.full(3, 0.2))
+    uv = _uv_props(props)
+    if ctx is None:
+        return INVALID
+    return checkerboard(ctx.textures, c0, c1, **uv)
+
+
+@register("texture", "gridtexture")
+def _gridtexture(props: Properties, ctx=None):
+    c0 = props.get_spectrum("color0", np.full(3, 0.2))
+    c1 = props.get_spectrum("color1", np.full(3, 0.4))
+    lw = props.get_float("lineWidth", 0.01)
+    uv = _uv_props(props)
+    if ctx is None:
+        return INVALID
+    return gridtexture(ctx.textures, c0, c1, lw, **uv)
+
+
+@register("texture", "scale")
+def _scale(props: Properties, ctx=None):
+    """``scale`` times the nested texture, or without one the constant
+    ``value * scale``.  A missing ``scale`` falls back to ``value`` in both
+    cases, so that constant is ``value`` squared: the reference's reading
+    (ROADMAP C12), copied so that the tables stay the reference's."""
+    sc = (props.get_spectrum("scale", np.ones(3)) if "scale" in props
+          else np.full(3, props.get_float("value", 1.0)))
+    nested = props.children.get("texture", INVALID)
+    if ctx is None:
+        return INVALID
+    if isinstance(nested, (int, np.integer)) and nested >= 0:
+        return scale(ctx.textures, int(nested), sc)
+    base = (props.get_spectrum("value", np.ones(3)) if "value" in props
+            else np.ones(3))
+    return scale(ctx.textures, INVALID, sc, base)
+
+
+@register("texture", "wireframe")
+def _wireframe(props: Properties, ctx=None):
+    c0 = props.get_spectrum("interiorColor", np.full(3, 0.5))
+    c1 = props.get_spectrum("edgeColor", np.full(3, 0.1))
+    lw = props.get_float("lineWidth", 0.01)
+    if ctx is None:
+        return INVALID
+    return wireframe(ctx.textures, c0, c1, lw)
+
+
+@register("texture", "vertexcolors")
+def _vertexcolors(props: Properties, ctx=None):
+    return INVALID if ctx is None else vertexcolors(ctx)
+
+
+@register("texture", "curvature")
+def _curvature(props: Properties, ctx=None):
+    return INVALID if ctx is None else curvature(ctx.textures)

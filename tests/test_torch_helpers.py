@@ -78,6 +78,39 @@ def jax_shapes_scene(sphere_bsdf: dict | None = None,
     return b.build()[0]
 
 
+def scene_leaves(scene) -> dict:
+    """{"<part>.<field>": tensor or static} of a port Scene, the cluster
+    hierarchy's included when the scene has one."""
+    import dataclasses
+
+    out = {}
+    for part in ("geom", "bsdfs", "textures", "emitters", "sensor",
+                 "clusters"):
+        obj = getattr(scene, part)
+        if obj is None:
+            out[part] = None
+            continue
+        for f in dataclasses.fields(obj):
+            out[f"{part}.{f.name}"] = getattr(obj, f.name)
+    for k in ("shape_bsdf", "shape_emitter"):
+        out[f"scene.{k}"] = getattr(scene, k)
+    return out
+
+
+def assert_same_scene(port, ref) -> None:
+    """Every leaf of the port Scene ``port`` equals ``ref``'s (a bridged
+    reference scene) bit for bit, dtypes and statics included."""
+    a, b = scene_leaves(ref), scene_leaves(port)
+    assert a.keys() == b.keys()
+    for key, x in a.items():
+        y = b[key]
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and x.shape == y.shape, key
+            assert torch.equal(x, y), key
+        else:
+            assert x == y, key
+
+
 def npy(x) -> np.ndarray:
     """torch tensor / jax array / python value -> numpy."""
     if isinstance(x, torch.Tensor):

@@ -96,6 +96,10 @@ JAX_FREE = textwrap.dedent("""
         importlib.import_module(name)
     import chip_smoke, bench_tri_kernels, bench_hier_kernels, bench_pass
     import profile_pass, tri_sass
+    import mitsuba_im_tpu_torch.cli.main, mitsuba_im_tpu_torch.scene.xml
+    from mitsuba_im_tpu_torch.core import registry
+    registry._ensure_loaded()
+    assert "path" in registry.available_plugins("integrator")
     leaked = [m for m in sys.modules
               if m == "mitsuba_im_tpu" or m.startswith("mitsuba_im_tpu.")]
     assert not leaked, leaked

@@ -135,18 +135,19 @@ def test_pyramid_and_atlas_bit_exact():
     props.set("scale", 2.5)
     props.children["texture"] = 0
     create("texture", props, ctx)
+    create("texture", Properties("curvature"), ctx)
     tb = ttx.TextureBuilder()
     ttex.checkerboard(tb, uscale=3.0)
     ttex.gridtexture(tb, line_width=0.05)
     ttex.wireframe(tb)
     ttex.scale(tb, 0, scale=2.5)
+    ttex.curvature(tb)  # the reference's constant 0.5
+    assert len(ctx.textures.records) == len(tb.records) == 5
     for a, b in zip(ctx.textures.records, tb.records):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]),
                                           err_msg=k)
-    with pytest.raises(NotImplementedError):
-        ttex.curvature(tb)
 
 
 def test_integer_helpers_exact():
