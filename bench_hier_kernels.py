@@ -11,8 +11,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 calls it.  ``--parent DIR`` adds the ``hier_traverse.cu`` of an older
 checkout unpacked at DIR (for example ``git archive <commit> | tar -x -C
 DIR``), built with the port's flags and bound by the version its library
-reports (``hier_interface``): the port's own, or interface 1, the entry
-points from before that query existed (no culling boxes, no ray
+reports (``hier_interface``): the port's own, interface 2 (the static
+entry points of the port's, without the motion mode), or interface 1, the
+entry points from before that query existed (no culling boxes, no ray
 counters); any other version is refused.
 
 On the 1,120,504-triangle large scene (``scenes.large_scene``) it checks
@@ -23,7 +24,8 @@ on the camera rays, any hit on the shadow rays), it times the builds in
 turns: the card time of one call with ``chip_smoke.median_ms_in_turns``
 (CUDA events around each call, median of ``--reps`` rounds), the kernel's
 own device time with ``chip_smoke.device_ms_in_turns`` (torch.profiler,
-one primed session per round, median of ``--reps``), and the host's time
+one primed session per round, median of ``--reps``, and its quartiles over
+the rounds, the spread a build's median is read against), and the host's time
 to queue one call (median over rounds of 20 calls queued while the card
 sleeps, so no call waits for the card).  A build that does
 not compile is reported and left out; one that disagrees is timed and
@@ -57,9 +59,13 @@ SLEEP_CYCLES = 200_000_000  # ~0.1 s of card sleep: longer than the queueing
 
 
 def _bind_any(lib):
-    """Bind the port's interface, or interface 1 (no ``hier_interface``)."""
+    """Bind the port's interface, interface 2 (its static entry points) or
+    interface 1 (no ``hier_interface``)."""
     if hasattr(lib, "hier_interface"):
-        ch._bind(lib)
+        if lib.hier_interface() == 2:
+            ch.bind_static(lib)
+        else:
+            ch._bind(lib)
         return
     p, i = ctypes.c_void_p, ctypes.c_int
     args = [p] * 9 + [i] + [p, p, i, i] + [p] * 6 + [i, i]
@@ -195,13 +201,24 @@ def main():
     for k, (closest, anyhit) in fns_of.items():
         fns[f"{k}/closest"] = lambda f=closest: f(*cam[:5], active=cam[5])
         fns[f"{k}/anyhit"] = lambda f=anyhit: f(*sh[:5], active=sh[5])
+    rounds = {}
     for unit, got in (("ms", cs.median_ms_in_turns(fns, args.reps)),
                       ("device_ms", cs.device_ms_in_turns(
-                          fns, args.reps, names=HIER_KERNELS)),
+                          fns, args.reps, names=HIER_KERNELS,
+                          rounds=rounds)),
                       ("host_us", host_us_in_turns(fns, args.reps))):
         for key, v in got.items():
             k, which = key.split("/")
             report[k][f"{which}_{unit}"] = v
+    for key, v in rounds.items():
+        # the spread of a build's device ms: its kept rounds' quartiles
+        k, which = key.split("/")
+        if len(v) >= 2:
+            q = statistics.quantiles(v, n=4)
+            report[k][f"{which}_device_ms_quartiles"] = (q[0], q[2])
+            cs.log(f"[bench] {key}: device ms rounds {len(v)}, quartiles "
+                   f"{q[0]:.4f} - {q[2]:.4f}, range {min(v):.4f} - "
+                   f"{max(v):.4f}")
     cam_counts = hy.intersect_hierarchy_plain(*cam[:5])[1]
     sh_counts = hy.intersect_hierarchy_plain(*sh[:5], any_hit=True,
                                              active=sh[5])[1]

@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the run exits non-zero:
 2. build: compile ``csrc/tri_intersect.cu`` and ``csrc/hier_traverse.cu``
    with nvcc and ``csrc/bvh_build.cpp`` and ``csrc/alias_build.cpp`` with
    the host C++ compiler, all four at once (each timed; ptxas register
-   and spill report);
+   and spill report, each kernel named);
 3. brute-force kernels vs their plain PyTorch versions on the card, bit
    for bit: 2^20 camera rays into the Cornell soup and into
    material_cornell's (272 triangles, phase 12's path), and 2^20 random
@@ -172,7 +172,36 @@ Phases, in order; any failure raises and the run exits non-zero:
    ``serialized`` written by ``save_serialized``, ``cube``, ``cylinder``;
    textures: a PNG ``bitmap`` and ``curvature``; lights: ``blackbody`` and
    ``spectrum`` values, and an ``ldrfilm`` whose command-line PNG is
-   Reinhard tone mapped) at 64^2, depth 3, card vs CPU under the gate.
+   Reinhard tone mapped) at 64^2, depth 3, card vs CPU under the gate;
+29. ``[motion large]``: the large scene's mesh as a deformable, frame 1
+   moved a fifth of its radius along x, shutter 0-1: both hierarchy
+   kernels' motion mode bit for bit with the plain version on the 768^2
+   camera rays and their shadow rays at t = 0, 0.37 and 1, and with the
+   static kernel on frame 0's rows at t = 0; the motion mode and the static
+   mode on the same tables timed in turns (events and the profiler's device
+   ms, median of 11) with the motion mode's bound (both row tables read
+   once, the lerp's flops once a cluster row); ``render_film`` at 768^2, depth 3, 2 spp with 3 + 2
+   motion launches a pass; card vs CPU at 64^2, 2 spp;
+30. ``[motion cornell]``: the Cornell box with a deformable quad sliding
+   across it, 1024^2, depth 5, 4 spp, 5 + 4 brute-force launches a pass on
+   the lerped tables, the image moved from frame 0's; card vs CPU at 128^2;
+31. ``[instanced]``: a shapegroup of the 1,120,504-triangle mesh instanced
+   4 x 4 (17.9M triangles seen): the kernels bit for bit on its camera
+   rays, 768^2, depth 3, 2 spp with 3 + 2 hierarchy launches a pass, peak
+   memory, card vs CPU at 64^2; 4 instances of a 100k-triangle mesh
+   against the same scene expanded, on the card, under the gate;
+32. ``[irawan]``: the Cornell box with the plain weave on the floor and a
+   twill on the back wall, 1024^2, depth 5, 4 spp: launches, the pass
+   time, device operations a pass, card vs CPU at 128^2;
+33. ``[integrators]``: ``direct`` (2 + 2 samples), ``ao`` (4), every
+   ``field`` name and ``motion`` through the command line on the XML
+   Cornell at 1024^2, 4 spp, and ``direct`` and ``ao`` on phase 27's large
+   scene at 768^2: launches a pass (direct 3 + 2, ao 1 + 4, the others
+   1 + 0), the pass time, card vs CPU;
+34. ``[tiled]``: the XML Cornell with ``tiledhdrfilm`` at 4096^2 through the
+   command line in bands of 64 rows (render_tiled's default): seconds, launches and peak memory
+   against one full-frame 4096^2 pass; at 1024^2 the tiled film (full
+   precision) within 2e-5 of ``render_film``'s.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -180,6 +209,7 @@ The next-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -211,9 +241,12 @@ from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
 from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
+from mitsuba_im_tpu_torch.integrators.simple import FIELDS
 from mitsuba_im_tpu_torch.scenes import (CORNELL_CAMERA, LIGHTS, LIGHTS_LENS,
-                                         large_scene, lights_cornell,
-                                         material_cornell, textured_cornell,
+                                         MOTION_SHIFT, instanced_scene,
+                                         irawan_cornell, large_scene,
+                                         lights_cornell, material_cornell,
+                                         motion_cornell, textured_cornell,
                                          tiny_cornell)
 from mitsuba_im_tpu_torch.scenes import LARGE_CAMERA, SUN_DIR, displaced_sphere
 from mitsuba_im_tpu_torch.emitter import hosek
@@ -235,6 +268,12 @@ HIER_SOURCE = "mitsuba_im_tpu_torch/csrc/hier_traverse.cu"
 HIER_REPLACES = ("mitsuba_im_tpu/accel/hier_kernel.py:81, "
                  "mitsuba_im_tpu/accel/hier_kernel.py:285, "
                  "mitsuba_im_tpu/accel/hier_kernel.py:439")
+# the motion mode: the XLA driver's lerp that it ports, in the kernels
+# above
+HIER_MOTION_REPLACES = ("mitsuba_im_tpu/accel/hierarchy.py:573 (the lerp "
+                        "of the XLA driver; the Pallas kernels of "
+                        "mitsuba_im_tpu/accel/hier_kernel.py:81, :285, :439 "
+                        "have no motion mode)")
 L_RES = 768  # the large scene
 L_DEPTH = 3
 L_SPP = 2
@@ -287,13 +326,16 @@ def build_phase():
         log(f"[build] {name}: {lib.path().name}, compiler "
             f"{lib.seconds:.2f} s")
         for line in lib.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("registers", "smem", "spill",
+                                       "Function properties")):
                 log(f"[build]   {line.strip()}")
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over reps calls (CUDA events, warmed up)."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of fn() over reps calls (CUDA events; one call
+    first to warm up, unless ``warm`` is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -324,7 +366,7 @@ def median_ms_in_turns(fns, reps):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def device_ms_in_turns(fns, reps, names=TRI_KERNELS):
+def device_ms_in_turns(fns, reps, names=TRI_KERNELS, rounds=None):
     """{name: median device ms of the kernel that each fn launches, named
     with one of ``names``}: torch.profiler's kernel durations, the
     functions in turns, ``reps`` rounds after a warm-up.  Each round is a
@@ -334,7 +376,8 @@ def device_ms_in_turns(fns, reps, names=TRI_KERNELS):
     last ``len(fns)`` recorded, in the order of the calls.  A round is left
     out (logged) when fewer were recorded, or when the first pass's
     recorded kernels do not match the second's by name.  None for each
-    function when no round was kept."""
+    function when no round was kept.  ``rounds``, a dict, takes each
+    function's kept rounds (ms)."""
     def run(passes):
         for _ in range(passes):
             for fn in fns.values():
@@ -361,6 +404,8 @@ def device_ms_in_turns(fns, reps, names=TRI_KERNELS):
         log(f"[profile] {len(left_out)} of {reps} rounds left out: the "
             f"profiler recorded {sorted(set(left_out))} kernels of "
             f"{2 * n} calls")
+    if rounds is not None:
+        rounds.update(times)
     return {k: statistics.median(v) if v else None
             for k, v in times.items()}
 
@@ -579,8 +624,9 @@ def pass_time(scene, settings, k_lo, k_hi, rays, tag="main"):
     def run(k):
         return lambda: render_film(scene, settings, spp=k)
 
-    t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
-    t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
+    run(1)()  # warm up once; each count is then timed twice
+    t_lo = min(cuda_ms(run(k_lo), 1, warm=False) for _ in range(2))
+    t_hi = min(cuda_ms(run(k_hi), 1, warm=False) for _ in range(2))
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
     log(f"[{tag}] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
         f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
@@ -1019,8 +1065,9 @@ def grad_pass_time(scene, settings, cfg, labels, k_lo, k_hi, rays, tag):
         return lambda: [grad_pass(scene, settings, cfg, labels, s)
                         for s in range(k)]
 
-    t_lo = min(cuda_ms(run(k_lo), 1) for _ in range(2))
-    t_hi = min(cuda_ms(run(k_hi), 1) for _ in range(2))
+    run(1)()  # warm up once; each count is then timed twice
+    t_lo = min(cuda_ms(run(k_lo), 1, warm=False) for _ in range(2))
+    t_hi = min(cuda_ms(run(k_hi), 1, warm=False) for _ in range(2))
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
     log(f"[{tag}] fwd+bwd pass time {per_pass:.3f} ms ({k_lo} passes "
         f"{t_lo:.3f} ms, {k_hi} passes {t_hi:.3f} ms); {rays} rays per pass;"
@@ -2261,6 +2308,418 @@ def xml_plugins_phase(dev):
     return len(PLUGIN_XML)
 
 
+# ---------------------------------------------------------------------------
+# motion blur, instancing, woven cloth, the other integrators, the tiled film
+# ---------------------------------------------------------------------------
+
+FLOP_LERP = 3  # one lerped plane value: two products and a sum
+BIG_TILED = 4096  # the tiled film phase's image side
+M_TIMES = (0.0, 0.37, 1.0)  # shutter times of the motion mode's checks
+
+
+def film_values(scene, settings, res, spp=1):
+    """Per-pixel channel sum of a render_film at res^2 (the settings'
+    integrator, sampler and filter; CPU numpy)."""
+    st = dataclasses.replace(settings, width=res, height=res)
+    return develop(render_film(scene, st, spp=spp)).sum(-1).cpu().numpy()
+
+
+def launch_counts():
+    return dict(closest=ci.closest_tris_v.launches,
+                anyhit=ci.anyhit_tris_v.launches,
+                hier_closest=ch.hier_closest.launches,
+                hier_anyhit=ch.hier_anyhit.launches,
+                motion_closest=ch.hier_closest.motion_launches,
+                motion_anyhit=ch.hier_anyhit.motion_launches)
+
+
+def counted_render(tag, scene, settings, expect):
+    """render_film with every count set to 0 first; raises unless the
+    counts are ``expect`` (the keys given; the others 0).  Returns (film,
+    counts, peak GiB)."""
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    film = render_film(scene, settings)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: expect.get(k, 0) for k in got}
+    log(f"[{tag}] render_film {settings.width}x{settings.height} spp "
+        f"{settings.spp} integrator {settings.integrator}: launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v or want[k])
+        + f"; peak device memory {peak:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"[{tag}] expected launches {want}, got {got}")
+    return film, got, peak
+
+
+def check_image(tag, img, lo=0.02, hi=50.0):
+    lum = luminance(img)
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError(f"[{tag}] non-finite or negative pixels")
+    if not lo < lum.mean() < hi:
+        raise AssertionError(f"[{tag}] implausible mean luminance "
+                             f"{lum.mean()}")
+    return lum
+
+
+def motion_large_phase(dev):
+    """29. [motion large]: the large scene's mesh deformable; the hierarchy
+    kernels' motion mode against the plain version and the static mode;
+    render_film at 768^2 depth 3 2 spp; card vs CPU at 64^2."""
+    t0 = time.perf_counter()
+    scene, settings = large_scene(dev, motion=True)
+    h = scene.clusters
+    log(f"[motion large] scene built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: {scene.geom.n_tris} triangles, "
+        f"motion hierarchy {h.has_motion}, {h.n_supers} supers, frame 1 "
+        f"moved {MOTION_SHIFT} along x")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    n = L_RES * L_RES
+    _, o, d = camera_rays(scene, L_RES)
+    err, flips, cam = 0.0, 0, {}
+    for t in M_TIMES:
+        ht = h.at_time(t)
+        e, f, cnt = check_hier(f"motion camera 768^2 t={t}", ht, o, d,
+                               EPSILON, 1e30)
+        cam[t] = cnt
+        tt, _, _, _, _, found = ch.hier_closest(ht, o, d, EPSILON, 1e30)
+        p, w, tmax = shadow_rays(scene, o, d, tt, found, gen)
+        e2, f2, _ = check_hier(f"motion shadow rays t={t}", ht, p, w,
+                               EPSILON, tmax, found)
+        err, flips = max(err, e, e2), flips + f + f2
+    # at t = 0 the motion mode is the static kernel on frame 0's rows
+    static = dataclasses.replace(h, has_motion=False)
+    h0 = h.at_time(0.0)
+    a = ch.hier_closest(h0, o, d, EPSILON, 1e30)
+    b = ch.hier_closest(static, o, d, EPSILON, 1e30)
+    p, w, tmax = shadow_rays(scene, o, d, a[0], a[5], gen)
+    ab = ch.hier_anyhit(h0, p, w, EPSILON, tmax, a[5])
+    bb = ch.hier_anyhit(static, p, w, EPSILON, tmax, a[5])
+    torch.cuda.synchronize()
+    m0 = mismatches(a, b) + mismatches((ab,), (bb,))
+    log(f"[motion large] t=0 motion mode vs static kernel on frame 0: "
+        f"mismatches {m0}")
+    if m0:
+        raise AssertionError("the motion mode at t = 0 is not the static "
+                             "kernel")
+    ht = h.at_time(0.37)
+    tt, _, _, _, _, found = ch.hier_closest(ht, o, d, EPSILON, 1e30)
+    p, w, tmax = shadow_rays(scene, o, d, tt, found, gen)
+    calls = {"motion_closest": lambda: ch.hier_closest(ht, o, d, EPSILON,
+                                                       1e30),
+             "static_closest": lambda: ch.hier_closest(static, o, d,
+                                                       EPSILON, 1e30),
+             "motion_anyhit": lambda: ch.hier_anyhit(ht, p, w, EPSILON, tmax,
+                                                     found),
+             "static_anyhit": lambda: ch.hier_anyhit(static, p, w, EPSILON,
+                                                     tmax, found)}
+    timing = median_ms_in_turns(calls, 11)
+    for k, v in device_ms_in_turns(calls, 11, names=HIER_KERNELS).items():
+        timing[f"{k}_device"] = v
+    timing.update(median_ms_in_turns({
+        "motion_closest_plain": lambda: hy.intersect_hierarchy_plain(
+            ht, o, d, EPSILON, 1e30),
+        "motion_anyhit_plain": lambda: hy.intersect_hierarchy_plain(
+            ht, p, w, EPSILON, tmax, any_hit=True, active=found)}, 1))
+    sh = hy.intersect_hierarchy_plain(ht, p, w, EPSILON, tmax, any_hit=True,
+                                      active=found)[1]
+    tables = hier_table_bytes(h) + h.blocks1.numel() * 4
+
+    def flops(cnt):
+        # the function lerps each cluster row once a call; the kernel's
+        # lerp at every cluster test is work of its design, not counted
+        return hier_flops(h, cnt) + h.blocks1.shape[0] * hy.LEAF * 9 * \
+            FLOP_LERP
+
+    timing["motion_closest_bound"] = bound(n * (32 + 21) + tables,
+                                           flops(cam[0.37]))
+    timing["motion_anyhit_bound"] = bound(n * (32 + 1 + 1) + tables,
+                                          flops(sh))
+    log("[motion large] ms per call at 768^2, t=0.37 (median; static = the "
+        "same tables through the static mode): "
+        + ", ".join(f"{k} {fmt(v)}" for k, v in timing.items()
+                    if not k.endswith("bound"))
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ({v[1]})"
+                                  for k, v in timing.items()
+                                  if k.endswith("bound")))
+    settings.spp = L_SPP
+    film, got, peak = counted_render(
+        "motion large", scene, settings,
+        dict(hier_closest=L_DEPTH * L_SPP, hier_anyhit=(L_DEPTH - 1) * L_SPP,
+             motion_closest=L_DEPTH * L_SPP,
+             motion_anyhit=(L_DEPTH - 1) * L_SPP))
+    img = develop(film).cpu().numpy()
+    lum = check_image("motion large", img, 0.2, 1.5)
+    q = L_RES // 8
+    log(f"[motion large] image mean luminance {lum.mean():.5f}, centre "
+        f"{lum[3 * q:5 * q, 3 * q:5 * q].mean():.5f}, pass times "
+        f"{shutter_times(scene, L_SPP)}")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         n * (1 + 2 * (L_DEPTH - 1)), "motion large")
+    cpu_scene, _ = large_scene("cpu", motion=True)
+    parity_gate(f"motion large 64^2 depth {L_DEPTH} 2 spp",
+                film_values(scene, settings, 64, 2),
+                film_values(cpu_scene, settings, 64, 2))
+    return dict(err=err, flips=flips, timing=timing,
+                launches=(got["motion_closest"], got["motion_anyhit"]),
+                pass_ms=per_pass, peak=peak)
+
+
+def shutter_times(scene, spp):
+    from mitsuba_im_tpu_torch.render.job import shutter_time
+
+    return [round(shutter_time(scene, s), 6) for s in range(spp)]
+
+
+def motion_cornell_phase(dev):
+    """30. [motion cornell]: a deformable quad sliding across the Cornell
+    box, brute force on the lerped tables, 1024^2 depth 5 4 spp."""
+    scene, settings = motion_cornell(dev)
+    settings.width = settings.height = RES
+    settings.spp = SPP
+    settings.integrator_props = dict(max_depth=DEPTH)
+    film, _, peak = counted_render(
+        "motion cornell", scene, settings,
+        dict(closest=DEPTH * SPP, anyhit=(DEPTH - 1) * SPP))
+    img = develop(film).cpu().numpy()
+    lum = check_image("motion cornell", img)
+    still = develop(render_film(dataclasses.replace(
+        scene.with_time(0.0), motion=None), settings)).cpu().numpy()
+    moved = float(np.abs(luminance(still) - lum).mean())
+    log(f"[motion cornell] mean luminance {lum.mean():.5f}; mean |blurred - "
+        f"frame 0| {moved:.5f}; shutter times {shutter_times(scene, SPP)}")
+    if moved < 1e-3:
+        raise AssertionError("the deformable quad did not move")
+    per_pass = pass_time(scene, settings, 2, 6,
+                         RES * RES * (1 + 2 * (DEPTH - 1)), "motion cornell")
+    cpu_scene, _ = motion_cornell("cpu")
+    parity_gate("motion cornell 128^2 depth 5 2 spp",
+                film_values(scene, settings, 128, 2),
+                film_values(cpu_scene, settings, 128, 2))
+    return dict(pass_ms=per_pass, peak=peak)
+
+
+def instanced_phase(dev):
+    """31. [instanced]: 16 instances of the 1,120,504-triangle mesh through
+    the indirect route at 768^2 depth 3 2 spp; card vs CPU at 64^2; 4
+    instances of a 100k-triangle mesh against the same scene expanded."""
+    t0 = time.perf_counter()
+    scene, settings = instanced_scene(dev)
+    h = scene.clusters
+    n_inst = scene.geom.inst_rot.shape[0] - 1
+    log(f"[instanced] scene built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: {scene.geom.n_tris} triangles "
+        f"stored, {n_inst} instances, {scene.geom.n_tris * n_inst} seen; "
+        f"{h.n_supers} world supers, {h.blocks.shape[0]} cluster rows "
+        f"(tables {hier_table_bytes(h) / 2**20:.1f} MiB)")
+    _, o, d = camera_rays(scene, L_RES)
+    check_hier("instanced camera 768^2", h, o, d, EPSILON, 1e30)
+    settings.spp = L_SPP
+    film, got, peak = counted_render(
+        "instanced", scene, settings,
+        dict(hier_closest=L_DEPTH * L_SPP, hier_anyhit=(L_DEPTH - 1) * L_SPP))
+    img = develop(film).cpu().numpy()
+    lum = check_image("instanced", img, 0.2, 1.5)
+    log(f"[instanced] image mean luminance {lum.mean():.5f}")
+    per_pass = pass_time(scene, settings, 1, 3,
+                         L_RES * L_RES * (1 + 2 * (L_DEPTH - 1)), "instanced")
+    cpu_scene, _ = instanced_scene("cpu")
+    parity_gate(f"instanced 64^2 depth {L_DEPTH}",
+                film_values(scene, settings, 64, 1),
+                film_values(cpu_scene, settings, 64, 1))
+    del scene, cpu_scene
+    small, sset = instanced_scene(dev, n_side=2, n_tris_target=100_000)
+    flat, fset = instanced_scene(dev, n_side=2, n_tris_target=100_000,
+                                 expanded=True)
+    log(f"[instanced] 4 instances of {small.geom.n_tris} triangles vs the "
+        f"expanded scene of {flat.geom.n_tris}")
+    parity_gate("4 instances vs expanded, card, 256^2",
+                film_values(small, sset, 256, 2),
+                film_values(flat, fset, 256, 2))
+    return dict(pass_ms=per_pass, peak=peak,
+                launches=(got["hier_closest"] // L_SPP,
+                          got["hier_anyhit"] // L_SPP))
+
+
+def irawan_phase(dev):
+    """32. [irawan]: the Cornell box with the plain weave on the floor and
+    the twill on the back wall, 1024^2 depth 5 4 spp; device operations
+    per pass; card vs CPU at 128^2."""
+    t0 = time.perf_counter()
+    scene, settings = irawan_cornell(dev)
+    log(f"[irawan] scene built in {time.perf_counter() - t0:.2f} s (the "
+        f"normalization pre-pass of two patterns included), weaves "
+        f"{[w.name for w in scene.bsdfs.weaves]}")
+    settings.width = settings.height = RES
+    settings.spp = SPP
+    settings.integrator_props = dict(max_depth=DEPTH)
+    film, _, peak = counted_render(
+        "irawan", scene, settings,
+        dict(closest=DEPTH * SPP, anyhit=(DEPTH - 1) * SPP))
+    img = develop(film).cpu().numpy()
+    lum = check_image("irawan", img)
+    log(f"[irawan] mean luminance {lum.mean():.5f}, floor "
+        f"{lum[-RES // 8:, RES // 3:-RES // 3].mean():.5f}")
+    per_pass = pass_time(scene, settings, 2, 6,
+                         RES * RES * (1 + 2 * (DEPTH - 1)), "irawan")
+    prof = device_profile("irawan",
+                          lambda k: render_film(scene, settings, spp=k))
+    cpu_scene, _ = irawan_cornell("cpu")
+    parity_gate("irawan cornell 128^2 depth 5",
+                path_luminance(scene, 128, DEPTH),
+                path_luminance(cpu_scene, 128, DEPTH))
+    return dict(pass_ms=per_pass, peak=peak, prof=prof)
+
+
+INTEGRATOR_XML = {
+    "direct": '<integrator type="direct"><integer name="emitterSamples" '
+              'value="2"/><integer name="bsdfSamples" value="2"/>'
+              '</integrator>',
+    "ao": '<integrator type="ao"><integer name="shadingSamples" value="4"/>'
+          '</integrator>',
+    "motion": '<integrator type="motion"/>',
+    **{f"field {f}": f'<integrator type="field"><string name="field" '
+                     f'value="{f}"/></integrator>' for f in FIELDS},
+}
+# closest-hit and any-hit launches a pass: the camera ray, direct's BSDF
+# samples and its light samples, ao's shading samples
+INTEGRATOR_LAUNCHES = {"direct": (3, 2), "ao": (1, 4)}
+
+
+def with_integrator(xml, integrator):
+    start = xml.index("<integrator")
+    end = xml.index("</integrator>") + len("</integrator>")
+    return xml[:start] + integrator + xml[end:]
+
+
+def integrators_phase(dev, smi):
+    """33. [integrators]: direct, ao, every field and motion from scene
+    files through the command line, the XML Cornell at 1024^2 and direct
+    and ao on the large scene (the files of phase 27) at 768^2; launches a
+    pass, the pass time, card vs CPU."""
+    out = {}
+    base = CORNELL_XML.format(max_depth=DEPTH, spp=SPP, res=RES)
+    cpu_cache = {}
+    for name, xml in INTEGRATOR_XML.items():
+        path = xml_file(f"int_{name.replace(' ', '_')}.xml",
+                        with_integrator(base, xml))
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        with Spy(scene_xml, "load_scene") as ld:
+            run_cli(path, "-o", os.path.join(XML_DIR, "int.exr"))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        scene, settings = ld.result
+        c, a = INTEGRATOR_LAUNCHES.get(name, (1, 0))
+        want = dict(closest=c * SPP, anyhit=a * SPP)
+        if {k: got[k] for k in got} != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"[integrators] {name}: expected {want}, "
+                                 f"got {got}")
+        img, _ = exr.read_exr(os.path.join(XML_DIR, "int.exr"))
+        if not np.isfinite(img).all() or not np.abs(img).max() > 0:
+            raise AssertionError(f"[integrators] {name}: empty image")
+        per_pass = pass_time(scene, settings, 2, 6, RES * RES * (c + a),
+                             f"integrators {name}")
+        cpu = cpu_cache.get("cornell")
+        if cpu is None:
+            cpu = cpu_cache["cornell"] = scene_xml.load_scene(
+                path, device="cpu")[0]
+        parity_gate(f"{name} cornell 128^2",
+                    film_values(scene, settings, 128, 1),
+                    film_values(cpu, settings, 128, 1))
+        out[name] = dict(launches=(c, a), pass_ms=per_pass)
+    c = LARGE_CAMERA
+    large = LARGE_XML.format(
+        depth=L_DEPTH, fov=c["fov_deg"], res=L_RES, spp=L_SPP,
+        **{k: ", ".join(map(str, c[k])) for k in ("origin", "target",
+                                                    "up")})
+    cpu = None
+    for name in ("direct", "ao"):
+        path = xml_file(f"int_large_{name}.xml",
+                        with_integrator(large, INTEGRATOR_XML[name]))
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        with Spy(scene_xml, "load_scene") as ld:
+            run_cli(path, "-o", os.path.join(XML_DIR, "int_large.exr"))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        scene, settings = ld.result
+        nc, na = INTEGRATOR_LAUNCHES[name]
+        want = dict(hier_closest=nc * L_SPP, hier_anyhit=na * L_SPP)
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"[integrators] large {name}: expected "
+                                 f"{want}, got {got}")
+        per_pass = pass_time(scene, settings, 1, 3, L_RES * L_RES * (nc + na),
+                             f"integrators large {name}")
+        if cpu is None:
+            cpu = scene_xml.load_scene(path, device="cpu")[0]
+        parity_gate(f"{name} large 64^2", film_values(scene, settings, 64, 1),
+                    film_values(cpu, settings, 64, 1))
+        out[f"large {name}"] = dict(launches=(nc, na), pass_ms=per_pass)
+    log("[integrators] " + "; ".join(
+        f"{k}: launches {v['launches']}, pass {v['pass_ms']:.3f} ms"
+        for k, v in out.items()) + f" ({smi})")
+    return out
+
+
+def tiled_phase(dev, smi):
+    """34. [tiled]: the XML Cornell with tiledhdrfilm at 4096^2 through the
+    command line, in bands of render_tiled's default height; its peak
+    device memory against a full-frame 4096^2 pass's; at 1024^2 the tiled
+    EXR (full precision, bands of 256 rows through render_tiled) against
+    render_film's image."""
+    from mitsuba_im_tpu_torch.film.tiled import render_tiled
+
+    band = inspect.signature(render_tiled).parameters["band_rows"].default
+    big = BIG_TILED
+    xml = CORNELL_XML.format(max_depth=DEPTH, spp=1, res=big).replace(
+        'film type="hdrfilm"', 'film type="tiledhdrfilm"')
+    path = xml_file("tiled.xml", xml)
+    out = os.path.join(XML_DIR, "tiled.exr")
+    torch.cuda.reset_peak_memory_stats()
+    ci.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(path, "-o", out)
+    torch.cuda.synchronize()
+    tiled_s = time.perf_counter() - t0
+    tiled_peak = torch.cuda.max_memory_allocated() / 2**30
+    bands = -(-big // band)
+    got = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches)
+    if got != (DEPTH * bands, (DEPTH - 1) * bands):
+        raise AssertionError(f"[tiled] launches {got}")
+    img, _ = exr.read_exr(out)
+    left, right = left_right(img)
+    if img.shape != (big, big, 3) or not (left[0] > left[1]
+                                          and right[1] > right[0]):
+        raise AssertionError("[tiled] implausible tiled EXR")
+    scene, settings = scene_xml.load_scene(path, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    render_film(scene, settings, spp=1)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[tiled] {big}^2 1 spp in {bands} bands of {band} rows: command line "
+        f"{tiled_s:.2f} s (load, render, EXR), launches {got}, peak device "
+        f"memory {tiled_peak:.3f} GiB; full-frame render_film pass "
+        f"{full_s:.2f} s, peak {full_peak:.3f} GiB ({smi})")
+
+    settings = dataclasses.replace(settings, width=RES, height=RES, spp=SPP)
+    small = os.path.join(XML_DIR, "tiled_small.exr")
+    render_tiled(scene, settings, small, band_rows=256, half=False)
+    tiled = exr.read_exr(small)[0]
+    ref = develop(render_film(scene, settings)).cpu().numpy()
+    err = float(np.abs(tiled - ref).max())
+    log(f"[tiled] {RES}^2 {SPP} spp tiled (bands of 256) vs render_film: "
+        f"max |diff| {err:.3e}")
+    if err > 2e-5:
+        raise AssertionError("[tiled] the tiled film is not render_film's")
+    return dict(tiled_peak=tiled_peak, full_peak=full_peak, tiled_s=tiled_s,
+                full_s=full_s, err=err)
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None):
     bnd = timing[key + "_bound"]
@@ -2343,6 +2802,31 @@ def main():
         f"{fmt(s_prof and s_prof['ops'])}; material fwd+bwd pass at "
         f"{M_GRAD_RES}^2 {m_grad_ms:.3f} ms")
 
+    t0 = time.perf_counter()
+    ml = motion_large_phase(dev)
+    mc = motion_cornell_phase(dev)
+    inst = instanced_phase(dev)
+    irw = irawan_phase(dev)
+    ints = integrators_phase(dev, smi)
+    tl = tiled_phase(dev, smi)
+    mt = ml["timing"]
+    log(f"[summary] phases 29-34 {time.perf_counter() - t0:.1f} s: motion "
+        f"large pass {ml['pass_ms']:.3f} ms, peak {ml['peak']:.3f} GiB, "
+        f"motion mode ms closest {fmt(mt['motion_closest'])} (static "
+        f"{fmt(mt['static_closest'])}), anyhit {fmt(mt['motion_anyhit'])} "
+        f"(static {fmt(mt['static_anyhit'])}), device ms closest "
+        f"{fmt(mt['motion_closest_device'])} (static "
+        f"{fmt(mt['static_closest_device'])}), anyhit "
+        f"{fmt(mt['motion_anyhit_device'])} (static "
+        f"{fmt(mt['static_anyhit_device'])}); motion cornell pass "
+        f"{mc['pass_ms']:.3f} ms; instanced pass {inst['pass_ms']:.3f} ms, "
+        f"peak {inst['peak']:.3f} GiB; irawan pass {irw['pass_ms']:.3f} ms, "
+        f"device ops per pass {fmt(irw['prof'] and irw['prof']['ops'])}; "
+        f"tiled 4096^2 peak {tl['tiled_peak']:.3f} GiB vs full frame "
+        f"{tl['full_peak']:.3f} GiB; integrators " + ", ".join(
+            f"{k} {v['pass_ms']:.3f} ms" for k, v in ints.items())
+        + f" ({smi})")
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
@@ -2362,6 +2846,13 @@ def main():
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],
                       xl_launches[1]),
+        kernel_record("hier_closest_motion", HIER_SOURCE,
+                      HIER_MOTION_REPLACES, ml["launches"][0], ml["err"], mt,
+                      "motion_closest", None, mt["motion_closest_device"]),
+        kernel_record("hier_anyhit_motion", HIER_SOURCE,
+                      HIER_MOTION_REPLACES, ml["launches"][1],
+                      float(ml["flips"] > 0), mt, "motion_anyhit", None,
+                      mt["motion_anyhit_device"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

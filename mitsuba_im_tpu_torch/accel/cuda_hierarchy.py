@@ -7,6 +7,13 @@ Replaces ``mitsuba_im_tpu/accel/hier_kernel.py``: both ``hier_closest`` and
 (:439, ``_advance_all`` :522), and for the driver around them: one launch
 runs the whole traversal of every ray.
 
+A motion hierarchy (``Hierarchy.has_motion``) goes to the kernel's motion
+mode, ``hier_closest_motion`` / ``hier_anyhit_motion``: the same traversal
+with each tested cluster row lerped between the two keyframes' tables at
+the hierarchy's shutter time, bit for bit with the plain version's lerp;
+it counts in the same ``launches`` as the static mode, and in
+``motion_launches``.
+
 Dispatch, as in :mod:`.cuda_intersect`: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the wrapper raises.  Each
 wrapper counts its kernel launches in a plain integer attribute
@@ -26,8 +33,9 @@ from .cuda_intersect import NVCC_FLAGS, _check, _device, _ptrs, _rays
 from .hierarchy import SWEEP_GROUP, Hierarchy, intersect_hierarchy_plain
 from .shared_lib import SharedLibrary, nvcc
 
-# The version of the C entry points this binding calls (hier_interface).
-INTERFACE = 2
+# The version of the C entry points this binding calls (hier_interface):
+# 3 is 2 (hier_closest, hier_anyhit) and the motion mode's two entries.
+INTERFACE = 3
 # Supers a ray's list holds: a ray whose first sweep enters more keeps full
 # sweeps.
 LIST_CAPACITY = 64
@@ -36,16 +44,27 @@ LIST_CAPACITY = 64
 COUNTER_WORDS = (16 + 1) * 32
 
 
-def _bind(lib):
-    if lib.hier_interface() != INTERFACE:
-        raise RuntimeError(f"hier_traverse: interface {lib.hier_interface()}"
-                           f", this binding calls {INTERFACE}")
+def bind_static(lib):
+    """Bind the static entry points of interface 2 and later."""
     p, i = ctypes.c_void_p, ctypes.c_int
     args = [p] * 9 + [i] + [p, p, i, i] + [p] * 7 + [i, i]
     lib.hier_closest.argtypes = args + [p] * 6 + [p, p]
     lib.hier_closest.restype = i
     lib.hier_anyhit.argtypes = args + [p] + [p, p]
     lib.hier_anyhit.restype = i
+    return args
+
+
+def _bind(lib):
+    if lib.hier_interface() != INTERFACE:
+        raise RuntimeError(f"hier_traverse: interface {lib.hier_interface()}"
+                           f", this binding calls {INTERFACE}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = bind_static(lib) + [p, ctypes.c_float]
+    lib.hier_closest_motion.argtypes = args + [p] * 6 + [p, p]
+    lib.hier_closest_motion.restype = i
+    lib.hier_anyhit_motion.argtypes = args + [p] + [p, p]
+    lib.hier_anyhit_motion.restype = i
 
 
 BUILD_FLAGS = NVCC_FLAGS + (f"-DKLIST={LIST_CAPACITY}",
@@ -68,15 +87,20 @@ def _kernel_args(h: Hierarchy, o, d, tmin, tmax, active):
     comps = [c.contiguous() for c in comps]
     act = None if active is None else active.contiguous()
     tabs = [h.swp_lo, h.swp_hi, h.childs, h.blocks, h.sup_inst, h.inst_inv,
-            h.sup_blas, h.root, h.sweep_groups]
+            h.sup_blas, h.root, h.sweep_groups, h.blocks1]
     if not all(t.is_contiguous() for t in tabs):
         raise ValueError("hierarchy tables must be contiguous")
-    if h.childs.data_ptr() % 8 or h.blocks.data_ptr() % 8:
+    if h.childs.data_ptr() % 8 or h.blocks.data_ptr() % 8 or (
+            h.has_motion and h.blocks1.data_ptr() % 8):
         raise ValueError("childs and blocks must be 8-byte aligned (the "
                          "kernel reads their rows as float2)")
+    if h.has_motion and h.blocks1.shape != h.blocks.shape:
+        raise ValueError("blocks1 must have the shape of blocks")
     args = [*_ptrs(comps), None if act is None else act.data_ptr(), n,
             h.swp_lo.data_ptr(), h.swp_hi.data_ptr(), h.swp_lo.shape[1],
-            h.n_supers, *_ptrs(tabs[2:]), int(h.instanced), int(h.indirect)]
+            h.n_supers, *_ptrs(tabs[2:9]), int(h.instanced), int(h.indirect)]
+    if h.has_motion:
+        args += [h.blocks1.data_ptr(), h.time]
     # keep the contiguous copies alive until the launch is queued
     return args, (comps, act), n, dev
 
@@ -106,8 +130,10 @@ def hier_closest(h: Hierarchy, o, d, tmin, tmax, active=None):
     out = tuple(torch.empty(n, dtype=dt, device=dev) for dt in (
         Float, Float, Float, Int, Int, torch.bool))
     if n:
-        _launch(lib.hier_closest, args, out, dev)
+        _launch(lib.hier_closest_motion if h.has_motion else lib.hier_closest,
+                args, out, dev)
         hier_closest.launches += 1
+        hier_closest.motion_launches += int(h.has_motion)
     return out
 
 
@@ -120,15 +146,17 @@ def hier_anyhit(h: Hierarchy, o, d, tmin, tmax, active=None):
     lib = LIBRARY.load()
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        _launch(lib.hier_anyhit, args, (blocked,), dev)
+        _launch(lib.hier_anyhit_motion if h.has_motion else lib.hier_anyhit,
+                args, (blocked,), dev)
         hier_anyhit.launches += 1
+        hier_anyhit.motion_launches += int(h.has_motion)
     return blocked
 
 
-hier_closest.launches = 0
-hier_anyhit.launches = 0
-
-
 def reset_launch_counts():
-    hier_closest.launches = 0
-    hier_anyhit.launches = 0
+    for fn in (hier_closest, hier_anyhit):
+        fn.launches = 0
+        fn.motion_launches = 0
+
+
+reset_launch_counts()

@@ -42,7 +42,16 @@ Two choices differ from the reference in form only:
 Shared-BLAS instancing (:func:`build_hierarchy_instanced`) is traversed as
 the reference does: the ray enters a super's instance space through
 ``inst_inv`` without renormalising its direction, so t stays world t.
-Deformable motion (``build_hierarchy_motion``) is not ported.
+
+Deformable motion (:func:`build_hierarchy_motion`): one SAH build over the
+union of the two keyframes' triangle boxes, both frames packed with the
+same leaf grouping (``blocks`` and ``blocks1``), cluster, child and super
+boxes the union over the shutter.  A traversal at the pass's shutter time
+``time`` (:meth:`Hierarchy.at_time`) lerps the nine geometric planes of
+each cluster row it tests as ``(1 - time) * blocks + time * blocks1``, in
+float32 with the products and the sum rounded one by one (the reference's
+XLA driver, ``hierarchy.py:573-579``; the kernel is built without FMA
+contraction), and reads the primitive ids from frame 0.
 """
 from __future__ import annotations
 
@@ -80,9 +89,20 @@ class Hierarchy:
     inst_inv: torch.Tensor  # (I, 3, 4) world->local affine transforms
     inst_fwd: torch.Tensor  # (I, 3, 4) local->world
     sup_blas: torch.Tensor  # (S_pad,) int32 world super -> BLAS super row
+    # frame-1 cluster rows of a motion hierarchy ((1, 1) zeros otherwise)
+    blocks1: torch.Tensor
     n_supers: int = 0
     n_tris: int = 0
     indirect: bool = False  # sup_blas indirection live
+    has_motion: bool = False  # blocks1 live: rows lerp at ``time``
+    time: float = 0.0  # shutter time, a float32 value
+
+    def at_time(self, t) -> "Hierarchy":
+        """The hierarchy at shutter time ``t`` (a float32 value; no
+        effect on a static hierarchy)."""
+        if not self.has_motion:
+            return self
+        return dataclasses.replace(self, time=float(np.float32(t)))
 
     @property
     def instanced(self) -> bool:
@@ -123,11 +143,18 @@ _INT_LEAVES = ("sup_inst", "sup_blas")
 
 
 def hierarchy_from_arrays(arrays: dict, n_supers: int, n_tris: int,
-                          indirect: bool, device) -> Hierarchy:
+                          indirect: bool, device, has_motion: bool = False,
+                          time: float = 0.0) -> Hierarchy:
+    """A Hierarchy from numpy tables: ``HIERARCHY_LEAVES``, and ``blocks1``
+    for a motion hierarchy."""
+    blocks1 = (arrays["blocks1"] if has_motion
+               else np.zeros((1, 1), np.float32))
     return Hierarchy(
         **{k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                           else np.float32, device) for k in HIERARCHY_LEAVES},
-        n_supers=int(n_supers), n_tris=int(n_tris), indirect=bool(indirect))
+        blocks1=host_tensor(blocks1, np.float32, device),
+        n_supers=int(n_supers), n_tris=int(n_tris), indirect=bool(indirect),
+        has_motion=bool(has_motion), time=float(np.float32(time)))
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +194,10 @@ def _leaf_groups(flat, cap=LEAF):
     return ids, vmask
 
 
-def _pack_leaves(flat, soup, tri_ids=None):
-    """(cl_lo, cl_hi, rows): cluster boxes and packed (C, ROW) rows."""
-    ids, vmask = _leaf_groups(flat)
+def _pack_leaves(flat, soup, tri_ids=None, groups=None):
+    """(cl_lo, cl_hi, rows): cluster boxes and packed (C, ROW) rows, over
+    ``groups`` (``_leaf_groups(flat)`` when not given)."""
+    ids, vmask = _leaf_groups(flat) if groups is None else groups
     C = ids.shape[0]
     tris = np.where(vmask[:, :, None], soup[ids], 0.0).astype(np.float32)
     prim = np.where(vmask, ids if tri_ids is None else tri_ids[ids], 0)
@@ -186,9 +214,10 @@ def _pack_leaves(flat, soup, tri_ids=None):
     return cl_lo.astype(np.float32), cl_hi.astype(np.float32), rows
 
 
-def _pack_supers(cl_lo, cl_hi, rows):
+def _pack_supers(cl_lo, cl_hi, rows, rows_extra=()):
     """Second SAH level over the cluster boxes -> (sup_lo, sup_hi,
-    childs (S, CROW), blocks (S * SUP, ROW))."""
+    childs (S, CROW), blocks (S * SUP, ROW), extra), ``extra`` the tables
+    in ``rows_extra`` re-ordered as ``blocks``."""
     flat2 = bvh_mod.build_bvh_arrays(cl_lo, cl_hi, leaf_size=64)
     cids, cmask = _leaf_groups(flat2, cap=SUP)
     S = cids.shape[0]
@@ -198,11 +227,14 @@ def _pack_supers(cl_lo, cl_hi, rows):
     ch = ch.transpose(0, 2, 1)  # (S, 6, SUP)
     # block rows re-ordered so super s owns rows [s*SUP, (s+1)*SUP)
     flatmask = cmask.reshape(-1)
-    blocks = np.zeros((S * SUP, ROW), np.float32)
-    blocks[flatmask] = rows[cids.reshape(-1)[flatmask]]
+    extra = []
+    for r in (rows,) + tuple(rows_extra):
+        b = np.zeros((S * SUP, ROW), np.float32)
+        b[flatmask] = r[cids.reshape(-1)[flatmask]]
+        extra.append(b)
     sup_lo = np.where(cmask[..., None], cl_lo[cids], np.inf).min(axis=1)
     sup_hi = np.where(cmask[..., None], cl_hi[cids], -np.inf).max(axis=1)
-    return sup_lo, sup_hi, ch.reshape(S, CROW), blocks
+    return sup_lo, sup_hi, ch.reshape(S, CROW), extra[0], tuple(extra[1:])
 
 
 def _pad_sweep(sup_lo, sup_hi):
@@ -222,7 +254,8 @@ def _identity34():
 
 def _from_host(arrays: dict, device) -> Hierarchy:
     return hierarchy_from_arrays(arrays, arrays["n_supers"],
-                                 arrays["n_tris"], arrays["indirect"], device)
+                                 arrays["n_tris"], arrays["indirect"], device,
+                                 arrays.get("has_motion", False))
 
 
 def build_hierarchy(p0, e1, e2, device, leaf_size: int = 64) -> Hierarchy:
@@ -234,7 +267,7 @@ def build_hierarchy(p0, e1, e2, device, leaf_size: int = 64) -> Hierarchy:
     lo, hi = bvh_mod.tri_bounds(p0, e1, e2)
     flat = bvh_mod.build_bvh_arrays(lo, hi, leaf_size=leaf_size)
     cl_lo, cl_hi, rows = _pack_leaves(flat, soup)
-    sup_lo, sup_hi, childs, blocks = _pack_supers(cl_lo, cl_hi, rows)
+    sup_lo, sup_hi, childs, blocks, _ = _pack_supers(cl_lo, cl_hi, rows)
     swp_lo, swp_hi = _pad_sweep(sup_lo, sup_hi)
     ident = _identity34()[None]
     return _from_host(dict(
@@ -243,6 +276,35 @@ def build_hierarchy(p0, e1, e2, device, leaf_size: int = 64) -> Hierarchy:
         blocks=blocks, inst_inv=ident, inst_fwd=ident.copy(),
         sup_blas=np.zeros(1, np.int32), n_supers=int(sup_lo.shape[0]),
         n_tris=int(len(p0)), indirect=False), device)
+
+
+def build_hierarchy_motion(p0, e1, e2, q0, f1, f2, device) -> Hierarchy:
+    """Deformable two-keyframe hierarchy (frame 0: p0, e1, e2; frame 1:
+    q0, f1, f2, the same triangles): one SAH build over the union of the
+    two frames' triangle boxes, both frames packed with the same leaf
+    grouping, cluster boxes the union of the two frames'."""
+    frames = [np.asarray(a, np.float32) for a in (p0, e1, e2, q0, f1, f2)]
+    soup_a = np.concatenate(frames[:3], axis=1)
+    soup_b = np.concatenate(frames[3:], axis=1)
+    lo_a, hi_a = bvh_mod.tri_bounds(*frames[:3])
+    lo_b, hi_b = bvh_mod.tri_bounds(*frames[3:])
+    flat = bvh_mod.build_bvh_arrays(np.minimum(lo_a, lo_b),
+                                    np.maximum(hi_a, hi_b), leaf_size=64)
+    groups = _leaf_groups(flat)
+    cl_lo_a, cl_hi_a, rows_a = _pack_leaves(flat, soup_a, groups=groups)
+    cl_lo_b, cl_hi_b, rows_b = _pack_leaves(flat, soup_b, groups=groups)
+    sup_lo, sup_hi, childs, blocks, (blocks1,) = _pack_supers(
+        np.minimum(cl_lo_a, cl_lo_b), np.maximum(cl_hi_a, cl_hi_b), rows_a,
+        rows_extra=(rows_b,))
+    swp_lo, swp_hi = _pad_sweep(sup_lo, sup_hi)
+    ident = _identity34()[None]
+    return _from_host(dict(
+        swp_lo=swp_lo, swp_hi=swp_hi,
+        sup_inst=np.zeros(swp_lo.shape[1], np.int32), childs=childs,
+        blocks=blocks, inst_inv=ident, inst_fwd=ident.copy(),
+        sup_blas=np.zeros(1, np.int32), blocks1=blocks1,
+        n_supers=int(sup_lo.shape[0]), n_tris=int(len(frames[0])),
+        indirect=False, has_motion=True), device)
 
 
 def build_hierarchy_instanced(blas_list, instances, device) -> Hierarchy:
@@ -261,7 +323,7 @@ def build_hierarchy_instanced(blas_list, instances, device) -> Hierarchy:
         cl_lo, cl_hi, rows = _pack_leaves(
             flat, soup, None if tri_ids is None
             else np.asarray(tri_ids, np.int64))
-        blas_data.append(_pack_supers(cl_lo, cl_hi, rows))
+        blas_data.append(_pack_supers(cl_lo, cl_hi, rows)[:4])
 
     childs = np.concatenate([b[2] for b in blas_data], axis=0)
     blocks = np.concatenate([b[3] for b in blas_data], axis=0)
@@ -395,6 +457,18 @@ def _local_rays(h: Hierarchy, inst, o, d, inv):
     dl = [(m[:, k, 0] * d[0] + m[:, k, 1] * d[1]) + m[:, k, 2] * d[2]
           for k in range(3)]
     return ol, dl, [_safe_inv(c) for c in dl]
+
+
+def _rows_at_time(h: Hierarchy, cid):
+    """The geometric planes of cluster rows ``cid`` at the hierarchy's
+    shutter time: ``(1 - time) * frame 0 + time * frame 1`` for a motion
+    hierarchy (each product and the sum rounded to float32), frame 0
+    otherwise."""
+    rows = h.blocks[cid, :LEAF * 9]
+    if not h.has_motion:
+        return rows
+    w0 = float(np.float32(1.0) - np.float32(h.time))
+    return w0 * rows + h.time * h.blocks1[cid, :LEAF * 9]
 
 
 def _cluster_test(row, prim_ids, ol, dl, tmin, t_b):
@@ -535,7 +609,7 @@ def intersect_hierarchy_plain(h: Hierarchy, o: V3, d: V3, tmin, tmax,
             counts.clusters.index_add_(
                 0, st["idx"][ci], torch.ones_like(ci, dtype=torch.int64))
             tnew, un, vn, pn, better = _cluster_test(
-                h.blocks[cid, :LEAF * 9], blocks_i[cid, LEAF * 9:],
+                _rows_at_time(h, cid), blocks_i[cid, LEAF * 9:],
                 [c[ci] for c in ol], [c[ci] for c in dl], st["tmin"][ci],
                 st["t"][ci])
             bi = ci[better]

@@ -22,6 +22,10 @@ BVH branches leave the triangle ``t`` live too (:147-152, :335-336); the
 port follows its accelerated paths.  Visibility (``occluded_v``) is a
 boolean and carries no gradient.
 
+Under shared-BLAS instancing (``geom.instanced``) the hit records the
+instance of its triangle (``Hit.inst``, 0 for a sphere, a disk or a
+miss), as the reference's ``intersect`` (:373).
+
 ``active`` masks lanes off on the hierarchy path (they report no triangle
 hit), as in the reference; brute force tests every lane.  Unlike the
 reference, an inactive lane also tests no sphere and no disk: its ray
@@ -33,6 +37,8 @@ rays, a TPU scheduling choice that does not change results, so it has no
 effect here.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -129,10 +135,14 @@ def intersect_v(geom: Geometry, o: V3, d: V3, tmin, tmax,
     :func:`merge_hits` there); every other scene merges."""
     rays = (_sg_v(o), _sg_v(d), _sg(tmin), _sg(tmax))
     if _use_hierarchy(geom, clusters):
-        t, u, v, prim, _, found = ch.hier_closest(clusters, *rays,
-                                                  active=active)
-        return merge_hits(geom, o, d, tmin, tmax, (t, u, v, prim, found),
-                          active)
+        t, u, v, prim, inst, found = ch.hier_closest(clusters, *rays,
+                                                     active=active)
+        hit = merge_hits(geom, o, d, tmin, tmax, (t, u, v, prim, found),
+                         active)
+        if geom.instanced:
+            hit = dataclasses.replace(
+                hit, inst=torch.where(hit.kind == KIND_TRI, inst, 0))
+        return hit
     tris = (geom.tri_p0, geom.tri_e1, geom.tri_e2)
     if not (geom.n_spheres or geom.n_disks):
         return Hit(*ci.closest_hit_v(*tris, geom.tri_shape, *rays))

@@ -8,14 +8,16 @@ the builder links by id (``mask``, ``blendbsdf``, ``mixturebsdf``).  A
 texture child arrives as its texture id.  ``coating`` over a substrate
 that is not diffuse becomes ``plastic`` over the substrate's colour, and
 ``roughcoating`` drops the coat's roughness, each with a warning, as in the
-reference.  ``irawan`` raises.
+reference.  ``irawan`` parses its weave pattern (a file, or the built-in
+plain weave) and normalizes its specular term on the host
+(``bsdf/irawan.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..core.properties import Properties
-from ..core.registry import register, register_unported, warn_substitution
+from ..core.registry import register, warn_substitution
 from . import common as bc
 from .ior import lookup_conductor, lookup_dielectric
 from .microfacet import DIST_BECKMANN, DIST_GGX, DIST_PHONG
@@ -347,4 +349,25 @@ def _hg(props: Properties, ctx=None):
     return dict(type=PH_HG, g=props.get_float("g", 0.8))
 
 
-register_unported("bsdf", ("irawan",), "queue A item 2")
+@register("bsdf", "irawan")
+def _irawan(props: Properties, ctx=None):
+    """Irawan & Marschner woven cloth (src/bsdfs/irawan.cpp): the weave
+    pattern of ``filename`` (the DSL, ``$var`` substituted from these
+    properties) or the built-in plain weave, its specular term normalized
+    by the reference's pre-pass, stored as static data on the record."""
+    from . import irawan as ir
+
+    repeat_u = props.get_float("repeatU", 1.0)
+    repeat_v = props.get_float("repeatV", 1.0)
+    if "filename" in props:
+        fname = props.get_string("filename")
+        path = ctx.resolve_path(fname) if ctx is not None else fname
+        with open(path, "r") as f:
+            text = f.read()
+    else:
+        text = ir.PLAIN_WEAVE
+    pat = ir.parse_weave(text, props, repeatU=repeat_u, repeatV=repeat_v)
+    rec = bc.default_record()
+    rec["type"] = bc.IRAWAN
+    rec["weave"] = ir.compute_normalization(pat)
+    return rec

@@ -7,7 +7,10 @@ Each scene BSDF is one row of typed parameters; lanes gather their row into
 a :class:`LaneParams3` through the one row lookup ``v3.gather_row``,
 unwrapping MASK and BLEND rows and looking up the textures that a row
 references (``texture/texture.py``).  Bump and normal maps tilt the
-shading frame in ``scene/scene.py``.  IRAWAN raises.
+shading frame in ``scene/scene.py``.  IRAWAN rows carry their weave
+pattern (``bsdf/irawan.py``) as static data: the table keeps the distinct
+patterns in ``weaves`` and each row's index into them in ``weave_id``, and
+the lane parameters carry the lanes' uvs, which the cloth model reads.
 
 HK keeps its Henyey-Greenstein asymmetry g in ``alpha_u``.  The reference
 clamps every ``alpha_u``/``alpha_v`` to at least 1e-4 in ``resolve_v``,
@@ -100,6 +103,9 @@ class BSDFTable:
     tex_columns: tuple = ()
     bump_kinds: tuple = ()
     tex_types: tuple = ()
+    # IRAWAN: the distinct weave patterns and each row's index into them
+    weave_id: torch.Tensor | None = None  # (B,) int32
+    weaves: tuple = ()
 
     @property
     def has_bump(self) -> bool:
@@ -344,10 +350,13 @@ def bump(rec: dict, tex: int, kind: int = BUMP_HEIGHT,
 
 
 def table_from_arrays(arrays: dict, used_types, unwrap_depth: int,
-                      device, tex_arrays: dict | None = None) -> BSDFTable:
+                      device, tex_arrays: dict | None = None,
+                      weaves: tuple = ()) -> BSDFTable:
     """A BSDFTable from numpy columns (from ``scene/build.py`` or the
     bridge); ``tex_arrays`` (the texture table's ``type`` and ``nested``
-    columns) gives each textured column the texture types it reaches."""
+    columns) gives each textured column the texture types it reaches;
+    ``weaves`` are the IRAWAN patterns that ``arrays["weave_id"]`` (zeros
+    when absent) indexes."""
     cols = {k: host_tensor(arrays[k], np.int32 if k in _INT_LEAVES
                            else np.float32, device) for k in BSDF_LEAVES}
     tex_columns = tuple(k for k in TEXTURE_COLUMNS
@@ -356,10 +365,15 @@ def table_from_arrays(arrays: dict, used_types, unwrap_depth: int,
         (k, reached_types(tex_arrays["type"], tex_arrays["nested"],
                           arrays[k])) for k in tex_columns)
     kinds = np.unique(np.asarray(arrays["bump_kind"]))
+    weave_id = arrays.get("weave_id")
+    if weave_id is None:
+        weave_id = np.zeros(len(np.asarray(arrays["type"])), np.int32)
     return BSDFTable(**cols, used_types=tuple(used_types),
                      unwrap_depth=int(unwrap_depth), tex_columns=tex_columns,
                      bump_kinds=tuple(int(k) for k in kinds if k != BUMP_NONE),
-                     tex_types=tex_types)
+                     tex_types=tex_types,
+                     weave_id=host_tensor(weave_id, np.int32, device),
+                     weaves=tuple(weaves))
 
 
 def column_textures(table: BSDFTable, tex: TextureTable,
@@ -388,8 +402,16 @@ def build_table(records: list[dict], device,
         depth = 0
     arrays = {k: np.stack([np.asarray(r[k]) for r in recs])
               for k in BSDF_LEAVES}
+    # IRAWAN: distinct weave patterns in first-use order, a row's index
+    weaves, weave_ids = [], []
+    for r in recs:
+        wv = r.get("weave")
+        if wv is not None and wv not in weaves:
+            weaves.append(wv)
+        weave_ids.append(0 if wv is None else weaves.index(wv))
+    arrays["weave_id"] = np.asarray(weave_ids, np.int32)
     return table_from_arrays(arrays, sorted(types), depth, device,
-                             tex_arrays)
+                             tex_arrays, tuple(weaves))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,6 +434,11 @@ class LaneParams3:
     flags: torch.Tensor
     opacity: torch.Tensor | None = None
     used_types: tuple = (DIFFUSE,)
+    # IRAWAN: the lanes' uvs and weave indices, and the table's patterns
+    uv_u: torch.Tensor | None = None
+    uv_v: torch.Tensor | None = None
+    weave_id: torch.Tensor | None = None
+    weaves: tuple = ()
 
 
 def resolve_v(table: BSDFTable, tex: TextureTable | None,
@@ -521,7 +548,9 @@ def resolve_v(table: BSDFTable, tex: TextureTable | None,
         eta=v.gather_v3(table.eta, bid), k=v.gather_v3(table.k, bid),
         eta_s=read("eta_s"), alpha_u=au, alpha_v=av,
         exponent=read("exponent"), flags=row(table.flags), opacity=opacity,
-        used_types=table.used_types)
+        used_types=table.used_types,
+        **(dict(uv_u=uv_u, uv_v=uv_v, weave_id=row(table.weave_id),
+                weaves=table.weaves) if table.weaves else {}))
 
 
 def _hash_uniform(uv_u: torch.Tensor, uv_v: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """BSDF evaluate / pdf / sample with static type dispatch
-(``mitsuba_im_tpu/bsdf/eval.py``): every family of the reference but
-IRAWAN, on parameters that ``resolve_v`` took through textures and the
+(``mitsuba_im_tpu/bsdf/eval.py``): every family of the reference, on
+parameters that ``resolve_v`` took through textures and the
 MASK/BLEND wrappers.
 
 Conventions as in the reference: directions live in the local shading frame
@@ -14,7 +14,9 @@ and ``null_passthrough`` (NULL) as the reference gives them.  A MASK
 scales eval and pdf by its opacity, and ``bsdf_sample_v`` with ``u_mask``
 passes a lane through it with probability 1 - opacity, as the reference's
 path tracer does (it draws ``u_mask`` as the fourth uniform of the BSDF
-block).  IRAWAN in ``used_types`` raises ``NotImplementedError``.
+block).  IRAWAN evaluates each of the scene's weave patterns on every
+lane and selects the lane's by ``weave_id`` (``bsdf/irawan.py``); it is
+sampled from the cosine hemisphere, as the diffuse types.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from . import microfacet as mf
 from .common import (
     LaneParams3, DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR,
     DIELECTRIC, THINDIELECTRIC, ROUGHDIELECTRIC, PLASTIC, ROUGHPLASTIC,
-    PHONG, WARD, NULL_BSDF, DIFFTRANS, COATING, HK, MASK, BLEND,
+    PHONG, WARD, NULL_BSDF, DIFFTRANS, COATING, HK, IRAWAN, MASK, BLEND,
     FLAG_TWOSIDED,
 )
 from .fresnel import (fresnel_conductor_v, fresnel_dielectric,
@@ -38,7 +40,7 @@ from .rtrans import rtrans_diffuse_v, rtrans_eval_v
 
 PORTED = (DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, DIELECTRIC,
           THINDIELECTRIC, ROUGHDIELECTRIC, PLASTIC, ROUGHPLASTIC, PHONG,
-          WARD, NULL_BSDF, DIFFTRANS, COATING, HK)
+          WARD, NULL_BSDF, DIFFTRANS, COATING, HK, IRAWAN)
 
 
 class BSDFSample3(NamedTuple):
@@ -54,8 +56,8 @@ def _check_types(p: LaneParams3):
     for t in p.used_types:
         if t not in PORTED + (MASK, BLEND):
             raise NotImplementedError(
-                f"BSDF type {t}: IRAWAN (and BUMPMAP_WRAP, which no record "
-                "takes) is not ported")
+                f"BSDF type {t}: BUMPMAP_WRAP, which no record takes, is not "
+                "ported")
 
 
 def _m3(ok, val: V3) -> V3:
@@ -423,8 +425,28 @@ def _pdf_hk(p, wi, wo):
     return (1.0 - pd) * 0.5 * torch.abs(wo.z) * INV_PI
 
 
+def _eval_irawan(p, wi, wo):
+    """Irawan & Marschner woven cloth (irawan.cpp eval): every weave
+    pattern of the scene on every lane, the lane's selected by
+    ``weave_id``."""
+    from . import irawan as ir
+
+    out = v.zeros(p.type.shape, p.type.device)
+    for widx, pat in enumerate(p.weaves):
+        val = ir.eval_pattern(pat, p.uv_u, p.uv_v, wi, wo)
+        out = v.where(p.weave_id == widx, val, out)
+    return out
+
+
+def _pdf_irawan(p, wi, wo):
+    """Cosine-hemisphere sampling (irawan.cpp pdf())."""
+    return torch.where((wi.z > 0.0) & (wo.z > 0.0), torch.abs(wo.z) * INV_PI,
+                       0.0)
+
+
 _EVAL = {
     DIFFUSE: (_eval_diffuse, _pdf_diffuse),
+    IRAWAN: (_eval_irawan, _pdf_irawan),
     ROUGHDIFFUSE: (_eval_roughdiffuse, _pdf_diffuse),
     ROUGHCONDUCTOR: (_eval_roughconductor, _pdf_roughconductor),
     ROUGHDIELECTRIC: (_eval_roughdielectric, _pdf_roughdielectric),
@@ -568,11 +590,13 @@ def bsdf_sample_v(p: LaneParams3, wi: V3, u_lobe, u2a, u2b,
     for t in p.used_types:
         if t in (MASK, BLEND):
             continue
-        if t in (DIFFUSE, ROUGHDIFFUSE):
+        if t in (DIFFUSE, ROUGHDIFFUSE, IRAWAN):
             wo_t = v.square_to_cosine_hemisphere(u2a, u2b)
             pdf_t = v.square_to_cosine_hemisphere_pdf(wo_t)
             if t == DIFFUSE:
                 w_t = _m3(ci > 0, p.refl)
+            elif t == IRAWAN:
+                w_t = _eval_irawan(p, wi_f, wo_t) * safe_div(1.0, pdf_t)
             else:
                 w_t = _eval_roughdiffuse(p, wi_f, wo_t) * safe_div(1.0, pdf_t)
             new = (wo_t, w_t, pdf_t, no, one)

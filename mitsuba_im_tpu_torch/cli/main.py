@@ -6,13 +6,18 @@
 Each scene file is loaded (``scene/xml.py``), built on ``--device`` (the
 card by default; without one the command raises, and ``--device cpu``
 runs the kernels' plain versions), rendered by ``render_film`` with the
-``path`` integrator, and written as EXR, or as a tone-mapped PNG/PPM by
-the output's extension.  Flags: ``-D key=value`` substitution, ``-o``
-output, ``-s`` samples per pixel, ``-r`` a partial image every N seconds,
-``-S`` a numbered image every N samples per pixel, ``-x`` skip a scene
-whose output exists, ``-c`` a checkpoint after each pass, ``-z`` resume
-from one, ``-j`` load the next scenes on host threads while the device
-renders, ``-q``/``-v``, ``--width``/``--height``.  ``-m``, ``--nodes`` and
+scene's integrator (``path``, ``direct``, ``ao``, ``field`` or
+``motion``), and written as EXR, or as a tone-mapped PNG/PPM by the
+output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
+band by band into an out-of-core film (``film/tiled.py``, at its
+default band height, as the reference's command line), without
+``-c``/``-z``/``-r``/``-S``.  Flags: ``-D
+key=value`` substitution, ``-o`` output, ``-s`` samples per pixel, ``-r``
+a partial image every N seconds, ``-S`` a numbered image every N samples
+per pixel, ``-x`` skip a scene whose output exists, ``-c`` a checkpoint
+after each pass, ``-z`` resume from one, ``-j`` load the next scenes on
+host threads while the device renders, ``-q``/``-v``,
+``--width``/``--height``.  ``-m``, ``--nodes`` and
 ``-i`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -115,6 +120,16 @@ def main(argv=None) -> int:
             f"{settings.width}x{settings.height}@{settings.spp}spp "
             f"integrator={settings.integrator} on {device} "
             f"({time.perf_counter() - t0:.3f}s)")
+
+        if settings.tiled and out.endswith(".exr"):
+            from ..film.tiled import render_tiled
+
+            t1 = time.perf_counter()
+            render_tiled(scene, settings, out, spp=settings.spp,
+                         metadata={"renderer": "mitsuba_im_tpu_torch"})
+            say(f"[done] {out}  {time.perf_counter() - t1:.3f}s (tiled "
+                f"out-of-core)")
+            continue
 
         film = None
         start_spp = 0

@@ -94,6 +94,25 @@
 // cores do not apply: the slab and Moeller-Trumbore tests share no
 // reduction dimension, and bit-exactness needs unfused float32.
 //
+// The motion mode (MOTION, the entry points hier_closest_motion and
+// hier_anyhit_motion) traverses a deformable mesh's hierarchy: one SAH
+// build over the union of its two keyframes' triangle boxes, both frames'
+// cluster rows in one order (blocks, blocks1).  Each cluster test reads
+// the frame-1 row's nine geometric planes beside frame 0's and lerps them
+// at the pass's shutter time as (1 - time) * a + time * b, the products
+// and the sum rounded one by one (the reference's XLA driver,
+// hierarchy.py:573-579, and intersect_hierarchy_plain's _rows_at_time);
+// the primitive ids come from frame 0.  The static mode compiles as
+// before (MOTION false removes the branch: the same registers and spills,
+// ptxas -v as chip_smoke.py's build phase prints it).  The motion mode
+// holds the second row's planes while it lerps, at the same 80-register
+// cap (ptxas: the closest-hit instantiation spills 240 bytes of stores,
+// its static twin 104, the any-hit ones none).  On the 1.12M-triangle
+// sphere moved a fifth of its radius (chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700 W) a 768^2 camera call takes 2.39-2.46 ms of device time
+// against 2.02-2.09 for the static mode on the same tables, the union
+// boxes making ~5.5 cluster tests a ray against the static scene's ~0.8.
+//
 // Built with -fmad=false and without fast math, so every operation rounds
 // as in the plain PyTorch version (hierarchy.py::intersect_hierarchy_plain)
 // and the two agree bit for bit on found, prim, inst, t, u and v.
@@ -113,7 +132,7 @@
 #define COUNTERS 16  // ray counters, interleaved by chunk
 #define COUNTER_STRIDE 32  // unsigned: one counter per 128 bytes
 #define GROUPS (BLOCK / G)
-#define INTERFACE 2  // the C entry points' version (hier_interface)
+#define INTERFACE 3  // the C entry points' version (hier_interface)
 #if !defined(KLIST) || !defined(SWEEP_GROUP) || !defined(COUNTER_WORDS)
 #error "build with -DKLIST, -DSWEEP_GROUP and -DCOUNTER_WORDS"
 #endif
@@ -140,6 +159,8 @@ struct Tables {
   const float* root;  // (6,) lo xyz, hi xyz
   const float* groups;  // (6, ceil(n_supers / 32)) boxes of runs of 32
   int instanced, indirect;
+  const float* blocks1;  // (C, ROW) frame-1 cluster rows (motion mode)
+  float time;  // the pass's shutter time (motion mode)
 };
 
 struct Rays {
@@ -346,8 +367,12 @@ __device__ __forceinline__ void pick_child(int lane, const float* ce,
 }
 
 // The traversal of one live ray after its first sweep listed n_list
-// supers in lt/lid (steps 2-5 of the note).
-template <bool ANY>
+// supers in lt/lid (steps 2-5 of the note).  MOTION lerps the nine
+// geometric planes of each cluster row between the two keyframes' tables
+// at the pass's shutter time, (1 - time) * frame0 + time * frame1 (the
+// reference's XLA driver, hierarchy.py:573-579), and reads the primitive
+// ids from frame 0.
+template <bool ANY, bool MOTION>
 __device__ __forceinline__ void traverse(int lane, const Tables& h,
                                          const RayIn& r, const float* lt,
                                          const int* lid, int n_list,
@@ -424,6 +449,16 @@ __device__ __forceinline__ void traverse(int lane, const Tables& h,
     float2 tr[9];
 #pragma unroll
     for (int p = 0; p < 9; ++p) tr[p] = load2(row + p * LEAF + 2 * lane);
+    if (MOTION) {
+      const float* row1 = h.blocks1 + ((size_t)base * SUP + kk) * ROW;
+      const float w0 = 1.0f - h.time, w1 = h.time;
+#pragma unroll
+      for (int p = 0; p < 9; ++p) {
+        const float2 b = load2(row1 + p * LEAF + 2 * lane);
+        tr[p].x = w0 * tr[p].x + w1 * b.x;
+        tr[p].y = w0 * tr[p].y + w1 * b.y;
+      }
+    }
     float lt_best = BIG, lu = 0.0f, lv = 0.0f;
     int lj = NONE;
 #pragma unroll
@@ -530,7 +565,7 @@ __device__ __forceinline__ unsigned pull(unsigned* next, int lane, int n,
 // Persistent warps: each pulls CHUNK consecutive rays from the counters,
 // fetching the next chunk's inputs while it traces the current one.  The
 // current chunk's inputs wait in shared memory (cin), not in registers.
-template <bool ANY>
+template <bool ANY, bool MOTION>
 __device__ __forceinline__ void run(const Tables& h, const Rays& rays,
                                     const Hits& out, unsigned* next,
                                     float* lt, int* lid, float* cin,
@@ -576,8 +611,8 @@ __device__ __forceinline__ void run(const Tables& h, const Rays& rays,
       if (live) {
         const int n_list = list_supers(lane, h.swp_lo, h.swp_hi, h.s_pad,
                                        h.n_supers, h.groups, r.w, t, lt, lid);
-        traverse<ANY>(lane, h, r, lt, lid, n_list, &t, &u, &vv, &p, &in,
-                      &f);
+        traverse<ANY, MOTION>(lane, h, r, lt, lid, n_list, &t, &u, &vv, &p,
+                              &in, &f);
       }
       if (lane != 0) continue;
       out.found[i] = f ? 1 : 0;
@@ -592,7 +627,7 @@ __device__ __forceinline__ void run(const Tables& h, const Rays& rays,
   }
 }
 
-template <bool ANY>
+template <bool ANY, bool MOTION>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 hier_kernel(Tables h, Rays r, Hits out, unsigned* next) {
   __shared__ float lt[GROUPS][KLIST];  // each warp's super list
@@ -600,7 +635,8 @@ hier_kernel(Tables h, Rays r, Hits out, unsigned* next) {
   __shared__ float cin[GROUPS][2 * G];  // the chunk's inputs, reciprocals
   __shared__ uint8_t cact[GROUPS][CHUNK];
   const int warp = threadIdx.x / G;
-  run<ANY>(h, r, out, next, lt[warp], lid[warp], cin[warp], cact[warp]);
+  run<ANY, MOTION>(h, r, out, next, lt[warp], lid[warp], cin[warp],
+                   cact[warp]);
   // Every pull of this block is done; the last block done has seen every
   // pull of the launch and sets the counters back to zero.
   __syncthreads();
@@ -614,9 +650,9 @@ hier_kernel(Tables h, Rays r, Hits out, unsigned* next) {
   }
 }
 
-// Blocks of hier_kernel<ANY> resident on device dev at once, queried at
-// the first launch on that device and kept.
-template <bool ANY>
+// Blocks of hier_kernel<ANY, MOTION> resident on device dev at once,
+// queried at the first launch on that device and kept.
+template <bool ANY, bool MOTION>
 static cudaError_t resident_blocks(int dev, int* blocks) {
   static int known[64];
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
@@ -626,7 +662,7 @@ static cudaError_t resident_blocks(int dev, int* blocks) {
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, hier_kernel<ANY>, BLOCK, 0);
+          &per_sm, hier_kernel<ANY, MOTION>, BLOCK, 0);
     if (e != cudaSuccess) return e;
     known[dev] = per_sm * sms;
   }
@@ -634,7 +670,7 @@ static cudaError_t resident_blocks(int dev, int* blocks) {
   return cudaSuccess;
 }
 
-template <bool ANY>
+template <bool ANY, bool MOTION>
 static int launch(const Tables& h, const Rays& r, const Hits& out,
                   unsigned* next, void* stream) {
   if (r.n < 0 || h.n_supers < 1 || h.n_supers > h.s_pad)
@@ -642,13 +678,13 @@ static int launch(const Tables& h, const Rays& r, const Hits& out,
   if (r.n == 0) return 0;
   int dev = 0, resident = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = resident_blocks<ANY>(dev, &resident);
+  if (e == cudaSuccess) e = resident_blocks<ANY, MOTION>(dev, &resident);
   if (e != cudaSuccess) return (int)e;
   const int pulls = (r.n + GROUPS * CHUNK - 1) / (GROUPS * CHUNK);
   int grid = resident < pulls ? resident : pulls;
   if (grid < 1) grid = 1;
-  hier_kernel<ANY><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(h, r, out,
-                                                             next);
+  hier_kernel<ANY, MOTION><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      h, r, out, next);
   return (int)cudaGetLastError();
 }
 
@@ -661,10 +697,10 @@ static int launch(const Tables& h, const Rays& r, const Hits& out,
       const int *sup_blas, const float *root, const float *groups,           \
       int instanced, int indirect
 
-#define HIER_STRUCTS                                                       \
-  const Tables h = {swp_lo, swp_hi,   s_pad, n_supers, childs,   blocks,   \
-                    sup_inst, inst_inv, sup_blas, root, groups, instanced,   \
-                    indirect};                                               \
+#define HIER_STRUCTS(BLOCKS1, TIME)                                        \
+  const Tables h = {swp_lo,   swp_hi,   s_pad,     n_supers, childs,        \
+                    blocks,   sup_inst, inst_inv,  sup_blas, root,          \
+                    groups,   instanced, indirect, BLOCKS1,  TIME};         \
   const Rays r = {ox, oy, oz, dx, dy, dz, tmin, tmax, active, n}
 
 // The version of the entry points below, for a binding to check.
@@ -675,14 +711,33 @@ extern "C" int hier_interface(void) { return INTERFACE; }
 extern "C" int hier_closest(HIER_ARGS, float* t, float* u, float* v,
                             int* prim, int* inst, uint8_t* found,
                             unsigned* next, void* stream) {
-  HIER_STRUCTS;
+  HIER_STRUCTS(nullptr, 0.0f);
   const Hits out = {t, u, v, prim, inst, found};
-  return launch<false>(h, r, out, next, stream);
+  return launch<false, false>(h, r, out, next, stream);
 }
 
 extern "C" int hier_anyhit(HIER_ARGS, uint8_t* blocked, unsigned* next,
                            void* stream) {
-  HIER_STRUCTS;
+  HIER_STRUCTS(nullptr, 0.0f);
   const Hits out = {nullptr, nullptr, nullptr, nullptr, nullptr, blocked};
-  return launch<true>(h, r, out, next, stream);
+  return launch<true, false>(h, r, out, next, stream);
+}
+
+// The motion mode (interface 3): blocks1, the frame-1 rows (C, ROW) in the
+// order of blocks, and time, the pass's shutter time in [0, 1].
+extern "C" int hier_closest_motion(HIER_ARGS, const float* blocks1,
+                                   float time, float* t, float* u, float* v,
+                                   int* prim, int* inst, uint8_t* found,
+                                   unsigned* next, void* stream) {
+  HIER_STRUCTS(blocks1, time);
+  const Hits out = {t, u, v, prim, inst, found};
+  return launch<false, true>(h, r, out, next, stream);
+}
+
+extern "C" int hier_anyhit_motion(HIER_ARGS, const float* blocks1,
+                                  float time, uint8_t* blocked,
+                                  unsigned* next, void* stream) {
+  HIER_STRUCTS(blocks1, time);
+  const Hits out = {nullptr, nullptr, nullptr, nullptr, nullptr, blocked};
+  return launch<true, true>(h, r, out, next, stream);
 }

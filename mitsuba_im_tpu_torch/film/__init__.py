@@ -6,13 +6,14 @@ A filter factory returns the record ``dict(ftype, radius)`` (``radius``
 None for the filter's default); ``hdrfilm``, ``ldrfilm`` and ``mfilm``
 write the image size, the filter and the output format into a
 ``RenderSettings``, ``ldrfilm`` its tone mapping too (applied by
-``render/job.py::save_render``).  ``tiledhdrfilm`` raises: ``film/tiled.py``
-is not ported.
+``render/job.py::save_render``).  ``tiledhdrfilm`` is ``hdrfilm`` with the
+settings' ``tiled`` set: the command line renders it band by band into an
+out-of-core EXR (``film/tiled.py``).
 """
 from __future__ import annotations
 
 from ..core.properties import Properties
-from ..core.registry import register, register_unported
+from ..core.registry import register
 from .film import (F_BOX, F_CATMULLROM, F_GAUSSIAN, F_LANCZOS, F_MITCHELL,
                    F_TENT)
 
@@ -117,8 +118,15 @@ def _mfilm(props: Properties, ctx=None):
     return out
 
 
-register_unported("film", ("tiledhdrfilm",),
-                  "queue A item 5 (film/tiled.py)")
+@register("film", "tiledhdrfilm")
+def _tiledhdrfilm(props: Properties, ctx=None):
+    """Out-of-core film (films/tiledhdrfilm.cpp:101): bands accumulate into
+    a host memmap and the develop streams scanlines into the EXR writer
+    (``film/tiled.py``)."""
+    out = _apply_film(props, ctx, "openexr")
+    if ctx is not None:
+        ctx.settings.tiled = True
+    return out
 
 
 def _rfilter_plugin(name):

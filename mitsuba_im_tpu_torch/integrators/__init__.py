@@ -1,7 +1,10 @@
 """Integrator plugin factories (``mitsuba_im_tpu/integrators/__init__.py``).
 
-``path`` records its name and parameters into the builder's render
-settings, which ``render/job.py`` turns into a ``PathConfig``.  Every other
+``path``, ``direct``, ``ao``, ``field`` and ``motion`` record their name
+and parameters into the builder's render settings, which
+``render/job.py::integrator_fn`` turns into the integrator.  ``motion``
+records only ``timeDelta``, as the reference's, so from a scene file its
+previous sensor pose is the current one (ROADMAP C13).  Every other
 integrator the JAX package registers is registered here too and raises
 ``NotImplementedError`` naming its ROADMAP queue A item 7 entry when a
 scene asks for it: nothing renders it with ``path`` instead.  The media,
@@ -24,17 +27,48 @@ def _mc_props(props: Properties) -> dict:
     )
 
 
+def _set(ctx, name, ip):
+    if ctx is not None:
+        ctx.settings.integrator = name
+        ctx.settings.integrator_props = ip
+    return dict(name=name, **ip)
+
+
 @register("integrator", "path")
 def _path(props: Properties, ctx=None):
-    ip = _mc_props(props)
-    if ctx is not None:
-        ctx.settings.integrator = "path"
-        ctx.settings.integrator_props = ip
-    return dict(name="path", **ip)
+    return _set(ctx, "path", _mc_props(props))
+
+
+@register("integrator", "direct")
+def _direct(props: Properties, ctx=None):
+    shading = props.get_int("shadingSamples", 1)
+    return _set(ctx, "direct", dict(
+        emitter_samples=props.get_int("emitterSamples", shading),
+        bsdf_samples=props.get_int("bsdfSamples", shading),
+        strict_normals=props.get_bool("strictNormals", False),
+        hide_emitters=props.get_bool("hideEmitters", False)))
+
+
+@register("integrator", "ao")
+def _ao(props: Properties, ctx=None):
+    return _set(ctx, "ao", dict(
+        shading_samples=props.get_int("shadingSamples", 1),
+        ray_length=props.get_float("rayLength", -1.0)))
+
+
+@register("integrator", "field")
+def _field(props: Properties, ctx=None):
+    return _set(ctx, "field", dict(field=props.get_string("field",
+                                                          "position")))
+
+
+@register("integrator", "motion")
+def _motion(props: Properties, ctx=None):
+    return _set(ctx, "motion", dict(
+        time_delta=props.get_float("timeDelta", 1.0 / 24.0)))
 
 
 for _names, _item in (
-        (("direct", "ao", "field", "motion"), "queue A item 7.1"),
         (("volpath", "volpath_simple"), "queue A item 7.2"),
         (("ptracer",), "queue A item 7.3"),
         (("bdpt",), "queue A item 7.4"),

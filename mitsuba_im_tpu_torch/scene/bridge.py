@@ -4,17 +4,25 @@
 and returns the tables the port uses as numpy arrays (keyed
 ``"<table>.<leaf>"``) plus static Python values; :func:`scene_from_numpy`
 turns those into the port's Scene on a device.  Together they feed both
-packages the same scene bit for bit, the cluster hierarchy of large scenes
-included.  Neither imports jax: ``np.asarray`` reads the reference's
-arrays.
+packages the same scene bit for bit: the cluster hierarchy of large scenes
+(a motion hierarchy's frame-1 rows ``clusters.blocks1`` and its shutter
+time ``clusters.time`` too, and an instanced one's indirect tables), the
+instances' normal rotations (``geom.inst_rot``), the frame-1 mirror of a
+deformable scene (``motion.*``) and the IRAWAN weave patterns
+(``bsdfs.weaves``, the reference's ``WeavePattern`` records field by field,
+its normalization included).  Neither imports jax: ``np.asarray`` reads
+the reference's arrays.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from ..core.types import entry_device, host_tensor
 from ..accel import hierarchy as hy
 from ..bsdf import common as bc
+from ..bsdf.irawan import WeavePattern
 from ..emitter import table as em
 from ..sensor.table import SENSOR_LEAVES, Sensor
 from ..texture import texture as tx
@@ -45,17 +53,23 @@ def export_tables(src) -> tuple[dict, dict]:
         arrays[f"sensor.{k}"] = np.asarray(getattr(src.sensor, k))
     for k in SCENE_LEAVES:
         arrays[f"scene.{k}"] = np.asarray(getattr(src, k))
+    arrays["bsdfs.weave_id"] = np.asarray(src.bsdfs.weave_id)
     h = src.clusters
     if h is not None:
         for k in hy.HIERARCHY_LEAVES:
             arrays[f"clusters.{k}"] = np.asarray(getattr(h, k))
+        if h.has_motion:
+            arrays["clusters.blocks1"] = np.asarray(h.blocks1)
+    if src.motion is not None:
+        for k, a in src.motion.items():
+            arrays[f"motion.{k}"] = np.asarray(a)
     g, b, e = src.geom, src.bsdfs, src.emitters
     statics = {
         "geom.n_tris": g.n_tris, "geom.n_spheres": g.n_spheres,
         "geom.n_disks": g.n_disks, "geom.instanced": g.instanced,
         "bsdfs.used_types": tuple(b.used_types),
         "bsdfs.unwrap_depth": b.unwrap_depth, "bsdfs.has_bump": b.has_bump,
-        "bsdfs.weaves": len(b.weaves),
+        "bsdfs.weaves": tuple(dataclasses.asdict(w) for w in b.weaves),
         "emitters.n_emitters": e.n_emitters,
         "emitters.used_types": tuple(e.used_types),
         "emitters.used_area_kinds": tuple(e.used_area_kinds),
@@ -71,7 +85,9 @@ def export_tables(src) -> tuple[dict, dict]:
         statics.update({"clusters.n_supers": h.n_supers,
                         "clusters.n_tris": h.n_tris,
                         "clusters.indirect": h.indirect,
-                        "clusters.has_motion": h.has_motion})
+                        "clusters.has_motion": h.has_motion,
+                        "clusters.time": (float(np.asarray(h.time))
+                                          if h.has_motion else 0.0)})
     return arrays, statics
 
 
@@ -84,25 +100,22 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
     """The port's Scene from exported tables, on ``device`` (the card unless
     the CPU is asked for)."""
     device = entry_device(device)
-    for key, what in (("geom.instanced", "shared-BLAS instancing"),
-                      ("clusters.indirect", "shared-BLAS instancing"),
-                      ("clusters.has_motion", "deformable motion"),
-                      ("scene.subsurface", "subsurface scattering"),
-                      ("scene.motion", "deformable motion"),
-                      ("bsdfs.weaves", "the irawan BSDF")):
-        if statics.get(key):
-            raise NotImplementedError(f"{what} is not ported yet")
+    if statics.get("scene.subsurface"):
+        raise NotImplementedError("subsurface scattering is not ported yet")
 
     ga = _sub(arrays, "geom")
     geom = Geometry(
         **{k: host_tensor(ga[k], np.int32 if k.endswith("_shape")
                           else np.float32, device) for k in GEOMETRY_LEAVES},
         n_tris=statics["geom.n_tris"], n_spheres=statics["geom.n_spheres"],
-        n_disks=statics["geom.n_disks"])
+        n_disks=statics["geom.n_disks"],
+        instanced=bool(statics.get("geom.instanced", False)))
     ta = _sub(arrays, "textures")
     bsdfs = bc.table_from_arrays(
         _sub(arrays, "bsdfs"), statics["bsdfs.used_types"],
-        statics["bsdfs.unwrap_depth"], device, ta)
+        statics["bsdfs.unwrap_depth"], device, ta,
+        weaves=tuple(WeavePattern.from_dict(w)
+                     for w in statics.get("bsdfs.weaves", ())))
     textures = tx.table_from_arrays(
         ta, statics["textures.used_types"], statics["textures.has_mip"],
         device)
@@ -114,13 +127,21 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
     if statics["scene.clusters"]:
         clusters = hy.hierarchy_from_arrays(
             _sub(arrays, "clusters"), statics["clusters.n_supers"],
-            statics["clusters.n_tris"], statics["clusters.indirect"], device)
+            statics["clusters.n_tris"], statics["clusters.indirect"], device,
+            statics.get("clusters.has_motion", False),
+            statics.get("clusters.time", 0.0))
+    motion = None
+    if statics.get("scene.motion"):
+        motion = {k: host_tensor(a, np.float32, device)
+                  for k, a in _sub(arrays, "motion").items()}
     sa = _sub(arrays, "sensor")
     sensor = Sensor(**{k: host_tensor(sa[k], np.float32, device)
                        for k in SENSOR_LEAVES}, type=statics["sensor.type"])
     sc = _sub(arrays, "scene")
     return Scene(geom=geom, bsdfs=bsdfs, textures=textures,
                  emitters=emitters, sensor=sensor,
-                 clusters=clusters,
+                 clusters=clusters, motion=motion,
+                 shutter=tuple(float(np.float32(sa[k])) for k in
+                               ("shutter_open", "shutter_time")),
                  **{k: host_tensor(sc[k], np.int32, device)
                     for k in SCENE_LEAVES})

@@ -3,8 +3,12 @@
 
 All triangle meshes are one SoA soup; analytic spheres and disks keep
 exact quadric intersections.  Every kind is padded to at least one
-unhittable entry, as in the reference.  Shared-BLAS instancing is not
-ported.
+unhittable entry, as in the reference.  Under shared-BLAS instancing the
+triangle tables hold each group's geometry once, in its local space; a
+hit's instance id (``Hit.inst``) picks the rotation ``inst_rot`` that
+takes its geometric and shading normals to world space (the reference's
+``compute_interaction_v``, ``geometry.py:304-318``), its point is world
+space (o + d t).
 """
 from __future__ import annotations
 
@@ -47,13 +51,17 @@ class Geometry:
     # (shading normals and uvs at the three vertices): one row gather per
     # interaction
     tri_shad: torch.Tensor  # (T, SHAD_ROW)
+    # per-instance normal rotations of shared-BLAS instancing (row 0 the
+    # identity): the inverse transposes of the instances' linear parts
+    inst_rot: torch.Tensor  # (I, 3, 3)
     n_tris: int = 0  # real (unpadded) counts
     n_spheres: int = 0
     n_disks: int = 0
+    instanced: bool = False  # more than the identity in inst_rot
 
 
 GEOMETRY_LEAVES = tuple(f.name for f in dataclasses.fields(Geometry)
-                        if not f.name.startswith("n_"))
+                        if f.type == "torch.Tensor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +74,7 @@ class Hit:
     shape: torch.Tensor  # int32 shape id (INVALID when miss)
     u: torch.Tensor  # tri: barycentric u
     v: torch.Tensor
+    inst: torch.Tensor | None = None  # int32 instance id (instanced scenes)
 
     @property
     def valid(self) -> torch.Tensor:
@@ -96,11 +105,13 @@ def pack_shading_rows(e1, e2, n0, n1, n2, uv0, uv1, uv2) -> np.ndarray:
 
 
 def make_geometry(tri_data: dict | None, spheres: dict | None = None,
-                  disks: dict | None = None, *, device) -> Geometry:
+                  disks: dict | None = None, *, device,
+                  inst_rot: np.ndarray | None = None) -> Geometry:
     """Build a Geometry from host numpy dicts: triangles (keys p0 e1 e2 n0
     n1 n2 uv0 uv1 uv2 shape), spheres (center radius shape) and disks
     (center n s t radius shape).  Every kind is padded to one unhittable
-    entry when empty, as in the reference."""
+    entry when empty, as in the reference.  ``inst_rot`` (I, 3, 3): the
+    instances' normal rotations under shared-BLAS instancing."""
     if tri_data is None or len(tri_data.get("p0", ())) == 0:
         far = 3.0e37
         z = np.zeros((1, 3), np.float32)
@@ -147,7 +158,10 @@ def make_geometry(tri_data: dict | None, spheres: dict | None = None,
         disk_s=f(disks["s"]), disk_t=f(disks["t"]),
         disk_radius=f(disks["radius"]), disk_shape=i(disks["shape"]),
         tri_shad=f(shad),
+        inst_rot=f(np.eye(3, dtype=np.float32)[None] if inst_rot is None
+                   else inst_rot),
         n_tris=n_tris, n_spheres=n_spheres, n_disks=n_disks,
+        instanced=inst_rot is not None and len(inst_rot) > 1,
     )
 
 
@@ -172,6 +186,19 @@ def compute_interaction_v(geom: Geometry, o: V3, d: V3,
     ng_tri = e1.cross(e2).normalized()
     w = 1.0 - hit.u - hit.v
     ns_tri = (n0 * w + n1 * hit.u + n2 * hit.v).normalized()
+    if geom.instanced:
+        # BLAS-local normals to world space, per instance
+        rot = geom.inst_rot.reshape(-1, 9)
+        ii = hit.inst.clamp(0, rot.shape[0] - 1).long()
+        rc = [rot[:, k][ii] for k in range(9)]
+
+        def rot_v3(n):
+            return V3(rc[0] * n.x + rc[1] * n.y + rc[2] * n.z,
+                      rc[3] * n.x + rc[4] * n.y + rc[5] * n.z,
+                      rc[6] * n.x + rc[7] * n.y + rc[8] * n.z).normalized()
+
+        ng_tri = rot_v3(ng_tri)
+        ns_tri = rot_v3(ns_tri)
     uvu_tri = row[:, 15] * w + row[:, 17] * hit.u + row[:, 19] * hit.v
     uvv_tri = row[:, 16] * w + row[:, 18] * hit.u + row[:, 20] * hit.v
 

@@ -1,16 +1,20 @@
 """Compiled scene: every table the wavefront needs, as torch tensors on one
 device (``mitsuba_im_tpu/scene/scene.py``).
 
-Scenes above ``BRUTE_FORCE_MAX`` triangles carry their two-level cluster
-hierarchy (``clusters``).  Bump and normal maps tilt the shading frame of
-every interaction (:meth:`Scene._perturb_frame_v`).  Deformable motion,
-instancing, participating media and subsurface scattering are not ported;
-a scene that needs them raises where it is built (:mod:`.bridge`).
+Scenes above ``BRUTE_FORCE_MAX`` triangles, and instanced scenes, carry
+their two-level cluster hierarchy (``clusters``).  Bump and normal maps
+tilt the shading frame of every interaction (:meth:`Scene._perturb_frame_v`).
+A scene with deformable shapes carries the frame-1 mirror of its triangle
+tables (``motion``); :meth:`Scene.with_time` is the scene at one shutter
+time, which a render pass shares across its wavefront.  Participating
+media and subsurface scattering are not ported; a scene that needs them
+raises where it is built (:mod:`.bridge`).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core.types import INVALID, EPSILON
@@ -35,10 +39,39 @@ class Scene:
     shape_bsdf: torch.Tensor  # (S,) int32
     shape_emitter: torch.Tensor  # (S,) int32
     clusters: Hierarchy | None = None  # large scenes only
+    # frame-1 triangle tables of deformable shapes (MOTION_KEYS, row for
+    # row with geom's), or None
+    motion: dict | None = None
+    # (shutter_open, shutter_time) of the sensor as float32 values on the
+    # host, read once where the scene is built, so that a motion pass's
+    # shutter time needs no read from the device
+    shutter: tuple = (0.0, 0.0)
 
     @property
     def device(self) -> torch.device:
         return self.geom.tri_p0.device
+
+    def with_time(self, t) -> "Scene":
+        """The scene at shutter time ``t`` (a float32 value): triangle
+        positions, edges and the shading rows' edges and normals lerped as
+        ``a + (b - a) * t`` (``mitsuba_im_tpu/scene/scene.py:46-76``), and
+        a motion hierarchy traversed at ``t``.  A static scene is returned
+        as it is."""
+        if self.motion is None:
+            return self
+        t = float(np.float32(t))
+        g, m = self.geom, self.motion
+
+        def lerp(a, b):
+            return a + (b - a) * t
+
+        shad1 = torch.cat([m["e1"], m["e2"], m["n0"], m["n1"], m["n2"],
+                           g.tri_shad[:, 15:]], dim=1)
+        geom = dataclasses.replace(
+            g, tri_p0=lerp(g.tri_p0, m["p0"]), tri_e1=lerp(g.tri_e1, m["e1"]),
+            tri_e2=lerp(g.tri_e2, m["e2"]), tri_shad=lerp(g.tri_shad, shad1))
+        clusters = None if self.clusters is None else self.clusters.at_time(t)
+        return dataclasses.replace(self, geom=geom, clusters=clusters)
 
     def ray_intersect_v(self, o, d, tmin=EPSILON, tmax=1e30, active=None,
                         coherent=False) -> Hit:

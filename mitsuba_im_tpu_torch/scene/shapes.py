@@ -8,15 +8,21 @@ The keyword functions work on any builder with the ``SceneBuilder``
 interface (``new_shape``, ``add_sphere``, ``add_disk``, ``add_emitter``,
 ``shape_emitter``), the JAX package's included, so one description of a
 scene fills both.  The host arithmetic is the reference's, in float64.
-``shapegroup``, ``instance`` and ``deformable`` raise (shared-BLAS
-instancing and deformable motion are not ported).
+
+``shapegroup`` and ``instance`` are shared-BLAS instancing: the scene
+loader captures a group's shapes once, in local space
+(``SceneBuilder.begin_group``/``end_group``), and each ``instance``
+records its transform (``add_instance``).  ``deformable`` reads the first
+and last shapes of a ``.serialized`` file as the two keyframes of a
+deformable mesh (``add_trimesh_motion``); frames between them are not
+used, as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..core.properties import Properties
-from ..core.registry import register, register_unported
+from ..core.registry import register
 from ..core.transform import Transform
 from ..emitter.table import AK_DISK, AK_SPHERE, AK_TRIMESH
 from . import mesh as mesh_mod
@@ -365,5 +371,73 @@ def _hair(props: Properties, ctx=None):
     return _finish_mesh(props, ctx, tessellate_hair(strands, radius))
 
 
-register_unported("shape", ("shapegroup", "instance", "deformable"),
-                  "queue A item 6")
+# shapegroup / instance (instance.cpp:115-129 shares one kd-tree per
+# group): groups given as lists of child Properties, outside the scene
+# loader, are kept here by id
+_SHAPEGROUPS: dict[str, list] = {}
+
+
+@register("shape", "shapegroup")
+def _shapegroup(props: Properties, ctx=None):
+    _SHAPEGROUPS[props.id or "default"] = props.children.get("shape_list",
+                                                             [])
+    return None
+
+
+@register("shape", "instance")
+def _instance(props: Properties, ctx=None):
+    """An instance of the referenced group: a group key captured by the
+    loader, or a list of child Properties (captured here at the first
+    instance)."""
+    from ..core import registry
+
+    ref = props.children.get("shapegroup")
+    m = np.asarray(props.get_transform("toWorld", Transform()).m)[:3, :4]
+    if not isinstance(ref, list):
+        if ref in ctx.blas_groups:
+            ctx.add_instance(ref, m)
+        return None
+    key = id(ref)
+    if key not in ctx.blas_groups:
+        ctx.begin_group(key)
+        for child_props in ref:
+            registry.create("shape", child_props.copy(), ctx)
+        ctx.end_group(key)
+    ctx.add_instance(key, m)
+    return None
+
+
+@register("shape", "deformable")
+def _deformable(props: Properties, ctx=None):
+    """A keyframed mesh (src/shapes/deformable.cpp): the first and last
+    shapes of the ``.serialized`` file ``filename`` bracket the shutter;
+    the render pass lerps between them at its shutter time."""
+    path = ctx.resolve_path(props.get_string("filename", ""))
+    if not path:
+        inner = props.children.get("shape_props")
+        if inner is not None:
+            from ..core import registry
+
+            return registry.create("shape", inner, ctx)
+        return None
+    n_frames = mesh_mod.serialized_shape_count(path)
+    mesh0 = mesh_mod.load_serialized(path, 0)
+    mesh1 = (mesh_mod.load_serialized(path, n_frames - 1) if n_frames > 1
+             else mesh0)
+    to_world = props.get_transform("toWorld", Transform())
+    mesh0 = mesh0.transformed(to_world)
+    mesh1 = mesh1.transformed(to_world)
+    if mesh0.normals is None:
+        mesh0 = mesh0.compute_normals()
+    if mesh1.normals is None:
+        mesh1 = mesh1.compute_normals()
+    sid = ctx.new_shape(_shape_bsdf(props, ctx))
+    ctx.add_trimesh_motion(mesh0, mesh1, sid)
+    em_rec = props.children.get("emitter")
+    if em_rec is not None:
+        pos, idx = mesh0.positions, mesh0.indices
+        e1 = pos[idx[:, 1]] - pos[idx[:, 0]]
+        e2 = pos[idx[:, 2]] - pos[idx[:, 0]]
+        area = float(0.5 * np.linalg.norm(np.cross(e1, e2), axis=1).sum())
+        attach_area_emitter(ctx, em_rec, sid, AK_TRIMESH, surface_area=area)
+    return sid

@@ -117,9 +117,18 @@ class SceneLoader:
         ptype = self._subst(el.get("type"))
         props = Properties(ptype)
         props.id = el.get("id", "")
-        if category == "shape" and ptype == "shapegroup":
-            # raises before its children add world geometry
-            return registry.create(category, props, self.builder)
+        if (category == "shape" and ptype == "shapegroup"
+                and hasattr(self.builder, "begin_group")):
+            # capture the child shapes as one shared BLAS group; a <ref> to
+            # its id gives the group key to <shape type="instance">
+            key = ("shapegroup", id(el))
+            self.builder.begin_group(key)
+            for child in el:
+                if child.tag == "shape":
+                    self._instantiate(child)
+            self.builder.end_group(key)
+            self.ids[props.id or "default"] = ("shapegroup", key)
+            return None
 
         for child in el:
             tag = child.tag

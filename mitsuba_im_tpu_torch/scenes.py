@@ -434,12 +434,16 @@ def _sphere_corner_uvs(idx: np.ndarray, n: int) -> np.ndarray:
 
 
 ENVS = ("constant", "sky", "sunsky")
+SPHERE_RADIUS = 0.08  # displaced_sphere's
+MOTION_SHIFT = SPHERE_RADIUS / 5.0  # the deformable large scene's frame 1
 
 
 def fill_large_scene(b, n_tris_target: int = 1_120_000, env="constant",
-                     texture: bool = False):
+                     texture: bool = False, motion: bool = False):
     """The content of :func:`large_scene` (mesh, material, emitters) into
-    the builder ``b`` (the JAX package's too, without ``texture``)."""
+    the builder ``b`` (the JAX package's too, without ``texture``); with
+    ``motion`` the mesh is deformable, its frame 1 frame 0 moved by a fifth
+    of its radius along x (``MOTION_SHIFT``)."""
     if env not in ENVS:
         raise ValueError(f"env {env!r}: one of {ENVS}")
     pos, idx = displaced_sphere(n_tris_target)
@@ -453,7 +457,11 @@ def fill_large_scene(b, n_tris_target: int = 1_120_000, env="constant",
         corner_uvs = _sphere_corner_uvs(idx, int(np.sqrt(n_tris_target / 2))
                                         + 1)
     bid = b.add_bsdf(rec)
-    b.add_trimesh(mesh, b.new_shape(bid), corner_uvs=corner_uvs)
+    if motion:
+        moved = TriMesh(pos + [MOTION_SHIFT, 0.0, 0.0], idx).compute_normals()
+        b.add_trimesh_motion(mesh, moved, b.new_shape(bid))
+    else:
+        b.add_trimesh(mesh, b.new_shape(bid), corner_uvs=corner_uvs)
     if env == "constant":
         b.add_emitter(emf.constant(1.0))
     elif env == "sky":
@@ -471,7 +479,7 @@ LARGE_CAMERA = dict(origin=[0.0, 0.05, 0.3], target=[0, 0, 0], up=[0, 1, 0],
 
 def large_scene(device="cuda", res: int = 768,
                 n_tris_target: int = 1_120_000, env="constant",
-                texture: bool = False):
+                texture: bool = False, motion: bool = False):
     """The large-scene configuration of ``bench.py``'s third metric
     (``bench_scenes.build_large_scene`` without the reference's bunny and
     envmap files): the displaced sphere (1,120,504 triangles at the
@@ -489,14 +497,18 @@ def large_scene(device="cuda", res: int = 768,
     specular reflectance (a conductor does not read ``refl``), so the
     hierarchy's path reads uvs from the packed shading rows and filters
     the bitmap.  Returns (Scene, settings) on ``device``, the card unless
-    the CPU is asked for; the scene carries its cluster hierarchy."""
+    the CPU is asked for; the scene carries its cluster hierarchy.  With
+    ``motion`` the mesh is a deformable whose frame 1 is frame 0 moved
+    by ``MOTION_SHIFT`` along x, the shutter open from 0 to 1, and the
+    hierarchy the motion hierarchy."""
     device = entry_device(device)
     b = SceneBuilder()
-    fill_large_scene(b, n_tris_target, env, texture)
+    fill_large_scene(b, n_tris_target, env, texture, motion)
     c = LARGE_CAMERA
     b.sensor = make_sensor(  # a host copy; build() moves it to device
         S_PERSPECTIVE, Transform.look_at(c["origin"], c["target"], c["up"]),
-        fov_deg=c["fov_deg"], device="cpu")
+        fov_deg=c["fov_deg"], shutter_time=1.0 if motion else 0.0,
+        device="cpu")
     b.settings.width = b.settings.height = res
     b.settings.spp = 1
     b.settings.rfilter = F_BOX
@@ -505,4 +517,147 @@ def large_scene(device="cuda", res: int = 768,
         smp.sobol(sample_count=2, settings=b.settings)
     b.settings.integrator = "path"
     b.settings.integrator_props = dict(max_depth=3)
+    return b.build(device)
+
+
+# the deformable quad of motion_cornell: its corners at frame 0 (frame 1
+# is this moved by 1.2 along x), facing the camera
+_SLIDER = [[-0.85, 0.3, 0.2], [-0.35, 0.3, 0.2], [-0.35, 0.9, 0.2],
+           [-0.85, 0.9, 0.2]]
+
+
+def motion_cornell(device="cuda"):
+    """:func:`tiny_cornell` with a two-triangle deformable quad (diffuse
+    0.8) that slides 1.2 along x across the box while the shutter is open
+    (0 to 1).  Returns (Scene, settings) on ``device``."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    _cornell_box(b)
+    rec = bc.default_record()
+    rec["refl"] = np.full(3, 0.8)
+    sid = b.new_shape(b.add_bsdf(rec))
+    b.add_trimesh_motion(_quad(_SLIDER, [0, 0, 1]),
+                         _quad(np.asarray(_SLIDER) + [1.2, 0.0, 0.0],
+                               [0, 0, 1]), sid)
+    c = CORNELL_CAMERA
+    b.sensor = make_sensor(
+        S_PERSPECTIVE, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], shutter_time=1.0, device="cpu")
+    b.settings.width = b.settings.height = 32
+    b.settings.spp = 1
+    b.settings.rfilter = F_BOX
+    b.settings.integrator_props = dict(max_depth=4)
+    return b.build(device)
+
+
+def _instance_transforms(n_side: int, spacing: float):
+    """(3, 4) transforms of an n_side x n_side grid in the xy plane: each
+    rotated about y by its own angle and uniformly scaled by 0.7-1.0."""
+    out = []
+    for k in range(n_side * n_side):
+        i, j = divmod(k, n_side)
+        xf = (Transform.translate([(j - (n_side - 1) / 2) * spacing,
+                                   (i - (n_side - 1) / 2) * spacing, 0.0])
+              @ Transform.rotate([0, 1, 0], 23.0 * k)
+              @ Transform.scale([0.7 + 0.3 * ((k * 7) % 5) / 4.0] * 3))
+        out.append(np.asarray(xf.m)[:3, :4])
+    return out
+
+
+INSTANCED_CAMERA = dict(target=[0, 0, 0], up=[0, 1, 0], fov_deg=40.0)
+
+
+def instanced_scene(device="cuda", res: int = 768, n_side: int = 4,
+                    n_tris_target: int = 1_120_000, expanded: bool = False):
+    """Shared-BLAS instancing: the large scene's displaced sphere (GGX
+    rough copper of alpha 0.2) as one shapegroup, instanced n_side x
+    n_side times in a grid (rotations about y, uniform scales 0.7-1.0),
+    under the unit constant environment, box filter, path depth 3.  With
+    ``expanded`` each instance is a world-space copy of the mesh instead
+    (the same picture from n_side^2 times the triangles).  Returns (Scene,
+    settings) on ``device``."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    pos, idx = displaced_sphere(n_tris_target)
+    mesh = TriMesh(pos, idx).compute_normals()
+    bid = b.add_bsdf(bc.conductor_record(rough=True, alpha=0.2,
+                                         distribution="ggx"))
+    xfs = _instance_transforms(n_side, spacing=2.4 * SPHERE_RADIUS)
+    if expanded:
+        for m in xfs:
+            xf = Transform(np.concatenate([m, [[0, 0, 0, 1]]]))
+            b.add_trimesh(mesh.transformed(xf), b.new_shape(bid))
+    else:
+        b.begin_group("mesh")
+        b.add_trimesh(mesh, b.new_shape(bid))
+        b.end_group("mesh")
+        for m in xfs:
+            b.add_instance("mesh", m)
+    b.add_emitter(emf.constant(1.0))
+    dist = 1.3 * n_side * 2.4 * SPHERE_RADIUS / (2 * np.tan(np.radians(20)))
+    c = INSTANCED_CAMERA
+    b.sensor = make_sensor(
+        S_PERSPECTIVE, Transform.look_at([0.0, 0.05, dist], c["target"],
+                                         c["up"]),
+        fov_deg=c["fov_deg"], device="cpu")
+    b.settings.width = b.settings.height = res
+    b.settings.spp = 1
+    b.settings.rfilter = F_BOX
+    b.settings.integrator_props = dict(max_depth=3)
+    return b.build(device)
+
+
+# a 2/2 twill with a staple warp yarn (the twill of tests/test_irawan.py,
+# its alpha given)
+TWILL = """
+weave {
+  name = "twill",
+  alpha = 0.25, beta = 4.0, ss = 0.5, hWidth = 0.5,
+  warpArea = 3.0, weftArea = 1.0,
+  tileWidth = 4, tileHeight = 4,
+  fineness = 0.0, period = 0.0,
+  pattern {
+    1, 2, 2, 2,
+    2, 1, 2, 2,
+    2, 2, 1, 2,
+    2, 2, 2, 1
+  },
+  yarn { type = warp, psi = 30, umax = 25, kappa = 1.0,
+         width = 2.0, length = 4.0, centerU = 0.5, centerV = 0.5,
+         kd = {0.2, 0.1, 0.05}, ks = {0.3, 0.3, 0.3} },
+  yarn { type = weft, psi = 0, umax = 30, kappa = -0.5,
+         width = 2.0, length = 4.0, centerU = 0.5, centerV = 0.5,
+         kd = {0.1, 0.15, 0.2}, ks = {0.25, 0.3, 0.35} }
+}
+"""
+
+
+def irawan_cornell(device="cuda"):
+    """The Cornell box with woven cloth: the built-in plain weave on the
+    floor (repeated 8 x 8) and :data:`TWILL` on the back wall (6 x 6), both
+    with uvs over their quads.  Returns (Scene, settings) on ``device``."""
+    from .bsdf import irawan as ir
+
+    device = entry_device(device)
+    b = SceneBuilder()
+    white = bc.default_record(); white["refl"] = np.full(3, 0.72)
+    red = bc.default_record(); red["refl"] = np.array([0.63, 0.065, 0.05])
+    green = bc.default_record(); green["refl"] = np.array([0.14, 0.45, 0.09])
+    cloth = []
+    for text, rep in ((ir.PLAIN_WEAVE, 8.0), (TWILL, 6.0)):
+        rec = bc.default_record()
+        rec["type"] = bc.IRAWAN
+        rec["weave"] = ir.compute_normalization(
+            ir.parse_weave(text, repeatU=rep, repeatV=rep))
+        cloth.append(b.add_bsdf(rec))
+    wid, rid, gid = b.add_bsdf(white), b.add_bsdf(red), b.add_bsdf(green)
+    for (pts, n), bid in zip(_CORNELL_WALLS,
+                             (cloth[0], wid, cloth[1], rid, gid)):
+        b.add_trimesh(_quad(pts, n, uvs=True), b.new_shape(bid))
+    _cornell_light(b)
+    _cornell_sensor(b)
+    b.settings.width = b.settings.height = 32
+    b.settings.spp = 1
+    b.settings.rfilter = F_BOX
+    b.settings.integrator_props = dict(max_depth=4)
     return b.build(device)

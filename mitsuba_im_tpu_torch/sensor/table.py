@@ -135,3 +135,28 @@ def sample_ray_v(sensor: Sensor, uv_u, uv_v, u_lens_a, u_lens_b):
         tw[2, 0] * d_cam.x + tw[2, 1] * d_cam.y + tw[2, 2] * d_cam.z,
     ).normalized()
     return o, d, torch.ones(x.shape, dtype=Float, device=x.device)
+
+
+def connect_v(sensor: Sensor, p: V3):
+    """Project world points onto the film (``mitsuba_im_tpu/sensor/
+    table.py::connect``, :192): (u, v in [0, 1), the camera's world
+    position, distance, the pinhole's image-plane importance
+    1 / (4 tan_x tan_y cos^3 theta), valid).  Pinhole projection (the
+    perspective sensor, a thin lens of zero aperture)."""
+    m = sensor.to_camera
+    pc = [m[k, 0] * p.x + m[k, 1] * p.y + m[k, 2] * p.z + m[k, 3]
+          for k in range(3)]
+    z = pc[2]
+    valid = z > sensor.near
+    zs = torch.where(valid, z, 1.0)
+    u = 0.5 * (1.0 - pc[0] / zs / sensor.tan_x)
+    w = 0.5 * (1.0 - pc[1] / zs / sensor.tan_y)
+    valid = valid & (u >= 0) & (u < 1) & (w >= 0) & (w < 1)
+    cw = sensor.to_world[:3, 3]
+    cam = V3(*(cw[k].expand(z.shape) for k in range(3)))
+    delta = p - cam
+    dist = torch.sqrt(torch.clamp_min(delta.dot(delta), 1e-20))
+    cos_theta = z / torch.clamp_min(dist, 1e-12)
+    a_img = 4.0 * sensor.tan_x * sensor.tan_y
+    importance = 1.0 / torch.clamp_min(a_img * cos_theta ** 3, 1e-12)
+    return u, w, cam, dist, importance, valid

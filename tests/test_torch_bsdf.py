@@ -225,14 +225,14 @@ def test_family_matches_reference(case):
 
 
 def test_ported_types():
-    """Fifteen ported types; IRAWAN and BUMPMAP_WRAP (a code no record
-    takes) still raise, while MASK and BLEND rows resolve into the rows
-    they wrap."""
-    assert len(tev.PORTED) == 15
+    """Sixteen ported types (IRAWAN too, tests/test_torch_irawan.py);
+    BUMPMAP_WRAP (a code no record takes) still raises, while MASK and
+    BLEND rows resolve into the rows they wrap."""
+    assert len(tev.PORTED) == 16 and tbc.IRAWAN in tev.PORTED
     w = tv3(np.tile([[0.0, 0.0, 1.0]], (4, 1)))
     u = torch.full((4,), 0.5)
     zeros = torch.zeros(4, dtype=torch.int32)
-    for t in (tbc.IRAWAN, tbc.BUMPMAP_WRAP):
+    for t in (tbc.BUMPMAP_WRAP,):
         rec = tbc.default_record()
         rec["type"] = t
         table = tbc.build_table([rec], "cpu")

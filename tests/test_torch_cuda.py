@@ -12,8 +12,12 @@ the CPU's; the environment map's alias sampling and the thirteen-family
 ``material_cornell`` render on the card against the CPU; the textured
 Cornell render and its atlas gradient on the card against the CPU; every
 sampler kind's blocks and the ``lights_cornell`` render (thin lens,
-ldsampler, the Gaussian filter, every light) on the card against the CPU.
+ldsampler, the Gaussian filter, every light) on the card against the CPU;
+the hierarchy kernels' motion mode against the plain version at three
+shutter times.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -223,6 +227,44 @@ def test_hierarchy_kernels_match_plain_version(cuda, kind):
     if kind == "instanced":
         assert len(set(p.inst[p.found].tolist())) == 3
     assert (ch.hier_closest.launches, ch.hier_anyhit.launches) == (2, 2)
+
+
+@pytest.mark.parametrize("t", [0.0, 0.37, 1.0])
+def test_hierarchy_motion_mode_matches_plain_version(cuda, t):
+    """The motion mode (a deformable soup's two keyframes, rows lerped at
+    the shutter time t) equals intersect_hierarchy_plain bit for bit, with
+    and without a mask; at t = 0 it equals the static kernel on frame 0's
+    rows."""
+    rng = np.random.default_rng(83)
+    p0, e1, e2 = (rng.uniform(-s, s, (4000, 3)).astype(np.float32)
+                  for s in (1.0, 0.3, 0.3))
+    q0 = (p0 + rng.uniform(-0.2, 0.2, p0.shape)).astype(np.float32)
+    h = hy.build_hierarchy_motion(p0, e1, e2, q0, e1 * np.float32(1.1), e2,
+                                  cuda).at_time(t)
+    gen = torch.Generator(device=cuda).manual_seed(84)
+    n = 100_003
+    o, d = _rays(gen, n, cuda)
+    o = V3(*(c * 2.5 for c in o))
+    tmax = torch.rand(n, generator=gen, device=cuda) * 4.0
+    act = torch.rand(n, generator=gen, device=cuda) < 0.5
+    ch.reset_launch_counts()
+    for mask in (None, act):
+        k = ch.hier_closest(h, o, d, 1e-4, 1e30, active=mask)
+        p = hy.intersect_hierarchy_plain(h, o, d, 1e-4, 1e30, active=mask)[0]
+        assert bool(p.found.any())
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        kb = ch.hier_anyhit(h, o, d, 1e-4, tmax, active=mask)
+        pb = hy.intersect_hierarchy_plain(h, o, d, 1e-4, tmax, any_hit=True,
+                                          active=mask)[0].found
+        assert torch.equal(kb, pb)
+    assert (ch.hier_closest.motion_launches,
+            ch.hier_anyhit.motion_launches) == (2, 2)
+    if t == 0.0:
+        static = dataclasses.replace(h, has_motion=False)
+        for a, b in zip(ch.hier_closest(h, o, d, 1e-4, 1e30),
+                        ch.hier_closest(static, o, d, 1e-4, 1e30)):
+            assert torch.equal(a, b)
 
 
 def test_hierarchy_ray_counters_left_zero(cuda):

@@ -80,7 +80,8 @@ def jax_shapes_scene(sphere_bsdf: dict | None = None,
 
 def scene_leaves(scene) -> dict:
     """{"<part>.<field>": tensor or static} of a port Scene, the cluster
-    hierarchy's included when the scene has one."""
+    hierarchy's and the deformable motion mirror's included when the scene
+    has them, and the shutter the scene's build read to the host."""
     import dataclasses
 
     out = {}
@@ -94,6 +95,12 @@ def scene_leaves(scene) -> dict:
             out[f"{part}.{f.name}"] = getattr(obj, f.name)
     for k in ("shape_bsdf", "shape_emitter"):
         out[f"scene.{k}"] = getattr(scene, k)
+    out["scene.shutter"] = scene.shutter
+    if scene.motion is None:
+        out["motion"] = None
+    else:
+        for k, t in scene.motion.items():
+            out[f"motion.{k}"] = t
     return out
 
 

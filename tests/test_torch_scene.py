@@ -22,6 +22,7 @@ from mitsuba_im_tpu_torch.bsdf import common as tbc
 from mitsuba_im_tpu_torch.bsdf import eval as tev
 from mitsuba_im_tpu_torch.emitter import table as tem
 from mitsuba_im_tpu_torch.scene import geometry as tgeo
+from mitsuba_im_tpu_torch.bsdf import irawan as tir
 from mitsuba_im_tpu_torch.scene.bridge import export_tables, scene_from_numpy
 from mitsuba_im_tpu_torch.scenes import tiny_cornell
 
@@ -229,12 +230,12 @@ def test_area_emitters(which):
 @pytest.mark.parametrize("case", ["env_emitter", "point_emitter",
                                   "textured_bsdf", "other_bsdf_type"])
 def test_unported_features_raise(case):
-    """BSDFs the port has not reached raise where they are built or
-    evaluated: a bridged scene with an IRAWAN weave (``textured_bsdf``,
-    the name from before textures were ported), IRAWAN's type code.  The
+    """BSDFs the port has not reached raise where they are evaluated:
+    BUMPMAP_WRAP's type code (``other_bsdf_type``), which no record
+    takes.  A bridged scene with an IRAWAN weave (``textured_bsdf``), the
     sun (a directional record) beside a map and a point light, which
-    raised before those emitters were ported (the names are kept), build
-    the reference's table bit for bit."""
+    raised before they were ported (the names are kept), build the
+    reference's tables bit for bit."""
     if case in ("env_emitter", "point_emitter"):
         recs = ([tem.envmap_record(np.ones((2, 4, 3))),
                  dict(type=tem.EM_DIRECTIONAL, intensity=np.ones(3),
@@ -264,12 +265,17 @@ def test_unported_features_raise(case):
                        np.array([[0, 1, 2], [2, 3, 0]]))
         b.add_trimesh(quad, b.new_shape(b.add_bsdf(
             create("bsdf", Properties("irawan")))))
-        arrays, statics = export_tables(b.build()[0])
-        assert statics["bsdfs.weaves"] == 1
-        with pytest.raises(NotImplementedError, match="irawan"):
-            scene_from_numpy(arrays, statics, "cpu")
+        jscene = b.build()[0]
+        arrays, statics = export_tables(jscene)
+        assert len(statics["bsdfs.weaves"]) == 1
+        out = scene_from_numpy(arrays, statics, "cpu").bsdfs
+        assert out.weaves[0] == tir.WeavePattern.from_dict(
+            dataclasses.asdict(jscene.bsdfs.weaves[0]))
+        assert out.weaves[0].normalization == \
+            jscene.bsdfs.weaves[0].normalization
+        np.testing.assert_array_equal(npy(out.weave_id), [0])
         return
-    rec["type"] = tbc.IRAWAN
+    rec["type"] = tbc.BUMPMAP_WRAP
     p = tbc.resolve_v(tbc.build_table([rec], "cpu"), None,
                       torch.zeros(4, dtype=torch.int32))
     w = tv3(np.tile([[0.0, 0.0, 1.0]], (4, 1)))
