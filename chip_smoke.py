@@ -201,7 +201,25 @@ Phases, in order; any failure raises and the run exits non-zero:
 34. ``[tiled]``: the XML Cornell with ``tiledhdrfilm`` at 4096^2 through the
    command line in bands of 64 rows (render_tiled's default): seconds, launches and peak memory
    against one full-frame 4096^2 pass; at 1024^2 the tiled film (full
-   precision) within 2e-5 of ``render_film``'s.
+   precision) within 2e-5 of ``render_film``'s;
+35. ``[volume cornell]``: ``volume_cornell`` (three icosahedra: a null
+   boundary around a homogeneous HG medium, one around a 128^3 grid medium
+   with a microflake phase along a swirl, a dielectric around a Kajiya-Kay
+   medium; the camera in a fog with a mixture phase) through
+   ``render_film`` with ``volpath`` at 1024^2, depth 5, 4 spp: 25
+   brute-force closest-hit launches a pass (a camera segment and four
+   shadow segments a bounce), no any hit; the tracking loops' iterations
+   and host syncs a pass, the pass time, device operations, device time,
+   idle share and peak memory; ``tri_closest`` bit for bit with its plain
+   version on the first bounce's shadow segments (a per-ray tmax); the
+   same scene as a file (OBJ icosahedra, .vol grids) through the command
+   line at 256^2, 25 + 0 launches, its EXR render_film's film; card vs CPU
+   at 128^2;
+36. ``[volume large]``: ``volume_large`` (the 1,120,504-triangle mesh as a
+   null boundary around a homogeneous medium) at 768^2, depth 3, 2 spp:
+   15 ``hier_closest`` launches a pass, no any hit; the same measurements;
+   ``hier_closest`` bit for bit on the first bounce's shadow segments;
+   card vs CPU at 128^2.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -238,6 +256,8 @@ from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
 from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
 from mitsuba_im_tpu_torch.io import bitmap, exr, png
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
+from mitsuba_im_tpu_torch.integrators.volpath import MAX_NULL_SEGMENTS
+from mitsuba_im_tpu_torch.media import medium as med
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
 from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
@@ -247,7 +267,11 @@ from mitsuba_im_tpu_torch.scenes import (CORNELL_CAMERA, LIGHTS, LIGHTS_LENS,
                                          irawan_cornell, large_scene,
                                          lights_cornell, material_cornell,
                                          motion_cornell, textured_cornell,
-                                         tiny_cornell)
+                                         tiny_cornell, volume_cornell,
+                                         volume_large, volume_records,
+                                         icosahedron, VOLUME_CENTRES,
+                                         VOLUME_RADIUS)
+from mitsuba_im_tpu_torch.media.volume import write_vol
 from mitsuba_im_tpu_torch.scenes import LARGE_CAMERA, SUN_DIR, displaced_sphere
 from mitsuba_im_tpu_torch.emitter import hosek
 from mitsuba_im_tpu_torch.scene import build as scene_build
@@ -2720,14 +2744,270 @@ def tiled_phase(dev, smi):
                 full_s=full_s, err=err)
 
 
+# ---------------------------------------------------------------------------
+# participating media: the volumetric path tracer
+# ---------------------------------------------------------------------------
+
+V_PARITY_RES = 128  # both volume phases' card vs CPU image
+V_CLI_RES = 256  # the volume Cornell scene file through the command line
+
+# volume_cornell's media as a scene file (the grids from .vol files)
+VOLUME_MEDIA_XML = """
+<medium type="homogeneous" id="fog">
+  <rgb name="sigmaS" value="0.04"/><rgb name="sigmaA" value="0.01"/>
+  <phase type="mixturephase"><string name="weights" value="0.6, 0.4"/>
+    <phase type="hg"><float name="g" value="0.7"/></phase>
+    <phase type="rayleigh"/></phase></medium>
+<medium type="homogeneous" id="homog">
+  <rgb name="sigmaS" value="2.0, 1.6, 1.2"/><rgb name="sigmaA" value="0.1"/>
+  <phase type="hg"><float name="g" value="0.6"/></phase></medium>
+<medium type="heterogeneous" id="cloud"><float name="scale" value="6"/>
+  <volume name="density" type="gridvolume">
+    <string name="filename" value="cloud.vol"/></volume>
+  <volume name="albedo" type="constvolume">
+    <float name="value" value="0.9"/></volume>
+  <volume name="orientation" type="gridvolume">
+    <string name="filename" value="swirl.vol"/></volume>
+  <phase type="microflake"><float name="stddev" value="0.3"/></phase>
+</medium>
+<medium type="homogeneous" id="kkay">
+  <rgb name="sigmaT" value="1.5"/><rgb name="albedo" value="0.8"/>
+  <phase type="kkay"/></medium>
+"""
+
+
+def segment_rays(scene, settings, res):
+    """(o, d, tmin, tmax) of the first bounce's shadow segments in one
+    volpath pass at res^2, as the pass hands them to the intersector: its
+    second to (1 + MAX_NULL_SEGMENTS)th intersection calls."""
+    calls = []
+    orig = isect.intersect_v
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        if len(calls) <= MAX_NULL_SEGMENTS:
+            calls.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    isect.intersect_v = spy
+    try:
+        render_film(scene, dataclasses.replace(settings, width=res,
+                                               height=res), spp=1)
+    finally:
+        isect.intersect_v = orig
+    segs = calls[1:]
+    if len(segs) != MAX_NULL_SEGMENTS or not all(
+            isinstance(t, torch.Tensor) for *_, t in segs):
+        raise AssertionError("the pass did not march its shadow segments")
+    return segs
+
+
+def volume_render(tag, scene, settings, expect, rays):
+    """counted_render with the tracking counts reset first; then the pass
+    time, the device profile and the tracking loops' iterations and host
+    syncs a pass."""
+    med.reset_track_stats()
+    film, got, peak = counted_render(tag, scene, settings, expect)
+    iters = med.TRACK_STATS["iterations"] / settings.spp
+    ran = med.TRACK_STATS["executed"] / settings.spp
+    syncs = med.TRACK_STATS["syncs"] / settings.spp
+    log(f"[{tag}] tracking loops: {iters:.1f} iterations a pass as the "
+        f"batch counts them, {ran:.1f} of them run (the rest skipped beyond "
+        f"reach), {syncs:.1f} host syncs a pass")
+    per_pass, turns = pass_time_turns(scene, settings, rays, tag)
+    prof = device_profile(tag, lambda k: render_film(scene, settings,
+                                                     spp=k))
+    return film, dict(launches=got, peak=peak, iters=iters, ran=ran,
+                      syncs=syncs, pass_ms=per_pass, turns=turns, prof=prof)
+
+
+def pass_time_turns(scene, settings, rays, tag, rounds=3):
+    """Per-pass ms as the median of ``rounds`` differences of a 2-pass and
+    a 1-pass render timed in turns (one warm-up pass first); the
+    differences show how far a host-bound pass spreads within one run."""
+    def run(k):
+        return lambda: render_film(scene, settings, spp=k)
+
+    run(1)()
+    turns = []
+    for _ in range(rounds):
+        t1 = cuda_ms(run(1), 1, warm=False)
+        t2 = cuda_ms(run(2), 1, warm=False)
+        turns.append(t2 - t1)
+    per_pass = statistics.median(turns)
+    log(f"[{tag}] pass time {per_pass:.3f} ms (median of 2 - 1 passes in "
+        f"turns: {', '.join(f'{t:.3f}' for t in turns)} ms); {rays} rays per "
+        f"pass; {rays / (per_pass * 1e-3):.4e} rays/s")
+    return per_pass, turns
+
+
+def volume_cornell_phase(dev, smi):
+    """35. [volume cornell]: volume_cornell through render_film with
+    volpath at 1024^2, depth 5, 4 spp; tri_closest on the first bounce's
+    shadow segments; card vs CPU at 128^2."""
+    t0 = time.perf_counter()
+    scene, settings = volume_cornell(dev)
+    log(f"[volume cornell] scene built in {time.perf_counter() - t0:.2f} s: "
+        f"{scene.geom.n_tris} triangles, {scene.media.n_media} media, "
+        f"density atlas {scene.media.density_atlas.numel() * 4 / 2**20:.3f} "
+        f"MiB, phases {scene.media.used_phase}")
+    settings.width = settings.height = RES
+    settings.spp = SPP
+    bounce = 1 + MAX_NULL_SEGMENTS
+    film, out = volume_render(
+        "volume cornell", scene, settings,
+        dict(closest=DEPTH * bounce * SPP), RES * RES * DEPTH * bounce)
+    img = develop(film).cpu().numpy()
+    lum = check_image("volume cornell", img)
+    left, right = left_right(img)
+    log(f"[volume cornell] mean luminance {lum.mean():.5f}, left rgb "
+        f"{np.round(left, 4).tolist()}, right rgb "
+        f"{np.round(right, 4).tolist()}")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("[volume cornell] red wall not on the left / "
+                             "green not on the right")
+    err = 0.0
+    for k, (o, d, tmin, tmax) in enumerate(segment_rays(scene, settings,
+                                                        RES)):
+        e = check_tri(f"volume cornell shadow segment {k + 1}", dict(
+            geom=scene.geom, o=o, d=d,
+            forms=[("segment tmin, per-ray tmax", tmin, tmax)]))
+        err = max(err, e["closest"])
+    out_cli = volume_cli(dev, scene)
+    cpu_scene, _ = volume_cornell("cpu")
+    med.reset_track_stats()
+    card = film_values(scene, settings, V_PARITY_RES)
+    card_iters = med.TRACK_STATS["iterations"]
+    med.reset_track_stats()
+    cpu = film_values(cpu_scene, settings, V_PARITY_RES)
+    cpu_iters = med.TRACK_STATS["iterations"]
+    log(f"[volume cornell] tracking iterations at {V_PARITY_RES}^2: card "
+        f"{card_iters}, CPU {cpu_iters}")
+    if card_iters != cpu_iters:
+        raise AssertionError("[volume cornell] the card's tracking loops ran "
+                             "another number of iterations than the CPU's")
+    parity_gate(f"volume cornell {V_PARITY_RES}^2 depth {DEPTH}", card, cpu)
+    out.update(err=err, launches_per_pass=out["launches"]["closest"] // SPP,
+               cli=out_cli)
+    log(f"[volume cornell] pass {out['pass_ms']:.3f} ms, peak "
+        f"{out['peak']:.3f} GiB ({smi})")
+    return out
+
+
+def volume_cli(dev, scene):
+    """volume_cornell as a scene file (the icosahedra from an OBJ file, the
+    grids from .vol files, the XML Cornell box's walls) through the command
+    line on the card at V_CLI_RES^2, depth 5, 1 spp: 25 + 0 launches, the
+    EXR render_film's film; its media tables are ``scene``'s."""
+    os.makedirs(XML_DIR, exist_ok=True)
+    grid = volume_records()[2]
+    for name, rec in (("cloud.vol", grid["density"]),
+                      ("swirl.vol", grid["orientation"])):
+        write_vol(os.path.join(XML_DIR, name), rec["data"], rec["bmin"],
+                  rec["bmax"])
+    ico = icosahedron((0.0, 0.0, 0.0), 1.0)
+    with open(os.path.join(XML_DIR, "ico.obj"), "w") as f:
+        f.write("".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in
+                        ico.positions))
+        f.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in
+                        ico.indices))
+    shapes = "".join(
+        '<shape type="obj"><string name="filename" value="ico.obj"/>'
+        '<boolean name="faceNormals" value="true"/><transform '
+        f'name="toWorld"><scale value="{VOLUME_RADIUS}"/><translate '
+        f'x="{c[0]}" y="{c[1]}" z="{c[2]}"/></transform>{bsdf}<ref '
+        f'name="interior" id="{mid}"/><ref name="exterior" id="fog"/>'
+        '</shape>'
+        for c, bsdf, mid in zip(
+            VOLUME_CENTRES, ('<bsdf type="null"/>',) * 2
+            + ('<bsdf type="dielectric"><float name="intIOR" value="1.33"/>'
+               '</bsdf>',), ("homog", "cloud", "kkay")))
+    xml = CORNELL_XML.format(max_depth=DEPTH, spp=1, res=V_CLI_RES).replace(
+        '<integrator type="path">', '<integrator type="volpath">').replace(
+        '<sensor type="perspective">', VOLUME_MEDIA_XML
+        + '<sensor type="perspective"><ref name="exterior" id="fog"/>'
+    ).replace("</scene>", shapes + "</scene>")
+    path = xml_file("volume_cornell.xml", xml)
+    out = os.path.join(XML_DIR, "volume_cornell.exr")
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Spy(scene_xml, "load_scene") as ld:
+        run_cli(path, "-o", out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    want = dict(closest=DEPTH * (1 + MAX_NULL_SEGMENTS))
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"[volume cornell] command line launches {got}")
+    cli_scene, settings = ld.result
+    for k in med.MEDIUM_LEAVES:
+        if not torch.equal(getattr(cli_scene.media, k),
+                           getattr(scene.media, k)):
+            raise AssertionError(f"[volume cornell] media.{k} of the file "
+                                 "differs from volume_cornell's")
+    img, _ = exr.read_exr(out)
+    ref = develop(render_film(cli_scene, settings)).cpu().numpy()
+    diff = int((img != ref.astype(np.float16).astype(np.float32)).sum())
+    log(f"[volume cornell] command line {V_CLI_RES}^2 1 spp: {seconds:.2f} s "
+        f"(load, render, EXR), launches {got['closest']} + "
+        f"{got['anyhit']}, EXR entries unlike render_film's (half) {diff}, "
+        f"mean {img.mean():.5f}")
+    if diff or not np.isfinite(img).all() or not img.mean() > 0.02:
+        raise AssertionError("[volume cornell] the command line's EXR")
+    return dict(seconds=seconds, launches=got)
+
+
+def volume_large_phase(dev, smi):
+    """36. [volume large]: volume_large through render_film with volpath at
+    768^2, depth 3, 2 spp; hier_closest on the first bounce's shadow
+    segments; card vs CPU at 128^2."""
+    t0 = time.perf_counter()
+    scene, settings = volume_large(dev)
+    log(f"[volume large] scene built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: {scene.geom.n_tris} triangles, "
+        f"{scene.clusters.n_supers} supers")
+    bounce = 1 + MAX_NULL_SEGMENTS
+    film, out = volume_render(
+        "volume large", scene, settings,
+        dict(hier_closest=L_DEPTH * bounce * L_SPP),
+        L_RES * L_RES * L_DEPTH * bounce)
+    img = develop(film).cpu().numpy()
+    lum = check_image("volume large", img)
+    corners = lum[[0, 0, -1, -1], [0, -1, 0, -1]]
+    centre = lum[L_RES // 2 - 8:L_RES // 2 + 8,
+                 L_RES // 2 - 8:L_RES // 2 + 8].mean()
+    log(f"[volume large] corners luminance {np.round(corners, 5).tolist()}, "
+        f"centre {centre:.5f}, mean {lum.mean():.5f}")
+    if not (np.abs(corners - 1.0) < 1e-4).all() or not 0.05 < centre < 1.0:
+        raise AssertionError("[volume large] the environment or the medium "
+                             "is not where it should be")
+    err = 0.0
+    for k, (o, d, tmin, tmax) in enumerate(segment_rays(scene, settings,
+                                                        L_RES)):
+        e, _, _ = check_hier(f"volume large shadow segment {k + 1}",
+                             scene.clusters, o, d, tmin, tmax)
+        err = max(err, e)
+    cpu_scene, _ = volume_large("cpu")
+    parity_gate(f"volume large {V_PARITY_RES}^2 depth {L_DEPTH}",
+                film_values(scene, settings, V_PARITY_RES),
+                film_values(cpu_scene, settings, V_PARITY_RES))
+    out.update(err=err,
+               launches_per_pass=out["launches"]["hier_closest"] // L_SPP)
+    log(f"[volume large] pass {out['pass_ms']:.3f} ms, peak "
+        f"{out['peak']:.3f} GiB ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
-                  grad_launches, device_ms=None, xml_launches=None):
+                  grad_launches, device_ms=None, xml_launches=None,
+                  volume_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
                 plain_ms=timing[key + "_plain"], bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None, device_ms=device_ms,
-                grad_launches=grad_launches, xml_launches=xml_launches)
+                grad_launches=grad_launches, xml_launches=xml_launches,
+                volume_launches=volume_launches)
 
 
 def main():
@@ -2827,21 +3107,37 @@ def main():
             f"{k} {v['pass_ms']:.3f} ms" for k, v in ints.items())
         + f" ({smi})")
 
+    t0 = time.perf_counter()
+    vc = volume_cornell_phase(dev, smi)
+    vl = volume_large_phase(dev, smi)
+    log(f"[summary] phases 35-36 {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{k} pass {v['pass_ms']:.3f} ms (turns "
+        f"{', '.join(f'{t:.3f}' for t in v['turns'])}), launches a pass "
+        f"{v['launches_per_pass']}, tracking iterations {v['iters']:.1f} "
+        f"({v['ran']:.1f} run) and host syncs {v['syncs']:.1f} a pass, "
+        f"device ops per pass "
+        f"{fmt(v['prof'] and v['prof']['ops'])}, device ms per pass "
+        f"{fmt(v['prof'] and v['prof']['device_ms'])}, idle "
+        f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+        for k, v in (("volume cornell", vc), ("volume large", vl)))
+        + f" ({smi})")
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
-                      launches[0], timing["closest_err"], timing, "closest",
-                      grad_launches[0], timing["closest_device"],
-                      x_launches[0]),
+                      launches[0], max(timing["closest_err"], vc["err"]),
+                      timing, "closest", grad_launches[0],
+                      timing["closest_device"], x_launches[0],
+                      vc["launches_per_pass"]),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], timing["anyhit_err"], timing, "anyhit",
                       grad_launches[1], timing["anyhit_device"],
                       x_launches[1]),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[0], err_h, htiming, "closest",
-                      hgrad_launches[0], htiming["closest_device"],
-                      xl_launches[0]),
+                      hlaunches[0], max(err_h, vl["err"]), htiming,
+                      "closest", hgrad_launches[0], htiming["closest_device"],
+                      xl_launches[0], vl["launches_per_pass"]),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],

@@ -333,22 +333,6 @@ def _hk(props: Properties, ctx=None):
     return bc.hk_record(thickness=thickness, g=g, **kw)
 
 
-# the phase functions an ``hk`` layer reads its asymmetry from (the
-# reference's ``media/__init__.py`` records; the media themselves and the
-# other phase functions are not ported, see ``integrators/__init__.py``)
-PH_ISOTROPIC, PH_HG = 0, 1
-
-
-@register("phase", "isotropic")
-def _isotropic(props: Properties, ctx=None):
-    return dict(type=PH_ISOTROPIC, g=0.0)
-
-
-@register("phase", "hg")
-def _hg(props: Properties, ctx=None):
-    return dict(type=PH_HG, g=props.get_float("g", 0.8))
-
-
 @register("bsdf", "irawan")
 def _irawan(props: Properties, ctx=None):
     """Irawan & Marschner woven cloth (src/bsdfs/irawan.cpp): the weave

@@ -6,8 +6,8 @@
 Each scene file is loaded (``scene/xml.py``), built on ``--device`` (the
 card by default; without one the command raises, and ``--device cpu``
 runs the kernels' plain versions), rendered by ``render_film`` with the
-scene's integrator (``path``, ``direct``, ``ao``, ``field`` or
-``motion``), and written as EXR, or as a tone-mapped PNG/PPM by the
+scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
+``field`` or ``motion``), and written as EXR, or as a tone-mapped PNG/PPM by the
 output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
 band by band into an out-of-core film (``film/tiled.py``, at its
 default band height, as the reference's command line), without

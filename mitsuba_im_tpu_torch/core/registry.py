@@ -101,5 +101,5 @@ def _ensure_loaded():
     import importlib
 
     for mod in ("bsdf", "emitter", "sensor", "sampler", "film", "texture",
-                "scene.shapes", "integrators"):
+                "media", "scene.shapes", "integrators"):
         importlib.import_module(f"mitsuba_im_tpu_torch.{mod}")

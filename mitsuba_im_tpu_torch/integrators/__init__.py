@@ -1,16 +1,15 @@
 """Integrator plugin factories (``mitsuba_im_tpu/integrators/__init__.py``).
 
-``path``, ``direct``, ``ao``, ``field`` and ``motion`` record their name
+``path``, ``volpath`` (and ``volpath_simple``, the same estimator),
+``direct``, ``ao``, ``field`` and ``motion`` record their name
 and parameters into the builder's render settings, which
 ``render/job.py::integrator_fn`` turns into the integrator.  ``motion``
 records only ``timeDelta``, as the reference's, so from a scene file its
 previous sensor pose is the current one (ROADMAP C13).  Every other
 integrator the JAX package registers is registered here too and raises
 ``NotImplementedError`` naming its ROADMAP queue A item 7 entry when a
-scene asks for it: nothing renders it with ``path`` instead.  The media,
-the phase functions other than the two an ``hk`` layer reads
-(``bsdf/__init__.py``), the volumes and the subsurface integrators belong
-to those entries and raise the same way.
+scene asks for it: nothing renders it with ``path`` instead.  The
+subsurface integrators belong to entry 7.7 and raise the same way.
 """
 from __future__ import annotations
 
@@ -37,6 +36,12 @@ def _set(ctx, name, ip):
 @register("integrator", "path")
 def _path(props: Properties, ctx=None):
     return _set(ctx, "path", _mc_props(props))
+
+
+@register("integrator", "volpath")
+@register("integrator", "volpath_simple")
+def _volpath(props: Properties, ctx=None):
+    return _set(ctx, "volpath", _mc_props(props))
 
 
 @register("integrator", "direct")
@@ -69,7 +74,6 @@ def _motion(props: Properties, ctx=None):
 
 
 for _names, _item in (
-        (("volpath", "volpath_simple"), "queue A item 7.2"),
         (("ptracer",), "queue A item 7.3"),
         (("bdpt",), "queue A item 7.4"),
         (("adaptive", "multichannel"), "queue A item 7.5"),
@@ -78,11 +82,5 @@ for _names, _item in (
         (("pssmlt", "mlt", "erpt"), "queue A item 7.8")):
     register_unported("integrator", _names, _item)
 
-register_unported("medium", ("homogeneous", "heterogeneous"),
-                  "queue A item 7.2")
-register_unported("phase", ("rayleigh", "kkay", "microflake",
-                            "mixturephase"), "queue A item 7.2")
-register_unported("volume", ("constvolume", "gridvolume", "hgridvolume",
-                             "volcache"), "queue A item 7.2")
 register_unported("subsurface", ("dipole", "singlescatter"),
                   "queue A item 7.7")

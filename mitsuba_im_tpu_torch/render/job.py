@@ -9,8 +9,9 @@ filter (the Gaussian of radius 2 by default, as the reference's).  Every
 sampler kind draws the pass; its stratification reads the call's ``spp``,
 as the reference's ``render_film`` passes it.  The integrator comes from
 the settings (:func:`integrator_fn`, the reference's ``_integrator_fn``):
-``path`` (``integrators/path.py``), and ``direct``, ``ao``, ``field`` and
-``motion`` (``integrators/simple.py``); the others raise.  A scene with
+``path`` (``integrators/path.py``), ``volpath`` (``integrators/volpath.py``),
+and ``direct``, ``ao``, ``field`` and ``motion``
+(``integrators/simple.py``); the others raise.  A scene with
 deformable shapes renders each pass at one shutter time,
 ``shutter_open + shutter_time * u`` with ``u`` the pass index's golden-ratio
 word (:func:`shutter_time`), shared by the pass's wavefront.  The port
@@ -45,6 +46,7 @@ from ..core.v3 import V3
 from ..film.film import F_GAUSSIAN, Film, make_film, splat
 from ..integrators.path import PathConfig, path_li_v
 from ..integrators import simple
+from ..integrators.volpath import volpath_li_v
 from .raydiff import camera_ray_differentials
 from ..sensor.table import sample_ray_v
 from ..sampler import KIND_BY_NAME
@@ -70,7 +72,7 @@ class RenderSettings:
     key: float = 0.18
     tiled: bool = False  # tiledhdrfilm: out-of-core band rendering
 
-INTEGRATORS = ("path", "direct", "ao", "field", "motion")
+INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -95,6 +97,10 @@ def integrator_fn(settings: RenderSettings):
         cfg = path_config(settings)
         return lambda scene, s, o, d, **kw: path_li_v(scene, s, o, d, cfg,
                                                       **kw)
+    if name == "volpath":
+        cfg = path_config(settings)
+        return lambda scene, s, o, d, **kw: volpath_li_v(scene, s, o, d,
+                                                         cfg)
     if name == "direct":
         return lambda scene, s, o, d, **kw: simple.direct_li_v(
             scene, s, o, d, emitter_samples=ip.get("emitter_samples", 1),

@@ -10,8 +10,9 @@ time ``clusters.time`` too, and an instanced one's indirect tables), the
 instances' normal rotations (``geom.inst_rot``), the frame-1 mirror of a
 deformable scene (``motion.*``) and the IRAWAN weave patterns
 (``bsdfs.weaves``, the reference's ``WeavePattern`` records field by field,
-its normalization included).  Neither imports jax: ``np.asarray`` reads
-the reference's arrays.
+its normalization included) and the participating media (``media.*``,
+with the shapes' medium columns and the camera's medium).  Neither
+imports jax: ``np.asarray`` reads the reference's arrays.
 """
 from __future__ import annotations
 
@@ -24,12 +25,14 @@ from ..accel import hierarchy as hy
 from ..bsdf import common as bc
 from ..bsdf.irawan import WeavePattern
 from ..emitter import table as em
+from ..media import medium as med
 from ..sensor.table import SENSOR_LEAVES, Sensor
 from ..texture import texture as tx
 from .geometry import GEOMETRY_LEAVES, Geometry
 from .scene import Scene
 
-SCENE_LEAVES = ("shape_bsdf", "shape_emitter")
+SCENE_LEAVES = ("shape_bsdf", "shape_emitter", "shape_interior",
+                "shape_exterior")
 _EMITTER_SRC = {"select_pmf": ("select", "pmf"),
                 "select_cdf": ("select", "cdf"),
                 **{"env_" + k: ("env_dist", k) for k in em.ENV_DIST_LEAVES}}
@@ -54,6 +57,8 @@ def export_tables(src) -> tuple[dict, dict]:
     for k in SCENE_LEAVES:
         arrays[f"scene.{k}"] = np.asarray(getattr(src, k))
     arrays["bsdfs.weave_id"] = np.asarray(src.bsdfs.weave_id)
+    for k in med.MEDIUM_LEAVES:
+        arrays[f"media.{k}"] = np.asarray(getattr(src.media, k))
     h = src.clusters
     if h is not None:
         for k in hy.HIERARCHY_LEAVES:
@@ -80,6 +85,10 @@ def export_tables(src) -> tuple[dict, dict]:
         "scene.subsurface": src.subsurface is not None,
         "scene.motion": src.motion is not None,
         "scene.clusters": h is not None,
+        "scene.camera_medium": int(src.camera_medium),
+        **{f"media.{k}": getattr(src.media, k)
+           for k in ("n_media", "used_phase", "has_hetero",
+                     "has_fancy_phase")},
     }
     if h is not None:
         statics.update({"clusters.n_supers": h.n_supers,
@@ -137,9 +146,14 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
     sa = _sub(arrays, "sensor")
     sensor = Sensor(**{k: host_tensor(sa[k], np.float32, device)
                        for k in SENSOR_LEAVES}, type=statics["sensor.type"])
+    media = med.table_from_arrays(
+        _sub(arrays, "media"),
+        {k[len("media."):]: x for k, x in statics.items()
+         if k.startswith("media.")}, device)
     sc = _sub(arrays, "scene")
     return Scene(geom=geom, bsdfs=bsdfs, textures=textures,
-                 emitters=emitters, sensor=sensor,
+                 emitters=emitters, sensor=sensor, media=media,
+                 camera_medium=int(statics["scene.camera_medium"]),
                  clusters=clusters, motion=motion,
                  shutter=tuple(float(np.float32(sa[k])) for k in
                                ("shutter_open", "shutter_time")),

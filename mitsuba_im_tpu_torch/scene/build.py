@@ -11,8 +11,10 @@ local space and traversed through the instanced hierarchy; its analytic
 spheres and disks are copied per instance, transformed), analytic spheres
 and disks, emitter records of every type, a sensor and the render
 settings, and the two-level cluster hierarchy of scenes above
-``BRUTE_FORCE_MAX`` triangles (the motion hierarchy for a deformable one;
-media and subsurface scattering are not ported).  Instancing and
+``BRUTE_FORCE_MAX`` triangles (the motion hierarchy for a deformable one),
+and the participating media: the medium records of the ``media``
+factories, each shape's interior and exterior medium and the camera's
+(``camera_medium``).  Subsurface scattering is not ported.  Instancing and
 deformable motion together raise, as in the reference.  The scene loader
 (``scene/xml.py``) drives it through the registered plugins and sets
 ``resolve_path`` to its search path.  The host arithmetic (float64 numpy, then one cast to float32) is
@@ -34,6 +36,7 @@ from ..core.registry import warn_substitution
 from ..accel.intersect import BRUTE_FORCE_MAX
 from ..bsdf import common as bc
 from ..emitter import table as em
+from ..media.medium import build_media
 from ..render.job import RenderSettings
 from ..sensor.table import SENSOR_LEAVES, Sensor, make_sensor, S_PERSPECTIVE
 from ..texture import bake_vertex_colors
@@ -58,6 +61,10 @@ class SceneBuilder:
         self._disk: dict[str, list] = {k: [] for k in _DISK_KEYS}
         self.shape_bsdf: list[int] = []
         self.shape_emitter: list[int] = []
+        self.media_records: list[dict] = []
+        self.shape_interior: list[int] = []
+        self.shape_exterior: list[int] = []
+        self.camera_medium: int = INVALID
         self.sensor: Sensor | None = None
         self.settings = RenderSettings()
         # the frame-1 mirror of the triangle tables (deformable shapes)
@@ -140,10 +147,23 @@ class SceneBuilder:
         reference)."""
         return self.add_bsdf(bc.default_record())
 
-    def new_shape(self, bsdf_id: int, emitter_id: int = INVALID) -> int:
+    def new_shape(self, bsdf_id: int, emitter_id: int = INVALID,
+                  interior: int = INVALID, exterior: int = INVALID) -> int:
+        """A shape of BSDF row ``bsdf_id``, its emitter and the medium rows
+        inside and outside it; returns the shape id."""
         self.shape_bsdf.append(bsdf_id)
         self.shape_emitter.append(emitter_id)
+        self.shape_interior.append(interior)
+        self.shape_exterior.append(exterior)
         return len(self.shape_bsdf) - 1
+
+    def add_medium(self, record: dict) -> int:
+        """A medium record (the ``media`` factories' form); its row is also
+        stored in the record (``id``), by which shapes and the sensor name
+        it."""
+        self.media_records.append(record)
+        record["id"] = len(self.media_records) - 1
+        return record["id"]
 
     def add_trimesh(self, mesh, shape_id: int, face_normals: bool = False,
                     corner_uvs=None):
@@ -293,6 +313,12 @@ class SceneBuilder:
                                     device=device),
             shape_emitter=torch.tensor(self.shape_emitter or [INVALID],
                                        dtype=torch.int32, device=device),
+            media=build_media(self.media_records, device),
+            shape_interior=torch.tensor(self.shape_interior or [INVALID],
+                                        dtype=torch.int32, device=device),
+            shape_exterior=torch.tensor(self.shape_exterior or [INVALID],
+                                        dtype=torch.int32, device=device),
+            camera_medium=self.camera_medium,
             clusters=clusters,
             motion=motion,
             shutter=shutter,

@@ -7,8 +7,10 @@ tilt the shading frame of every interaction (:meth:`Scene._perturb_frame_v`).
 A scene with deformable shapes carries the frame-1 mirror of its triangle
 tables (``motion``); :meth:`Scene.with_time` is the scene at one shutter
 time, which a render pass shares across its wavefront.  Participating
-media and subsurface scattering are not ported; a scene that needs them
-raises where it is built (:mod:`.bridge`).
+media (``media``, a one-row vacuum table without any) are named per shape
+(``shape_interior``, ``shape_exterior``) and for the camera
+(``camera_medium``), as in the reference.  Subsurface scattering is not
+ported; a scene that needs it raises where it is built (:mod:`.bridge`).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..bsdf.common import (BSDFTable, LaneParams3, resolve_v, BUMP_HEIGHT,
                            BUMP_NORMAL, column_textures)
 from ..core import v3 as v
 from ..emitter.table import EmitterTable
+from ..media.medium import MediumTable
 from ..sensor.table import Sensor
 from ..texture.texture import TextureTable, eval_texture_v
 from .geometry import Geometry, Hit, Interaction3, compute_interaction_v
@@ -38,6 +41,9 @@ class Scene:
     sensor: Sensor
     shape_bsdf: torch.Tensor  # (S,) int32
     shape_emitter: torch.Tensor  # (S,) int32
+    media: MediumTable
+    shape_interior: torch.Tensor  # (S,) int32 medium ids
+    shape_exterior: torch.Tensor  # (S,) int32
     clusters: Hierarchy | None = None  # large scenes only
     # frame-1 triangle tables of deformable shapes (MOTION_KEYS, row for
     # row with geom's), or None
@@ -46,6 +52,7 @@ class Scene:
     # host, read once where the scene is built, so that a motion pass's
     # shutter time needs no read from the device
     shutter: tuple = (0.0, 0.0)
+    camera_medium: int = INVALID  # the sensor's medium id
 
     @property
     def device(self) -> torch.device:

@@ -24,6 +24,7 @@ import numpy as np
 from ..core.properties import Properties
 from ..core.registry import register
 from ..core.transform import Transform
+from ..core.types import INVALID
 from ..emitter.table import AK_DISK, AK_SPHERE, AK_TRIMESH
 from . import mesh as mesh_mod
 from .mesh import TriMesh
@@ -43,14 +44,16 @@ def attach_area_emitter(b, record: dict, shape_id: int, kind=AK_TRIMESH,
 
 def sphere(b, bsdf_id: int, center=(0.0, 0.0, 0.0), radius: float = 1.0,
            to_world: Transform | None = None,
-           emitter: dict | None = None) -> int:
+           emitter: dict | None = None, interior: int = INVALID,
+           exterior: int = INVALID) -> int:
     """A sphere (``to_world`` moves its centre and scales its radius by the
-    mean axis scale); with an ``area`` record ``emitter`` it emits.
+    mean axis scale); with an ``area`` record ``emitter`` it emits.  The
+    media rows ``interior`` and ``exterior`` lie inside and outside it.
     Returns the shape id."""
     xf = to_world if to_world is not None else Transform()
     center = xf.apply_point(center)
     radius = float(radius * np.linalg.norm(xf.m[:3, :3], axis=0).mean())
-    sid = b.new_shape(bsdf_id)
+    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior)
     prim = b.add_sphere(center, radius, sid)
     if emitter is not None:
         attach_area_emitter(b, emitter, sid, AK_SPHERE, prim,
@@ -59,7 +62,8 @@ def sphere(b, bsdf_id: int, center=(0.0, 0.0, 0.0), radius: float = 1.0,
 
 
 def disk(b, bsdf_id: int, to_world: Transform | None = None,
-         flip_normals: bool = False, emitter: dict | None = None) -> int:
+         flip_normals: bool = False, emitter: dict | None = None,
+         interior: int = INVALID, exterior: int = INVALID) -> int:
     """The unit disk in the xy plane facing +z, placed by ``to_world`` (its
     radius is the length of the transformed x axis); ``flip_normals`` turns
     it to face -z.  With an ``area`` record ``emitter`` it emits from its
@@ -75,7 +79,7 @@ def disk(b, bsdf_id: int, to_world: Transform | None = None,
         n = -n
     s_u = s_axis / max(np.linalg.norm(s_axis), 1e-12)
     t_u = np.cross(n, s_u)
-    sid = b.new_shape(bsdf_id)
+    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior)
     prim = b.add_disk(c, n, s_u, t_u, radius, sid)
     if emitter is not None:
         attach_area_emitter(b, emitter, sid, AK_DISK, prim,
@@ -85,20 +89,35 @@ def disk(b, bsdf_id: int, to_world: Transform | None = None,
 
 # -- the registered plugins ------------------------------------------------
 
+def _medium_ids(props: Properties) -> dict:
+    """The rows of the shape's ``interior`` and ``exterior`` media (nested
+    or by ``<ref>``), INVALID where it names none."""
+    out = {}
+    for key in ("interior", "exterior"):
+        rec = props.children.get(key)
+        out[key] = (rec["id"] if isinstance(rec, dict) and "id" in rec
+                    else INVALID)
+    return out
+
+
 def _shape_bsdf(props: Properties, ctx) -> int:
     """The shape's BSDF row: its nested record, a referenced id, or a new
-    default row.  Media and subsurface children are not ported."""
-    for key in ("interior", "exterior", "subsurface"):
-        if key in props.children:
-            raise NotImplementedError(
-                f"shape {key} children are not ported yet (ROADMAP queue A "
-                f"item {'7.7' if key == 'subsurface' else '7.2'})")
+    default row.  Subsurface children are not ported."""
+    if "subsurface" in props.children:
+        raise NotImplementedError(
+            "shape subsurface children are not ported yet (ROADMAP queue A "
+            "item 7.7)")
     b = props.children.get("bsdf")
     if isinstance(b, dict):
         return ctx.add_bsdf(b)
     if isinstance(b, (int, np.integer)):
         return int(b)
     return ctx.default_bsdf()
+
+
+def _new_shape(props: Properties, ctx) -> int:
+    """A new shape with the BSDF and media of its children."""
+    return ctx.new_shape(_shape_bsdf(props, ctx), **_medium_ids(props))
 
 
 def _finish_mesh(props: Properties, ctx, mesh: TriMesh) -> int:
@@ -115,7 +134,7 @@ def _finish_mesh(props: Properties, ctx, mesh: TriMesh) -> int:
         mesh.indices = mesh.indices[:, [0, 2, 1]]
         if mesh.normals is not None:
             mesh.normals = -mesh.normals
-    sid = ctx.new_shape(_shape_bsdf(props, ctx))
+    sid = _new_shape(props, ctx)
     ctx.add_trimesh(mesh, sid, face_normals=face_normals)
     em_rec = props.children.get("emitter")
     if em_rec is not None:
@@ -165,7 +184,7 @@ def _sphere(props: Properties, ctx=None):
     center = props.get_point("center", np.zeros(3))
     radius = props.get_float("radius", 1.0)
     return sphere(ctx, _shape_bsdf(props, ctx), center, radius, xf,
-                  _emitter_child(props))
+                  _emitter_child(props), **_medium_ids(props))
 
 
 @register("shape", "disk")
@@ -173,7 +192,7 @@ def _disk(props: Properties, ctx=None):
     xf = props.get_transform("toWorld", Transform())
     flip = props.get_bool("flipNormals", False)
     return disk(ctx, _shape_bsdf(props, ctx), xf, flip,
-                _emitter_child(props))
+                _emitter_child(props), **_medium_ids(props))
 
 
 def _quad_mesh() -> TriMesh:
@@ -431,7 +450,7 @@ def _deformable(props: Properties, ctx=None):
         mesh0 = mesh0.compute_normals()
     if mesh1.normals is None:
         mesh1 = mesh1.compute_normals()
-    sid = ctx.new_shape(_shape_bsdf(props, ctx))
+    sid = _new_shape(props, ctx)
     ctx.add_trimesh_motion(mesh0, mesh1, sid)
     em_rec = props.children.get("emitter")
     if em_rec is not None:

@@ -4,7 +4,8 @@ The reference's ``scenehandler.cpp`` (XML -> nested Properties -> plugin
 instantiation), with ``$var`` parameter substitution (``-D key=value``),
 ``<default>``, ``<ref>``/``id`` resolution, ``<include>``, ``<transform>``
 op sequences, ``<alias>``, and the spectrum/rgb/srgb/blackbody value
-syntax.  Versions 0.4-0.6 are accepted.  Plugins come from the port's
+syntax.  A sensor's ``exterior`` (or ``medium``) child names the camera's
+medium.  Versions 0.4-0.6 are accepted.  Plugins come from the port's
 registry; ``load_scene`` builds the scene on the card unless the CPU is
 asked for, with tables bit for bit those of the JAX package's loader.
 """
@@ -158,6 +159,10 @@ class SceneLoader:
                 self.ids[props.id] = (category, result)
         if category == "sensor":
             self.builder.sensor = result
+            for key in ("exterior", "medium"):
+                med = props.children.get(key)
+                if isinstance(med, dict) and "id" in med:
+                    self.builder.camera_medium = med["id"]
         return result
 
     def _attach_child(self, props: Properties, category: str, name: str, val):

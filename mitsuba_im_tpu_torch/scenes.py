@@ -12,6 +12,7 @@ from . import sampler as smp
 from .emitter import hosek
 from .emitter import table as et
 from .film.film import F_BOX
+from .media.medium import PH_HG, PH_KKAY, PH_MICROFLAKE, PH_MIX, PH_RAYLEIGH
 from .scene import shapes
 from .scene.build import SceneBuilder
 from .scene.mesh import TriMesh
@@ -660,4 +661,136 @@ def irawan_cornell(device="cuda"):
     b.settings.spp = 1
     b.settings.rfilter = F_BOX
     b.settings.integrator_props = dict(max_depth=4)
+    return b.build(device)
+
+
+# ---------------------------------------------------------------------------
+# participating media
+# ---------------------------------------------------------------------------
+
+# volume_cornell's three icosahedra: centres on the floor, circumradius
+VOLUME_CENTRES = ((-0.5, 0.33, 0.2), (0.02, 0.33, -0.42), (0.52, 0.33, 0.25))
+VOLUME_RADIUS = 0.32
+
+
+def cloud_density(res: int, seed: int = 0) -> np.ndarray:
+    """A (res, res, res) float32 smooth procedural cloud in [0, 1] over the
+    grid's cube: a radial falloff times eight seeded low-frequency
+    sinusoids, its maximum 1."""
+    gen = np.random.default_rng(seed)
+    g = np.linspace(-1.0, 1.0, res)
+    Z, Y, X = np.meshgrid(g, g, g, indexing="ij")
+    falloff = np.clip(1.0 - np.sqrt(X * X + Y * Y + Z * Z), 0.0, 1.0)
+    noise = np.zeros_like(X)
+    for _ in range(8):
+        f = gen.uniform(1.0, 4.0, 3) * gen.choice([-1.0, 1.0], 3)
+        noise += np.sin(np.pi * (f[0] * X + f[1] * Y + f[2] * Z)
+                        + gen.uniform(0, 2 * np.pi))
+    noise = 0.5 + noise / 16.0  # in [0, 1]
+    d = falloff * (0.3 + 0.7 * noise)
+    return (d / d.max()).astype(np.float32)
+
+
+def swirl_orientation(res: int) -> np.ndarray:
+    """A (res, res, res, 3) float32 fiber-axis field over the grid's cube:
+    a swirl about +y, (-z, 0.5, x), not normalized (the medium normalizes
+    it where it reads it)."""
+    g = np.linspace(-1.0, 1.0, res)
+    Z, Y, X = np.meshgrid(g, g, g, indexing="ij")
+    return np.stack([-Z, np.full_like(X, 0.5), X], -1).astype(np.float32)
+
+
+def volume_records(grid_res: int = 128, ori_res: int = 32) -> list[dict]:
+    """The four media of :func:`volume_cornell`, as the ``media``
+    factories record them: the camera's fog (sigmaS 0.04, sigmaA 0.01, a
+    mixture of HG g 0.7 (0.6) and Rayleigh (0.4)); a homogeneous medium
+    (sigmaS (2.0, 1.6, 1.2), sigmaA 0.1, HG g 0.6); a grid medium over the
+    second icosahedron's box (a ``grid_res``^3 :func:`cloud_density`, scale
+    6, constant albedo 0.9, microflake of stddev 0.3 along a ``ori_res``^3
+    :func:`swirl_orientation`); a homogeneous medium of sigmaT 1.5, albedo
+    0.8 and the Kajiya-Kay phase."""
+    c = np.asarray(VOLUME_CENTRES[1], np.float64)
+    box = dict(bmin=c - VOLUME_RADIUS, bmax=c + VOLUME_RADIUS)
+    const_albedo = dict(data=np.full((1, 1, 1, 3), 0.9, np.float32),
+                        bmin=np.full(3, -1e30), bmax=np.full(3, 1e30),
+                        const=True)
+    return [
+        dict(kind="homogeneous", sigma_s=np.full(3, 0.04),
+             sigma_a=np.full(3, 0.01), scale=1.0,
+             phase=dict(type=PH_MIX, g=0.0, components=[
+                 (0.6, dict(type=PH_HG, g=0.7)),
+                 (0.4, dict(type=PH_RAYLEIGH, g=0.0))])),
+        dict(kind="homogeneous", sigma_s=np.array([2.0, 1.6, 1.2]),
+             sigma_a=np.full(3, 0.1), scale=1.0,
+             phase=dict(type=PH_HG, g=0.6)),
+        dict(kind="heterogeneous", scale=6.0,
+             density=dict(box, data=cloud_density(grid_res)[..., None]),
+             albedo=const_albedo,
+             orientation=dict(box, data=swirl_orientation(ori_res)),
+             phase=dict(type=PH_MICROFLAKE, g=0.0, stddev=0.3)),
+        dict(kind="homogeneous", sigma_s=np.full(3, 1.5 * 0.8),
+             sigma_a=np.full(3, 1.5 * (1 - 0.8)), scale=1.0,
+             phase=dict(type=PH_KKAY, g=0.0, kd=0.2, ks=0.4,
+                        exponent=4.0)),
+    ]
+
+
+def volume_cornell(device="cuda", grid_res: int = 128, ori_res: int = 32):
+    """``_tiny_cornell``'s box and area light with three closed 20-triangle
+    icosahedra on the floor (72 triangles, brute force): a ``null``
+    boundary around a homogeneous HG medium, a ``null`` boundary around a
+    grid medium (a ``grid_res``^3 float32 cloud, 8 MiB at 128, scale 6,
+    albedo 0.9, microflake phase along a ``ori_res``^3 swirl), and a
+    dielectric (intIOR 1.33) around a homogeneous Kajiya-Kay medium; the
+    camera and the icosahedra's outsides in a thin fog with a mixture
+    phase (:func:`volume_records`).  ``volpath`` at 1024^2, depth 5, 4
+    spp, the box filter, the independent sampler.  Returns (Scene,
+    settings) on ``device``, the card unless the CPU is asked for."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    _cornell_box(b)
+    fog, homog, grid, kkay = (b.add_medium(r)
+                              for r in volume_records(grid_res, ori_res))
+    null = b.add_bsdf(bc.null_record())
+    water = b.add_bsdf(bc.dielectric_record(int_ior=1.33))
+    for c, bid, mid in zip(VOLUME_CENTRES, (null, null, water),
+                           (homog, grid, kkay)):
+        b.add_trimesh(icosahedron(c, VOLUME_RADIUS),
+                      b.new_shape(bid, interior=mid, exterior=fog))
+    b.camera_medium = fog
+    _cornell_sensor(b)
+    b.settings.width = b.settings.height = 1024
+    b.settings.spp = 4
+    b.settings.rfilter = F_BOX
+    b.settings.integrator = "volpath"
+    b.settings.integrator_props = dict(max_depth=5)
+    return b.build(device)
+
+
+def volume_large(device="cuda", res: int = 768,
+                 n_tris_target: int = 1_120_000):
+    """The large scene's displaced sphere (1,120,504 triangles at the
+    default target, the hierarchy route) as a ``null`` boundary around a
+    homogeneous medium (sigmaS 3, sigmaA 0.3, HG g 0.5) under the unit
+    constant environment, through the large scene's pinhole; ``volpath``
+    at ``res``^2, depth 3, 2 spp, the box filter.  Returns (Scene,
+    settings) on ``device``; the scene carries its cluster hierarchy."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    pos, idx = displaced_sphere(n_tris_target)
+    mid = b.add_medium(dict(kind="homogeneous", sigma_s=np.full(3, 3.0),
+                            sigma_a=np.full(3, 0.3), scale=1.0,
+                            phase=dict(type=PH_HG, g=0.5)))
+    b.add_trimesh(TriMesh(pos, idx).compute_normals(),
+                  b.new_shape(b.add_bsdf(bc.null_record()), interior=mid))
+    b.add_emitter(emf.constant(1.0))
+    c = LARGE_CAMERA
+    b.sensor = make_sensor(  # a host copy; build() moves it to device
+        S_PERSPECTIVE, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], device="cpu")
+    b.settings.width = b.settings.height = res
+    b.settings.spp = 2
+    b.settings.rfilter = F_BOX
+    b.settings.integrator = "volpath"
+    b.settings.integrator_props = dict(max_depth=3)
     return b.build(device)

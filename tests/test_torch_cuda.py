@@ -14,7 +14,10 @@ Cornell render and its atlas gradient on the card against the CPU; every
 sampler kind's blocks and the ``lights_cornell`` render (thin lens,
 ldsampler, the Gaussian filter, every light) on the card against the CPU;
 the hierarchy kernels' motion mode against the plain version at three
-shutter times.
+shutter times; the volumetric path tracer's shadow segments (closest hits
+with a per-ray tmax) through both kernel families against the plain
+versions, and ``volume_cornell`` and ``volume_large`` rendered on the card
+against the CPU.
 """
 import dataclasses
 
@@ -33,9 +36,12 @@ from mitsuba_im_tpu_torch.integrators.path import PathConfig
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.core import rng
 from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
+from mitsuba_im_tpu_torch.accel import intersect as isect
+from mitsuba_im_tpu_torch.media import medium as med
 from mitsuba_im_tpu_torch.scenes import (SUN_DIR, large_scene,
                                          lights_cornell, material_cornell,
-                                         textured_cornell, tiny_cornell)
+                                         textured_cornell, tiny_cornell,
+                                         volume_cornell, volume_large)
 
 pytestmark = pytest.mark.cuda
 
@@ -480,6 +486,66 @@ def test_lights_cornell_render_card_vs_cpu(cuda):
                     ci.anyhit_tris_v.launches) == (2 * 5, 2 * 4)
             assert (ch.hier_closest.launches, ch.hier_anyhit.launches) == (
                 0, 0)
+    a, b = (im.sum(-1).ravel() for im in imgs)
+    assert np.isfinite(a).all() and (a >= 0).all()
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
+    assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
+    assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
+
+
+def _volume_scene(which, dev):
+    if which == "cornell":
+        return volume_cornell(dev, grid_res=32, ori_res=8)
+    return volume_large(dev, res=32, n_tris_target=100_000)
+
+
+@pytest.mark.parametrize("which", ["cornell", "large"])
+def test_volpath_segments_match_plain_versions(cuda, which):
+    """The closest-hit kernels on volpath's shadow segments (tmin EPSILON,
+    a per-ray tmax) equal their plain versions bit for bit."""
+    from chip_smoke import segment_rays
+
+    scene, settings = _volume_scene(which, cuda)
+    segs = segment_rays(scene, settings, 64)
+    for o, d, tmin, tmax in segs:
+        assert isinstance(tmax, torch.Tensor) and tmax.shape == o.x.shape
+        if which == "cornell":
+            g = scene.geom
+            tris = (g.tri_p0, g.tri_e1, g.tri_e2)
+            assert _same(ci.closest_tris_v(*tris, o, d, tmin, tmax),
+                         ci.closest_tris_plain(*tris, o, d, tmin, tmax))
+            rec = ci.closest_hit_v(*tris, g.tri_shape, o, d, tmin, tmax)
+            assert _same(rec, ci.hit_record_plain(
+                g.tri_shape, *ci.closest_tris_plain(*tris, o, d, tmin,
+                                                    tmax)))
+        else:
+            k = ch.hier_closest(scene.clusters, o, d, tmin, tmax)
+            p, _ = hy.intersect_hierarchy_plain(scene.clusters, o, d, tmin,
+                                                tmax)
+            assert _same(k, p)
+
+
+@pytest.mark.parametrize("which", ["cornell", "large"])
+def test_volume_render_card_vs_cpu(cuda, which):
+    """volume_cornell (16^2 at depth 5) and volume_large (32^2 at depth 3)
+    at 2 spp: 5 (3) closest-hit launches a bounce, 25 (15) a pass, no
+    any-hit launch, the same tracking iterations on both devices, and the
+    image within parity_check.py's gate of the CPU's."""
+    imgs, iters = [], []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = _volume_scene(which, dev)
+        settings.width = settings.height = 16 if which == "cornell" else 32
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        med.reset_track_stats()
+        imgs.append(develop(render_film(scene, settings, spp=2)).cpu().numpy())
+        iters.append(med.TRACK_STATS["iterations"])
+        if dev.type == "cuda":
+            got = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches,
+                   ch.hier_closest.launches, ch.hier_anyhit.launches)
+            assert got == ((2 * 25, 0, 0, 0) if which == "cornell"
+                           else (0, 0, 2 * 15, 0))
+    assert iters[0] == iters[1]
     a, b = (im.sum(-1).ravel() for im in imgs)
     assert np.isfinite(a).all() and (a >= 0).all()
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())

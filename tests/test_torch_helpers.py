@@ -81,7 +81,8 @@ def jax_shapes_scene(sphere_bsdf: dict | None = None,
 def scene_leaves(scene) -> dict:
     """{"<part>.<field>": tensor or static} of a port Scene, the cluster
     hierarchy's and the deformable motion mirror's included when the scene
-    has them, and the shutter the scene's build read to the host."""
+    has them, the media table, the shapes' and the camera's media, and the
+    shutter the scene's build read to the host."""
     import dataclasses
 
     out = {}
@@ -93,9 +94,13 @@ def scene_leaves(scene) -> dict:
             continue
         for f in dataclasses.fields(obj):
             out[f"{part}.{f.name}"] = getattr(obj, f.name)
-    for k in ("shape_bsdf", "shape_emitter"):
+    for f in dataclasses.fields(scene.media):
+        out[f"media.{f.name}"] = getattr(scene.media, f.name)
+    for k in ("shape_bsdf", "shape_emitter", "shape_interior",
+              "shape_exterior"):
         out[f"scene.{k}"] = getattr(scene, k)
     out["scene.shutter"] = scene.shutter
+    out["scene.camera_medium"] = scene.camera_medium
     if scene.motion is None:
         out["motion"] = None
     else:

@@ -32,11 +32,13 @@ torch.set_num_threads(2)
 def _leaves(scene):
     """{name: tensor or static} of a port Scene."""
     out = {}
-    for part in ("geom", "bsdfs", "textures", "emitters", "sensor"):
+    for part in ("geom", "bsdfs", "textures", "emitters", "sensor",
+                 "media"):
         obj = getattr(scene, part)
         for f in dataclasses.fields(obj):
             out[f"{part}.{f.name}"] = getattr(obj, f.name)
-    for k in ("shape_bsdf", "shape_emitter"):
+    for k in ("shape_bsdf", "shape_emitter", "shape_interior",
+              "shape_exterior"):
         out[f"scene.{k}"] = getattr(scene, k)
     return out
 

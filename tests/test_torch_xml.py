@@ -496,14 +496,13 @@ def test_loader_features(tmp_path):
 
 UNPORTED = {
     "ptracer": '<integrator type="ptracer"/>',
-    "volpath": '<integrator type="volpath"/>',
+    "adaptive": '<integrator type="adaptive"/>',
     "bdpt": '<integrator type="bdpt"/>',
-    "medium": '<medium type="homogeneous" id="fog"/>',
+    "vpl": '<integrator type="vpl"/>',
     "sppm": '<integrator type="sppm"/>',
     "pssmlt": '<integrator type="pssmlt"/>',
-    "heterogeneous": '<medium type="heterogeneous" id="smoke"/>',
-    "gridvolume": '<medium type="homogeneous"><volume type="gridvolume" '
-                  'name="density"/></medium>',
+    "erpt": '<integrator type="erpt"/>',
+    "singlescatter": '<subsurface type="singlescatter"/>',
     "subsurface": '<shape type="sphere"><subsurface type="dipole"/>'
                   '</shape>',
 }
