@@ -219,14 +219,41 @@ Phases, in order; any failure raises and the run exits non-zero:
    null boundary around a homogeneous medium) at 768^2, depth 3, 2 spp:
    15 ``hier_closest`` launches a pass, no any hit; the same measurements;
    ``hier_closest`` bit for bit on the first bounce's shadow segments;
-   card vs CPU at 128^2.
+   card vs CPU at 128^2;
+37. ``[ptracer cornell]``: the particle tracer (``job.render``) on the
+   Cornell box at 1024^2, depth 5, 2^20 particles a pass, 4 passes: 5
+   closest-hit and 5 any-hit launches a pass, no hierarchy launch; the
+   image plausible (red left, green right); the pass time in turns,
+   device operations, device time, idle share, peak memory; both
+   brute-force kernels bit for bit on the first bounce's camera
+   connections; card vs CPU at 128^2; its 128^2 mean within 5% of the
+   card's ``path``;
+38. ``[ptracer lights]``: ``lights_cornell`` (every emitter kind of the
+   scene a particle origin) at 128^2, card vs CPU;
+39. ``[bdpt cornell]``: bdpt on the Cornell box at 1024^2, depth 5, 4 spp,
+   the light image on: 9 closest-hit and 14 any-hit launches a pass; the
+   same measurements; both kernels bit for bit on the first inner
+   connection's segments; card vs CPU at 128^2; its 128^2 mean within 5%
+   of the card's ``path``, each channel within 8%;
+40. ``[bdpt large]``: bdpt on the 1,120,504-triangle scene at 768^2, depth
+   3, 2 spp: 5 ``hier_closest`` and 5 ``hier_anyhit`` launches a pass, no
+   brute-force launch; the pass time, device profile, peak memory; both
+   hierarchy kernels bit for bit on its inner connection's segments; card
+   vs CPU at 64^2;
+41. ``[bdpt volume]``: bdpt on ``volume_cornell`` at 128^2, depth 5: card vs
+   CPU; at 1024^2 (2 passes against volpath's 8: a pass is host-bound on
+   the tracking loops, so the samples come from lanes), its mean within
+   5% of the card's ``volpath`` over the image and inside the Kajiya-Kay
+   icosahedron; the tracking loops' iterations and host syncs a pass.
 
-The next-to-last line is the kernels' JSON record, the last line
+Every phase logs its seconds (``[seconds] name: s``).  The next-to-last
+line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 import json
 import os
@@ -258,6 +285,7 @@ from mitsuba_im_tpu_torch.io import bitmap, exr, png
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.integrators.volpath import MAX_NULL_SEGMENTS
 from mitsuba_im_tpu_torch.media import medium as med
+from mitsuba_im_tpu_torch.render import job
 from mitsuba_im_tpu_torch.render.job import render_film
 from mitsuba_im_tpu_torch.render.raydiff import camera_ray_differentials
 from mitsuba_im_tpu_torch.sampler import KIND_BY_NAME
@@ -277,7 +305,8 @@ from mitsuba_im_tpu_torch.emitter import hosek
 from mitsuba_im_tpu_torch.scene import build as scene_build
 from mitsuba_im_tpu_torch.scene import mesh as mesh_mod
 from mitsuba_im_tpu_torch.scene import xml as scene_xml
-from mitsuba_im_tpu_torch.sensor.table import make_sensor, sample_ray_v
+from mitsuba_im_tpu_torch.sensor.table import (connect_v, make_sensor,
+                                               sample_ray_v)
 from profile_pass import SCATTER, busy_union, device_events, device_us
 from tri_sass import ISSUE_PER_S, issue_floor_ms, kernel_costs, sass_text
 
@@ -1230,12 +1259,13 @@ def large_grad_phase(scene, settings):
 # the new BSDF families and the environment map
 # ---------------------------------------------------------------------------
 
-def device_profile(tag, run, passes=2):
+def device_profile(tag, run, passes=2, top=0):
     """Device operations, device ms and idle share per pass of ``run(k)``
-    (k passes) under torch.profiler, after one warm-up pass."""
+    (k passes) under torch.profiler, after one warm-up pass; with ``top``,
+    the device ms a pass of the ``top`` kernels by name that take most."""
     run(1)
-    dev = sorted((e.time_range.start, e.time_range.end)
-                 for e in device_events(run, passes))
+    events = device_events(run, passes)
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not dev:
         log(f"[{tag}] device profile: not measured (no device events)")
         return None
@@ -1246,6 +1276,14 @@ def device_profile(tag, run, passes=2):
     log(f"[{tag}] device operations per pass {out['ops']:.1f}, device time "
         f"{out['device_ms']:.3f} ms per pass, idle share {out['idle']:.3f} "
         f"(torch.profiler, {passes} passes)")
+    if top:
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / passes
+        out["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        log(f"[{tag}] largest device ms a pass by kernel: " + "; ".join(
+            f"{name[:90]} {ms:.3f}" for name, ms in out["top"]))
     return out
 
 
@@ -2820,12 +2858,14 @@ def volume_render(tag, scene, settings, expect, rays):
                       syncs=syncs, pass_ms=per_pass, turns=turns, prof=prof)
 
 
-def pass_time_turns(scene, settings, rays, tag, rounds=3):
+def pass_time_turns(scene, settings, rays, tag, rounds=3, fn=render_film):
     """Per-pass ms as the median of ``rounds`` differences of a 2-pass and
-    a 1-pass render timed in turns (one warm-up pass first); the
-    differences show how far a host-bound pass spreads within one run."""
+    a 1-pass render (``fn``: render_film, or job.render for the
+    integrators with loops of their own) timed in turns (one warm-up pass
+    first); the differences show how far a host-bound pass spreads within
+    one run."""
     def run(k):
-        return lambda: render_film(scene, settings, spp=k)
+        return lambda: fn(scene, settings, spp=k)
 
     run(1)()
     turns = []
@@ -2998,16 +3038,339 @@ def volume_large_phase(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# light tracing and bidirectional path tracing
+# ---------------------------------------------------------------------------
+
+B_PARITY_RES = 128  # the Cornell and volume phases' card vs CPU images
+B_MEAN_SPP = (16, 8)  # path / bdpt passes of the 128^2 mean comparisons
+# volume_cornell's mean comparison: a pass is host-bound on its tracking
+# loops, so the samples come from a larger image, not from more passes
+V_MEAN_RES = 1024
+V_MEAN_SPP = (8, 2)  # volpath / bdpt passes
+PT_MEAN_SPP = (16, 32)  # path / ptracer passes
+
+
+def loop_settings(settings, integrator, res=None, spp=None, depth=None,
+                  **props):
+    """The settings with another integrator (its properties the depth and
+    ``props``), image side and passes."""
+    ip = dict(settings.integrator_props)
+    if depth is not None:
+        ip["max_depth"] = depth
+    ip.update(props)
+    return dataclasses.replace(
+        settings, integrator=integrator, integrator_props=ip,
+        width=res or settings.width, height=res or settings.height,
+        spp=spp or settings.spp)
+
+
+def counted_image(tag, scene, settings, expect):
+    """job.render with every count set to 0 first; raises unless the
+    counts are ``expect`` per pass (the keys given; the others 0).
+    Returns (image numpy, counts, peak GiB)."""
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img = job.render(scene, settings).cpu().numpy()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: expect.get(k, 0) * settings.spp for k in got}
+    log(f"[{tag}] render {settings.width}x{settings.height} spp "
+        f"{settings.spp} integrator {settings.integrator}: launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v or want[k])
+        + f"; peak device memory {peak:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"[{tag}] expected launches {want}, got {got}")
+    return img, got, peak
+
+
+def loop_measures(tag, scene, settings, rays):
+    """The pass time in turns, and the device operations, device time and
+    idle share a pass (torch.profiler) of job.render."""
+    per_pass, turns = pass_time_turns(scene, settings, rays, tag,
+                                      fn=job.render)
+    prof = device_profile(tag, lambda k: job.render(scene, settings,
+                                                    spp=k), top=4)
+    return dict(pass_ms=per_pass, turns=turns, prof=prof)
+
+
+def occluded_calls(scene, settings, keep):
+    """(o, d, tmin, tmax) of the any-hit calls ``keep`` (indices) of one
+    pass of job.render, as the integrator hands them to the intersector."""
+    calls, orig = [], isect.occluded_v
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        calls.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    isect.occluded_v = spy
+    try:
+        job.render(scene, settings, spp=1)
+    finally:
+        isect.occluded_v = orig
+    return [calls[k] for k in keep]
+
+
+def image_values(scene, settings, res, spp=1):
+    """Per-pixel channel sum of job.render at res^2 (CPU numpy)."""
+    st = dataclasses.replace(settings, width=res, height=res)
+    return job.render(scene, st, spp=spp).sum(-1).cpu().numpy()
+
+
+def mean_against(tag, img, ref, rtol, channel_rtol=None, box=None):
+    """Raises unless img's mean is within rtol of ref's (and each
+    channel's within channel_rtol); ``box`` (rows, columns) compares a
+    region too."""
+    out = {}
+    for name, sl in (("image", (slice(None), slice(None))),
+                     ("region", box)):
+        if sl is None:
+            continue
+        a, b = img[sl], ref[sl]
+        rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+        ch_rel = (np.abs(a.mean((0, 1)) - b.mean((0, 1)))
+                  / b.mean((0, 1))).max()
+        log(f"[{tag}] {name} mean {a.mean():.5f} against {b.mean():.5f}: "
+            f"rel {rel:.4f}, largest channel rel {ch_rel:.4f}")
+        if rel >= rtol or (channel_rtol and ch_rel >= channel_rtol):
+            raise AssertionError(f"[{tag}] {name} mean out of its limit")
+        out[name] = rel
+    return out
+
+
+def ptracer_cornell_phase(dev, smi):
+    """37. [ptracer cornell]: the particle tracer on _tiny_cornell at
+    1024^2, depth 5, 2^20 particles a pass, 4 passes, the box film."""
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "ptracer", RES, SPP, DEPTH)
+    img, got, peak = counted_image("ptracer cornell", scene, settings,
+                                   dict(closest=DEPTH, anyhit=DEPTH))
+    lum = check_image("ptracer cornell", img)
+    left, right = left_right(img)
+    log(f"[ptracer cornell] mean luminance {lum.mean():.5f}, left rgb "
+        f"{np.round(left, 4).tolist()}, right rgb "
+        f"{np.round(right, 4).tolist()}")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("[ptracer cornell] red wall not on the left / "
+                             "green not on the right")
+    out = loop_measures("ptracer cornell", scene, settings,
+                        RES * RES * 2 * DEPTH)
+    # the first bounce's camera connections (the second any-hit call)
+    o, d, tmin, tmax = occluded_calls(scene, settings, [1])[0]
+    err = check_tri("ptracer cornell first-bounce connections", dict(
+        geom=scene.geom, o=o, d=d,
+        forms=[("connection tmin, per-ray tmax", tmin, tmax)]))
+    cpu_scene, _ = tiny_cornell("cpu")
+    parity_gate(f"ptracer cornell {B_PARITY_RES}^2 depth {DEPTH}",
+                image_values(scene, settings, B_PARITY_RES),
+                image_values(cpu_scene, settings, B_PARITY_RES))
+    small = loop_settings(settings, "ptracer", B_PARITY_RES)
+    path = job.render(scene, loop_settings(small, "path"),
+                      spp=PT_MEAN_SPP[0]).cpu().numpy()
+    pt = job.render(scene, small, spp=PT_MEAN_SPP[1]).cpu().numpy()
+    mean_against("ptracer cornell", pt, path, 0.05)
+    out.update(launches=got, peak=peak, err=err,
+               per_pass=(got["closest"] // SPP, got["anyhit"] // SPP))
+    log(f"[ptracer cornell] pass {out['pass_ms']:.3f} ms, peak "
+        f"{peak:.3f} GiB ({smi})")
+    return out
+
+
+def ptracer_lights_phase(dev, smi):
+    """38. [ptracer lights]: lights_cornell's emitters (triangle, sphere
+    and disk area lights, point, spot, collimated) as particle origins,
+    card vs CPU at 128^2."""
+    scene, settings = lights_cornell(dev)
+    cpu_scene, _ = lights_cornell("cpu")
+    settings = loop_settings(settings, "ptracer", depth=DEPTH)
+    card = image_values(scene, settings, B_PARITY_RES)
+    if not card.mean() > 0:
+        raise AssertionError("[ptracer lights] black image")
+    parity_gate(f"ptracer lights_cornell {B_PARITY_RES}^2 depth {DEPTH} "
+                f"({smi})", card,
+                image_values(cpu_scene, settings, B_PARITY_RES))
+
+
+def bdpt_cornell_phase(dev, smi):
+    """39. [bdpt cornell]: bdpt on _tiny_cornell at 1024^2, depth 5, 4
+    spp, the light image on."""
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "bdpt", RES, SPP, DEPTH,
+                             light_image=True)
+    n_any = 2 * (DEPTH - 1) + (DEPTH - 2) * (DEPTH - 1) // 2
+    img, got, peak = counted_image(
+        "bdpt cornell", scene, settings,
+        dict(closest=2 * DEPTH - 1, anyhit=n_any))
+    lum = check_image("bdpt cornell", img)
+    left, right = left_right(img)
+    log(f"[bdpt cornell] mean luminance {lum.mean():.5f}, left rgb "
+        f"{np.round(left, 4).tolist()}, right rgb "
+        f"{np.round(right, 4).tolist()}")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("[bdpt cornell] red wall not on the left / "
+                             "green not on the right")
+    out = loop_measures("bdpt cornell", scene, settings,
+                        RES * RES * (2 * DEPTH - 1 + n_any))
+    # the first inner connection (s = 2, t = 2): after the DEPTH - 1 NEE
+    # and DEPTH - 1 camera connections
+    o, d, tmin, tmax = occluded_calls(scene, settings,
+                                      [2 * (DEPTH - 1)])[0]
+    err = check_tri("bdpt cornell inner connection segments", dict(
+        geom=scene.geom, o=o, d=d,
+        forms=[("segment tmin, per-ray tmax", tmin, tmax)]))
+    cpu_scene, _ = tiny_cornell("cpu")
+    parity_gate(f"bdpt cornell {B_PARITY_RES}^2 depth {DEPTH}",
+                image_values(scene, settings, B_PARITY_RES),
+                image_values(cpu_scene, settings, B_PARITY_RES))
+    small = loop_settings(settings, "bdpt", B_PARITY_RES)
+    path = job.render(scene, loop_settings(small, "path"),
+                      spp=B_MEAN_SPP[0]).cpu().numpy()
+    bd = job.render(scene, small, spp=B_MEAN_SPP[1]).cpu().numpy()
+    mean_against("bdpt cornell", bd, path, 0.05, 0.08)
+    out.update(launches=got, peak=peak, err=err,
+               per_pass=(got["closest"] // SPP, got["anyhit"] // SPP))
+    log(f"[bdpt cornell] pass {out['pass_ms']:.3f} ms, peak {peak:.3f} GiB "
+        f"({smi})")
+    return out
+
+
+def bdpt_large_phase(dev, smi):
+    """40. [bdpt large]: bdpt on large_scene() (1,120,504 triangles under
+    the unit constant environment: light subpaths from its disk) at 768^2,
+    depth 3, 2 spp; both hierarchy kernels bit for bit on its inner
+    connection's segments; card vs CPU at 64^2."""
+    scene, settings = large_scene(dev)
+    settings = loop_settings(settings, "bdpt", L_RES, L_SPP, L_DEPTH)
+    n_any = 2 * (L_DEPTH - 1) + (L_DEPTH - 2) * (L_DEPTH - 1) // 2
+    img, got, peak = counted_image(
+        "bdpt large", scene, settings,
+        dict(hier_closest=2 * L_DEPTH - 1, hier_anyhit=n_any))
+    lum = check_image("bdpt large", img)
+    corners = lum[[0, 0, -1, -1], [0, -1, 0, -1]]
+    centre = lum[L_RES // 2 - 8:L_RES // 2 + 8,
+                 L_RES // 2 - 8:L_RES // 2 + 8].mean()
+    log(f"[bdpt large] corners luminance {np.round(corners, 5).tolist()}, "
+        f"centre {centre:.5f}, mean {lum.mean():.5f}")
+    if not (np.abs(corners - 1.0) < 1e-3).all() or not 0.05 < centre < 1.0:
+        raise AssertionError("[bdpt large] the environment or the mesh is "
+                             "not where it should be")
+    out = loop_measures("bdpt large", scene, settings,
+                        L_RES * L_RES * (2 * L_DEPTH - 1 + n_any))
+    # the inner connection (s = 2, t = 2): after the NEE and the camera
+    # connections
+    o, d, tmin, tmax = occluded_calls(scene, settings,
+                                      [2 * (L_DEPTH - 1)])[0]
+    err, _, _ = check_hier("bdpt large inner connection segments",
+                           scene.clusters, o, d, tmin, tmax)
+    cpu_scene, _ = large_scene("cpu")
+    parity_gate(f"bdpt large 64^2 depth {L_DEPTH}",
+                image_values(scene, settings, 64),
+                image_values(cpu_scene, settings, 64))
+    out.update(launches=got, peak=peak, err=err,
+               per_pass=(got["hier_closest"] // L_SPP,
+                         got["hier_anyhit"] // L_SPP))
+    log(f"[bdpt large] pass {out['pass_ms']:.3f} ms, peak {peak:.3f} GiB "
+        f"({smi})")
+    return out
+
+
+def projected_box(scene, centre, radius, res):
+    """(rows, columns) of the square inside the silhouette of a sphere of
+    ``radius`` at ``centre`` on a res^2 film (0.7 of its projected radius
+    around its centre's pixel)."""
+    pts = V3(*(torch.tensor([float(centre[k]), float(centre[k])
+                             + (radius if k == 1 else 0.0)],
+                            device=scene.device) for k in range(3)))
+    u, w, *_ = connect_v(scene.sensor, pts)
+    cx, cy = float(u[0]) * res, float(w[0]) * res
+    r = max(abs(float(w[1] - w[0])) * res * 0.7, 1.0)
+    return (slice(int(cy - r), int(cy + r) + 1),
+            slice(int(cx - r), int(cx + r) + 1))
+
+
+def bdpt_volume_phase(dev, smi):
+    """41. [bdpt volume]: bdpt on volume_cornell at 128^2, depth 5: card vs
+    CPU; its mean against the card's volpath over the image and inside
+    the Kajiya-Kay icosahedron (the port's phase functions, ROADMAP
+    C16)."""
+    t0 = time.perf_counter()
+    scene, settings = volume_cornell(dev)
+    cpu_scene, _ = volume_cornell("cpu")
+    settings = loop_settings(settings, "bdpt", B_PARITY_RES, 1, DEPTH)
+    med.reset_track_stats()
+    card = image_values(scene, settings, B_PARITY_RES)
+    card_iters = med.TRACK_STATS["iterations"]
+    med.reset_track_stats()
+    cpu = image_values(cpu_scene, settings, B_PARITY_RES)
+    cpu_iters = med.TRACK_STATS["iterations"]
+    log(f"[bdpt volume] tracking iterations at {B_PARITY_RES}^2: card "
+        f"{card_iters}, CPU {cpu_iters}")
+    parity_gate(f"bdpt volume cornell {B_PARITY_RES}^2 depth {DEPTH}",
+                card, cpu)
+    big = loop_settings(settings, "bdpt", V_MEAN_RES)
+    ci.reset_launch_counts()
+    med.reset_track_stats()
+    t1 = time.perf_counter()
+    bd = job.render(scene, big, spp=V_MEAN_SPP[1]).cpu().numpy()
+    torch.cuda.synchronize()
+    bd_s = time.perf_counter() - t1
+    got = launch_counts()
+    log(f"[bdpt volume] tracking loops: "
+        f"{med.TRACK_STATS['iterations'] / V_MEAN_SPP[1]:.1f} iterations a "
+        f"pass as the batch counts them, "
+        f"{med.TRACK_STATS['executed'] / V_MEAN_SPP[1]:.1f} run, "
+        f"{med.TRACK_STATS['syncs'] / V_MEAN_SPP[1]:.1f} host syncs a pass")
+    vp = job.render(scene, loop_settings(big, "volpath"),
+                    spp=V_MEAN_SPP[0]).cpu().numpy()
+    check_image("bdpt volume", bd)
+    box = projected_box(scene, VOLUME_CENTRES[2], VOLUME_RADIUS,
+                        V_MEAN_RES)
+    rel = mean_against("bdpt volume", bd, vp, 0.05, box=box)
+    log(f"[bdpt volume] {V_MEAN_SPP[1]} passes at {V_MEAN_RES}^2 in "
+        f"{bd_s:.2f} s, launches {got['closest']} + {got['anyhit']}; phase "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return dict(rel=rel, seconds=bd_s)
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None,
-                  volume_launches=None):
+                  volume_launches=None, ptracer_launches=None,
+                  bdpt_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
                 plain_ms=timing[key + "_plain"], bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None, device_ms=device_ms,
                 grad_launches=grad_launches, xml_launches=xml_launches,
-                volume_launches=volume_launches)
+                volume_launches=volume_launches,
+                ptracer_launches=ptracer_launches,
+                bdpt_launches=bdpt_launches)
+
+
+def light_tracing_phases(dev, smi):
+    """Phases 37-41."""
+    return [phase(dev, smi) for phase in (
+        ptracer_cornell_phase, ptracer_lights_phase, bdpt_cornell_phase,
+        bdpt_large_phase, bdpt_volume_phase)]
+
+
+def _timed(fn):
+    """``fn`` that logs its seconds as ``[seconds] name: s``."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[seconds] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
+
+
+# every phase logs its seconds, so that the run's time can be traced to its
+# phases against the script's limit
+for _name in [n for n in globals() if n.endswith("_phase")]:
+    globals()[_name] = _timed(globals()[_name])
 
 
 def main():
@@ -3122,26 +3485,46 @@ def main():
         for k, v in (("volume cornell", vc), ("volume large", vl)))
         + f" ({smi})")
 
+    t0 = time.perf_counter()
+    pc, _, bc, bl, bv = light_tracing_phases(dev, smi)
+    log(f"[summary] phases 37-41 {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{k} pass {v['pass_ms']:.3f} ms (turns "
+        f"{', '.join(f'{t:.3f}' for t in v['turns'])}), launches a pass "
+        f"{v['per_pass']}, device ops per pass "
+        f"{fmt(v['prof'] and v['prof']['ops'])}, device ms per pass "
+        f"{fmt(v['prof'] and v['prof']['device_ms'])}, idle "
+        f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+        for k, v in (("ptracer cornell", pc), ("bdpt cornell", bc),
+                     ("bdpt large", bl)))
+        + f"; bdpt volume mean rel to volpath {bv['rel']} ({smi})")
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
-                      launches[0], max(timing["closest_err"], vc["err"]),
+                      launches[0], max(timing["closest_err"], vc["err"],
+                                       pc["err"]["closest"],
+                                       bc["err"]["closest"]),
                       timing, "closest", grad_launches[0],
                       timing["closest_device"], x_launches[0],
-                      vc["launches_per_pass"]),
+                      vc["launches_per_pass"], pc["per_pass"][0],
+                      bc["per_pass"][0]),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
-                      launches[1], timing["anyhit_err"], timing, "anyhit",
-                      grad_launches[1], timing["anyhit_device"],
-                      x_launches[1]),
+                      launches[1], max(timing["anyhit_err"],
+                                       pc["err"]["anyhit"],
+                                       bc["err"]["anyhit"]),
+                      timing, "anyhit", grad_launches[1],
+                      timing["anyhit_device"], x_launches[1], None,
+                      pc["per_pass"][1], bc["per_pass"][1]),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[0], max(err_h, vl["err"]), htiming,
+                      hlaunches[0], max(err_h, vl["err"], bl["err"]), htiming,
                       "closest", hgrad_launches[0], htiming["closest_device"],
-                      xl_launches[0], vl["launches_per_pass"]),
+                      xl_launches[0], vl["launches_per_pass"], None,
+                      bl["per_pass"][0]),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],
-                      xl_launches[1]),
+                      xl_launches[1], None, None, bl["per_pass"][1]),
         kernel_record("hier_closest_motion", HIER_SOURCE,
                       HIER_MOTION_REPLACES, ml["launches"][0], ml["err"], mt,
                       "motion_closest", None, mt["motion_closest_device"]),

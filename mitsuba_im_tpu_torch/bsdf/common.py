@@ -54,6 +54,9 @@ BUMPMAP_WRAP = 16
 HK = 17
 IRAWAN = 18
 
+# types without a smooth component (no NEE, no connection through them)
+DELTA_TYPES = (CONDUCTOR, DIELECTRIC, THINDIELECTRIC, NULL_BSDF)
+
 # frame perturbation kinds (the bumpmap / normalmap wrappers)
 BUMP_NONE = 0
 BUMP_HEIGHT = 1
@@ -551,6 +554,15 @@ def resolve_v(table: BSDFTable, tex: TextureTable | None,
         used_types=table.used_types,
         **(dict(uv_u=uv_u, uv_v=uv_v, weave_id=row(table.weave_id),
                 weaves=table.weaves) if table.weaves else {}))
+
+
+def lane_is_delta(p: LaneParams3) -> torch.Tensor:
+    """Lanes whose resolved BSDF has no smooth component (the reference's
+    ``lane_is_delta``)."""
+    out = torch.zeros(p.type.shape, dtype=torch.bool, device=p.type.device)
+    for t in DELTA_TYPES:
+        out = out | (p.type == t)
+    return out
 
 
 def _hash_uniform(uv_u: torch.Tensor, uv_v: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ Each scene file is loaded (``scene/xml.py``), built on ``--device`` (the
 card by default; without one the command raises, and ``--device cpu``
 runs the kernels' plain versions), rendered by ``render_film`` with the
 scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
-``field`` or ``motion``), and written as EXR, or as a tone-mapped PNG/PPM by the
+``field`` or ``motion``), or by ``render`` through the render loop of
+``ptracer`` or ``bdpt`` (which, as the reference's, take no ``-c``/``-z``/
+``-r``/``-S``), and written as EXR, or as a tone-mapped PNG/PPM by the
 output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
 band by band into an out-of-core film (``film/tiled.py``, at its
 default band height, as the reference's command line), without
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
 
     from ..core.types import entry_device
     from ..film.film import develop
-    from ..render.job import render_film, save_render
+    from ..render.job import (LOOP_INTEGRATORS, render, render_film,
+                              save_render)
     from ..scene.xml import load_scene
 
     device = entry_device(args.device)
@@ -120,6 +123,16 @@ def main(argv=None) -> int:
             f"{settings.width}x{settings.height}@{settings.spp}spp "
             f"integrator={settings.integrator} on {device} "
             f"({time.perf_counter() - t0:.3f}s)")
+
+        if settings.integrator in LOOP_INTEGRATORS:
+            t1 = time.perf_counter()
+            img = render(scene, settings).cpu().numpy()
+            wall = time.perf_counter() - t1
+            save_render(out, img, settings, metadata={
+                "renderTime": f"{wall:.3f}s",
+                "renderer": "mitsuba_im_tpu_torch"})
+            say(f"[done] {out}  {wall:.3f}s ({settings.integrator})")
+            continue
 
         if settings.tiled and out.endswith(".exr"):
             from ..film.tiled import render_tiled

@@ -429,6 +429,18 @@ def _sample_area_position_v(em: EmitterTable, geom: Geometry, eid, u2a, u2b,
     return p, n, 1.0 / torch.clamp_min(total_area, 1e-12)
 
 
+def select_emitter_v(em: EmitterTable, u_sel):
+    """(emitter row, selection pmf) of each lane: Distribution1D.sample,
+    #{1 <= k < E : cdf[k] <= u}; row 0 with pmf 1 for one emitter."""
+    E = em.select_pmf.shape[0]
+    if E == 1:
+        return (torch.zeros(u_sel.shape, dtype=Int, device=u_sel.device),
+                torch.ones(u_sel.shape, dtype=Float, device=u_sel.device))
+    eid = torch.searchsorted(em.select_cdf, u_sel, right=True) - 1
+    eid = eid.clamp(0, E - 1).to(Int)
+    return eid, v.gather_row(em.select_pmf, eid)
+
+
 def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
                     u2a, u2b) -> DirectSample3:
     """Scene::sampleEmitterDirect over SoA lanes."""
@@ -441,16 +453,7 @@ def sample_direct_v(em: EmitterTable, geom: Geometry, ref_p: V3, u_sel,
             delta=no, n=v.zeros(shape, dev),
             emitter=torch.full(shape, INVALID, dtype=Int, device=dev))
 
-    E = em.select_pmf.shape[0]
-    if E == 1:
-        eid = torch.zeros(shape, dtype=Int, device=dev)
-        sel_pmf = torch.ones(shape, dtype=Float, device=dev)
-    else:
-        # Distribution1D.sample: #{1 <= k < E : cdf[k] <= u}
-        eid = torch.searchsorted(em.select_cdf, u_sel, right=True) - 1
-        eid = eid.clamp(0, E - 1).to(Int)
-        sel_pmf = v.gather_row(em.select_pmf, eid)
-
+    eid, sel_pmf = select_emitter_v(em, u_sel)
     etype = v.gather_row(em.type, eid)
     radiance = v.gather_v3(em.radiance, eid)
     d, value, n_out = v.zeros(shape, dev), v.zeros(shape, dev), v.zeros(

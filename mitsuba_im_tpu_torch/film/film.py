@@ -8,7 +8,11 @@ moves it to the next pixel, so a pixel may take two samples of a pass.
 They are summed with ``index_put_(accumulate=True)``: on the card the box
 film then came out the same bit for bit from run to run and between a
 render and its resumed checkpoint (``chip_smoke.py``'s ``[xml cornell]``),
-where ``index_add_``'s atomics had differed in a few entries.  Every other
+where ``index_add_``'s atomics had differed in a few entries.  An inactive
+sample adds zeros, at a pixel of its own lane (:func:`spread_inactive`):
+``index_put_``'s accumulate walks the samples of one pixel in turn, and
+the particle tracer's millions of inactive splats, clamped to a few
+pixels, had taken 139 of its 159 ms of device time a pass.  Every other
 filter splats each sample to its ``ceil(2 r)`` x ``ceil(2 r)``
 neighbourhood (16 taps for the Gaussian at radius 2) with the separable
 weight ``f(dx) f(dy)``; a tap outside the image goes to pixel 0 with
@@ -102,7 +106,8 @@ def splat(film: Film, px: torch.Tensor, py: torch.Tensor, value,
     """Accumulate samples in place.  px, py: (N,) continuous film
     coordinates in pixels; value: V3 of (N,) radiance."""
     ones = torch.ones_like(px)
-    if active is None:
+    masked = active is not None
+    if not masked:
         active = torch.ones(px.shape, dtype=torch.bool, device=px.device)
     cols = [torch.where(active, c, 0.0) for c in value] + [
         torch.where(active, ones, 0.0)]
@@ -111,8 +116,10 @@ def splat(film: Film, px: torch.Tensor, py: torch.Tensor, value,
     if film.ftype == F_BOX and film.radius <= 0.5:
         ix = torch.clamp(px.to(Int), 0, W - 1)
         iy = torch.clamp(py.to(Int), 0, H - 1)
-        flat.index_put_((iy * W + ix,), torch.stack(cols, dim=-1),
-                        accumulate=True)
+        idx = iy * W + ix
+        if masked:
+            idx = spread_inactive(idx, active, H * W)
+        flat.index_put_((idx,), torch.stack(cols, dim=-1), accumulate=True)
         return film
 
     r = film.radius
@@ -134,6 +141,16 @@ def splat(film: Film, px: torch.Tensor, py: torch.Tensor, value,
                       dim=-1)
     flat.index_add_(0, idx.reshape(-1), upd.reshape(-1, 4))
     return film
+
+
+def spread_inactive(idx: torch.Tensor, active: torch.Tensor,
+                    n_pixels: int) -> torch.Tensor:
+    """Accumulation indices with each inactive sample (whose values are
+    zeros) sent to pixel lane mod n_pixels: the same sums, without the
+    serialized run of duplicates that a pile of them at one pixel costs
+    ``index_put_``."""
+    lane = torch.arange(idx.shape[0], device=idx.device) % n_pixels
+    return torch.where(active, idx, lane)
 
 
 def develop(film: Film) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Integrator plugin factories (``mitsuba_im_tpu/integrators/__init__.py``).
 
 ``path``, ``volpath`` (and ``volpath_simple``, the same estimator),
-``direct``, ``ao``, ``field`` and ``motion`` record their name
-and parameters into the builder's render settings, which
-``render/job.py::integrator_fn`` turns into the integrator.  ``motion``
+``direct``, ``ao``, ``field``, ``motion``, ``ptracer`` and ``bdpt`` record
+their name and parameters into the builder's render settings, which
+``render/job.py::integrator_fn`` turns into the integrator (``ptracer``
+and ``bdpt`` render through their own loops, ``render/job.py::render``).  ``motion``
 records only ``timeDelta``, as the reference's, so from a scene file its
 previous sensor pose is the current one (ROADMAP C13).  Every other
 integrator the JAX package registers is registered here too and raises
@@ -73,9 +74,21 @@ def _motion(props: Properties, ctx=None):
         time_delta=props.get_float("timeDelta", 1.0 / 24.0)))
 
 
+@register("integrator", "ptracer")
+def _ptracer(props: Properties, ctx=None):
+    ip = _mc_props(props)
+    ip["granularity"] = props.get_int("granularity", 200000)
+    return _set(ctx, "ptracer", ip)
+
+
+@register("integrator", "bdpt")
+def _bdpt(props: Properties, ctx=None):
+    ip = _mc_props(props)
+    ip["light_image"] = props.get_bool("lightImage", True)
+    return _set(ctx, "bdpt", ip)
+
+
 for _names, _item in (
-        (("ptracer",), "queue A item 7.3"),
-        (("bdpt",), "queue A item 7.4"),
         (("adaptive", "multichannel"), "queue A item 7.5"),
         (("photonmapper", "ppm", "sppm", "vpl", "irrcache"),
          "queue A item 7.6"),

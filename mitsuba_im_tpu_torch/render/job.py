@@ -11,7 +11,12 @@ as the reference's ``render_film`` passes it.  The integrator comes from
 the settings (:func:`integrator_fn`, the reference's ``_integrator_fn``):
 ``path`` (``integrators/path.py``), ``volpath`` (``integrators/volpath.py``),
 and ``direct``, ``ao``, ``field`` and ``motion``
-(``integrators/simple.py``); the others raise.  A scene with
+(``integrators/simple.py``); the integrators still unported raise, naming
+their ROADMAP item.  :func:`render` returns the developed image of every
+integrator: ``ptracer`` (:func:`render_ptracer`, particles splatted into a
+box film and normalized by the image plane) and ``bdpt``
+(``integrators/bdpt.py::render_bdpt``) through loops of their own, the
+others through :func:`render_film`.  A scene with
 deformable shapes renders each pass at one shutter time,
 ``shutter_open + shutter_time * u`` with ``u`` the pass index's golden-ratio
 word (:func:`shutter_time`), shared by the pass's wavefront.  The port
@@ -40,10 +45,12 @@ import os
 import numpy as np
 import torch
 
+from ..core.properties import Properties
+from ..core.registry import create
 from ..core.types import Float
 from ..core import rng as mrng
 from ..core.v3 import V3
-from ..film.film import F_GAUSSIAN, Film, make_film, splat
+from ..film.film import F_BOX, F_GAUSSIAN, Film, develop, make_film, splat
 from ..integrators.path import PathConfig, path_li_v
 from ..integrators import simple
 from ..integrators.volpath import volpath_li_v
@@ -73,6 +80,8 @@ class RenderSettings:
     tiled: bool = False  # tiledhdrfilm: out-of-core band rendering
 
 INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
+# integrators with render loops of their own (:func:`render`)
+LOOP_INTEGRATORS = ("ptracer", "bdpt")
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -122,8 +131,12 @@ def integrator_fn(settings: RenderSettings):
         return lambda scene, s, o, d, **kw: simple.motion_li_v(
             scene, s, o, d, prev_to_world=prev, width=settings.width,
             height=settings.height)
+    # an unported integrator's factory raises, naming its ROADMAP item
+    create("integrator", Properties(name))
     raise NotImplementedError(
-        f"integrator '{name}': the port renders {', '.join(INTEGRATORS)}")
+        f"integrator '{name}': render_film renders "
+        f"{', '.join(INTEGRATORS)}; render() also "
+        f"{', '.join(LOOP_INTEGRATORS)}")
 
 
 def shutter_time(scene: Scene, sample_idx: int) -> float:
@@ -220,6 +233,60 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
             if progress_cb is not None:
                 progress_cb(s + 1, spp, film)
     return film
+
+
+def render(scene: Scene, settings: RenderSettings, spp: int | None = None,
+           progress_cb=None) -> torch.Tensor:
+    """The settings' image, (H, W, 3) on the scene's device (the
+    reference's ``render``): ``ptracer`` and ``bdpt`` through their own
+    loops, every other integrator through :func:`render_film` and
+    ``develop``."""
+    if settings.integrator == "ptracer":
+        return render_ptracer(scene, settings, spp=spp)
+    if settings.integrator == "bdpt":
+        from ..integrators.bdpt import render_bdpt
+
+        return render_bdpt(scene, settings, spp=spp, progress_cb=progress_cb)
+    film = render_film(scene, settings, spp=spp, progress_cb=progress_cb)
+    return develop(film)
+
+
+def ptracer_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
+                 cfg: PathConfig, kind: int) -> Film:
+    """One particle per pixel, traced from the lights and splatted at its
+    camera connections into the box ``film`` (``_ptracer_pass``):
+    ``active`` marks the nonzero splats, which alone count a sample."""
+    from ..integrators.ptracer import ptracer_splats_v
+
+    n = film.width * film.height
+    pid = torch.arange(n, dtype=torch.int64, device=scene.device)
+    sampler = mrng.make_sampler_v(pid, sample_idx, seed, kind=kind)
+    splats = ptracer_splats_v(scene, sampler, cfg)
+    val = V3(*(torch.cat([sp.value[k] for sp in splats]) for k in range(3)))
+    active = (val.x.abs() + val.y.abs() + val.z.abs()) > 0
+    return splat(film, torch.cat([sp.u for sp in splats]) * film.width,
+                 torch.cat([sp.v for sp in splats]) * film.height, val,
+                 active=active)
+
+
+def render_ptracer(scene: Scene, settings: RenderSettings,
+                   spp: int | None = None) -> torch.Tensor:
+    """The light-traced image, (H, W, 3): W * H * spp particles, each
+    pass's sampler of the settings' kind, the splat sums normalized by the
+    image plane, W * H / particles (``render_ptracer``); ``depth_budget``
+    (at most 12) bounds an unlimited ``max_depth``."""
+    spp = spp if spp is not None else settings.spp
+    ip = settings.integrator_props
+    cfg = PathConfig(max_depth=ip.get("max_depth", -1),
+                     rr_depth=ip.get("rr_depth", 5),
+                     depth_budget=min(ip.get("depth_budget", 8), 12))
+    W, H = settings.width, settings.height
+    kind = sampler_kind(settings)
+    film = make_film(W, H, F_BOX, 0.5, device=scene.device)
+    with torch.no_grad():
+        for s in range(spp):
+            film = ptracer_pass(scene, film, s, settings.seed, cfg, kind)
+    return film.data[..., :3] * (W * H / (spp * W * H))
 
 
 def tonemap_ldr(img: np.ndarray, settings: RenderSettings) -> np.ndarray:

@@ -17,7 +17,10 @@ the hierarchy kernels' motion mode against the plain version at three
 shutter times; the volumetric path tracer's shadow segments (closest hits
 with a per-ray tmax) through both kernel families against the plain
 versions, and ``volume_cornell`` and ``volume_large`` rendered on the card
-against the CPU.
+against the CPU; the particle tracer and the bidirectional path tracer
+through ``render`` on the Cornell box and the large scene against the CPU
+with their launch counts, their means against the path tracer, and bdpt
+against volpath on ``volume_cornell``.
 """
 import dataclasses
 
@@ -551,3 +554,82 @@ def test_volume_render_card_vs_cpu(cuda, which):
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
     assert abs(a.sum() - b.sum()) / b.sum() < 5e-3
     assert np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3
+
+
+def _gate_ok(a, b):
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2 * np.abs(b).mean())
+    return (abs(a.sum() - b.sum()) / b.sum() < 5e-3
+            and np.quantile(rel, 0.999) < 1e-3 and (rel > 1e-3).mean() < 2e-3)
+
+
+# launches a pass (closest, any hit) of ptracer and bdpt at max_depth 5 on
+# the Cornell box, and of bdpt at max_depth 3 on the large scene
+LOOP_LAUNCHES = {("ptracer", "cornell"): (5, 5), ("bdpt", "cornell"): (9, 14),
+                 ("bdpt", "large"): (5, 5)}
+
+
+@pytest.mark.parametrize("integrator,which", list(LOOP_LAUNCHES))
+def test_light_tracing_render_card_vs_cpu(cuda, integrator, which):
+    """ptracer and bdpt through job.render at 64^2, 2 passes, on the card
+    against the CPU under parity_check.py's gate; the launch counts a
+    pass through the brute-force kernels (Cornell) or the hierarchy
+    kernels (large scene), none through the other family."""
+    from mitsuba_im_tpu_torch.render.job import render
+
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = (tiny_cornell(dev) if which == "cornell"
+                           else large_scene(dev))
+        settings = dataclasses.replace(
+            settings, width=64, height=64, integrator=integrator,
+            integrator_props=dict(max_depth=5 if which == "cornell" else 3))
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        imgs.append(render(scene, settings, spp=2).sum(-1).cpu().numpy())
+        if dev.type == "cuda":
+            c, a = LOOP_LAUNCHES[integrator, which]
+            got = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches,
+                   ch.hier_closest.launches, ch.hier_anyhit.launches)
+            assert got == ((2 * c, 2 * a, 0, 0) if which == "cornell"
+                           else (0, 0, 2 * c, 2 * a))
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
+    assert _gate_ok(*(im.ravel() for im in imgs))
+
+
+@pytest.mark.parametrize("integrator", ["ptracer", "bdpt"])
+def test_light_tracing_mean_matches_path_on_card(cuda, integrator):
+    """The Cornell box at 64^2, depth 4: ptracer's and bdpt's means within
+    5% of the path tracer's, each channel within 8%."""
+    from mitsuba_im_tpu_torch.render.job import render
+
+    scene, settings = tiny_cornell(cuda)
+    settings = dataclasses.replace(settings, width=64, height=64,
+                                   integrator_props=dict(max_depth=4))
+    path = render(scene, settings, spp=64).cpu().numpy()
+    img = render(scene, dataclasses.replace(settings, integrator=integrator),
+                 spp=64).cpu().numpy()
+    assert abs(img.mean() - path.mean()) / path.mean() < 0.05
+    assert np.all(np.abs(img.mean((0, 1)) - path.mean((0, 1)))
+                  / path.mean((0, 1)) < 0.08)
+
+
+def test_bdpt_kajiya_kay_matches_volpath_on_card(cuda):
+    """volume_cornell (its Kajiya-Kay, microflake and mixture phases
+    through the port's phase functions in both integrators, ROADMAP C16)
+    at 128^2, depth 5: bdpt's mean within 5% of volpath's; bdpt card vs
+    CPU at 32^2 under the gate."""
+    from mitsuba_im_tpu_torch.render.job import render
+
+    scene, settings = volume_cornell(cuda, grid_res=32, ori_res=8)
+    settings = dataclasses.replace(settings, width=128, height=128,
+                                   integrator_props=dict(max_depth=5))
+    vp = render(scene, settings, spp=16).cpu().numpy()
+    bd = render(scene, dataclasses.replace(settings, integrator="bdpt"),
+                spp=8).cpu().numpy()
+    assert abs(bd.mean() - vp.mean()) / vp.mean() < 0.05
+    small = dataclasses.replace(settings, width=32, height=32,
+                                integrator="bdpt")
+    cpu_scene, _ = volume_cornell("cpu", grid_res=32, ori_res=8)
+    a, b = (render(s, small, spp=1).sum(-1).cpu().numpy().ravel()
+            for s in (scene, cpu_scene))
+    assert _gate_ok(a, b)

@@ -64,7 +64,7 @@ def test_render_film_parity_gate():
                                          ("sampler", "ldsampler"),
                                          ("rfilter", tfilm.F_GAUSSIAN)])
 def test_unported_render_options_raise(field, value):
-    """An integrator the port lacks (``ptracer``) raises; the ``direct``
+    """An integrator the port lacks (``pssmlt``) raises; the ``direct``
     integrator, the ldsampler and the Gaussian filter, which raised before
     they were ported (the names are kept), render the Cornell box as the
     reference does (16^2, 2 spp, under the gate)."""
@@ -72,7 +72,7 @@ def test_unported_render_options_raise(field, value):
     if field == "integrator":
         with pytest.raises(NotImplementedError):
             tjob.render_film(scene, dataclasses.replace(
-                settings, integrator="ptracer"), spp=1)
+                settings, integrator="pssmlt"), spp=1)
     setattr(settings, field, value)
     settings.width = settings.height = 16
     jscene, jsettings = jax_cornell()

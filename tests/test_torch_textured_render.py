@@ -176,7 +176,7 @@ def test_atlas_gradient_matches_reference():
     assert (got[:64 * 64] != 0).sum() > 20
 
 
-def test_bump_map_gradient_matches_forward_mode():
+def test_bump_map_gradient_matches_forward_mode(textured):
     """d sum(Li)/d texture.atlas through the bump and normal maps
     (``_perturb_frame_v``: the height map's finite differences, the
     normalisations, the flip into ng's side) on the small textured_cornell
@@ -187,8 +187,7 @@ def test_bump_map_gradient_matches_forward_mode():
     0), as test_torch_material_grads does for alpha: |g . v - jvp(v)|
     within GRAD_TOL of sum |g_i v_i|, a sum of ones (~350 here)."""
     w = 8
-    jscene = jax_textured_cornell(64, 32)
-    tscene = bridged(jscene)
+    jscene, tscene = textured  # jax_textured_cornell(64, 32), built once
     got = npy(torch_grads(tscene, tpath.PathConfig(max_depth=DEPTH), w,
                           ["texture.atlas"])["texture.atlas"])
     tex = tscene.textures

@@ -495,9 +495,9 @@ def test_loader_features(tmp_path):
 
 
 UNPORTED = {
-    "ptracer": '<integrator type="ptracer"/>',
+    "mlt": '<integrator type="mlt"/>',
     "adaptive": '<integrator type="adaptive"/>',
-    "bdpt": '<integrator type="bdpt"/>',
+    "irrcache": '<integrator type="irrcache"/>',
     "vpl": '<integrator type="vpl"/>',
     "sppm": '<integrator type="sppm"/>',
     "pssmlt": '<integrator type="pssmlt"/>',
