@@ -206,7 +206,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    boundary around a homogeneous HG medium, one around a 128^3 grid medium
    with a microflake phase along a swirl, a dielectric around a Kajiya-Kay
    medium; the camera in a fog with a mixture phase) through
-   ``render_film`` with ``volpath`` at 1024^2, depth 5, 4 spp: 25
+   ``render_film`` with ``volpath`` at 1024^2, depth 5, 2 spp: 25
    brute-force closest-hit launches a pass (a camera segment and four
    shadow segments a bounce), no any hit; the tracking loops' iterations
    and host syncs a pass, the pass time, device operations, device time,
@@ -241,10 +241,40 @@ Phases, in order; any failure raises and the run exits non-zero:
    hierarchy kernels bit for bit on its inner connection's segments; card
    vs CPU at 64^2;
 41. ``[bdpt volume]``: bdpt on ``volume_cornell`` at 128^2, depth 5: card vs
-   CPU; at 1024^2 (2 passes against volpath's 8: a pass is host-bound on
+   CPU; at 1024^2 (2 passes against volpath's 4: a pass is host-bound on
    the tracking loops, so the samples come from lanes), its mean within
    5% of the card's ``volpath`` over the image and inside the Kajiya-Kay
-   icosahedron; the tracking loops' iterations and host syncs a pass.
+   icosahedron; the tracking loops' iterations and host syncs a pass;
+42. ``[sppm cornell]``: sppm (``job.render``) on the Cornell box at
+   1024^2, 250,000 photons of 8 bounces, 4 passes: 15 closest-hit
+   launches a pass, no any hit; the gather's chunks, pairs and kept pairs
+   a pass; the pass time (CUDA events), device operations, device time,
+   idle share, peak memory; both brute-force kernels bit for bit on the
+   photons' rays from the light and their first bounce; card vs CPU at
+   128^2 (20,000 photons a pass); its 128^2 mean within 12% of the card's
+   path;
+43. ``[sppm volume]``: sppm on ``volume_cornell`` at 128^2 (volume photons
+   in its homogeneous media, the beam estimate in the fog), card vs CPU;
+44. ``[sppm large]``: sppm on the 1,120,504-triangle scene at 768^2, depth
+   3, 2 passes: 10 ``hier_closest`` launches a pass, no brute-force
+   launch; the same measurements; both hierarchy kernels bit for bit on
+   the photons' first two rays; card vs CPU at 64^2;
+45. ``[vpl cornell]``: vpl at 1024^2, 256 light paths, depth 5 (768 VPLs a
+   pass), 2 passes: 8 closest-hit and 49 any-hit launches a pass (16 VPLs
+   a wavefront); both brute-force kernels bit for bit on the first VPL
+   wavefront's shadow rays; card vs CPU at 128^2; its mean within 10% of
+   path's at depth 5;
+46. ``[irrcache cornell]``: irrcache at 1024^2, 65,536 records (stride 4;
+   256 dense, the rest in the hash grid), 588 hemisphere samples of the
+   nested path at depth 3, 1 spp: launches, the record split; card vs CPU
+   at 128^2; its mean within 20% of path's at depth 6;
+47. ``[adaptive cornell]``: adaptive at 1024^2, rounds of 4 samples,
+   maxError 0.05, at most 32 rounds, the nested path at depth 5: the
+   active pixels of each round, 5 + 4 launches a sample; card vs CPU at
+   128^2; its mean within 15% of path's;
+48. ``[multichannel]``: path and field shapeIndex from a scene file through
+   the command line at 1024^2: the EXR's six layers read back, the path
+   layer path's own render; card vs CPU at 128^2.
 
 Every phase logs its seconds (``[seconds] name: s``).  The next-to-last
 line is the kernels' JSON record, the last line
@@ -282,6 +312,7 @@ from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
                                                 eval_environment_v)
 from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
 from mitsuba_im_tpu_torch.io import bitmap, exr, png
+from mitsuba_im_tpu_torch.integrators import adaptive, irrcache, sppm, vpl
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.integrators.volpath import MAX_NULL_SEGMENTS
 from mitsuba_im_tpu_torch.media import medium as med
@@ -1118,9 +1149,9 @@ def grad_pass_time(scene, settings, cfg, labels, k_lo, k_hi, rays, tag):
         return lambda: [grad_pass(scene, settings, cfg, labels, s)
                         for s in range(k)]
 
-    run(1)()  # warm up once; each count is then timed twice
-    t_lo = min(cuda_ms(run(k_lo), 1, warm=False) for _ in range(2))
-    t_hi = min(cuda_ms(run(k_hi), 1, warm=False) for _ in range(2))
+    run(1)()  # warm up once; each count is then timed once
+    t_lo = cuda_ms(run(k_lo), 1, warm=False)
+    t_hi = cuda_ms(run(k_hi), 1, warm=False)
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
     log(f"[{tag}] fwd+bwd pass time {per_pass:.3f} ms ({k_lo} passes "
         f"{t_lo:.3f} ms, {k_hi} passes {t_hi:.3f} ms); {rays} rays per pass;"
@@ -1259,7 +1290,7 @@ def large_grad_phase(scene, settings):
 # the new BSDF families and the environment map
 # ---------------------------------------------------------------------------
 
-def device_profile(tag, run, passes=2, top=0):
+def device_profile(tag, run, passes=1, top=0):
     """Device operations, device ms and idle share per pass of ``run(k)``
     (k passes) under torch.profiler, after one warm-up pass; with ``top``,
     the device ms a pass of the ``top`` kernels by name that take most."""
@@ -1743,7 +1774,7 @@ def with_options(settings, sampler=None, rfilter=None):
     return dataclasses.replace(settings, **kw)
 
 
-def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=2):
+def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=1):
     """{name: [per-pass ms, ...]} of each settings variant, differencing
     k_lo and k_hi passes, the variants in turns (forward, then back,
     ``rounds`` times)."""
@@ -1815,7 +1846,7 @@ def lights_path_phase(dev):
         p = device_profile(f"lights {k}",
                            lambda n, st=st: render_film(scene, st, spp=n))
         costs[k] = (times[k], p and p["ops"], p and p["device_ms"])
-    log("[lights] pass ms in turns (there and back, twice; median) and "
+    log("[lights] pass ms in turns (there and back; median) and "
         "device operations and device ms per pass: " + "; ".join(
             f"{k} {statistics.median(ts):.3f} ms ("
             f"{', '.join(f'{t:.3f}' for t in ts)}), {fmt(o)} ops, "
@@ -2787,6 +2818,7 @@ def tiled_phase(dev, smi):
 # ---------------------------------------------------------------------------
 
 V_PARITY_RES = 128  # both volume phases' card vs CPU image
+V_SPP = 2  # volume_cornell's passes (its pass is host-bound, 1.1-1.6 s)
 V_CLI_RES = 256  # the volume Cornell scene file through the command line
 
 # volume_cornell's media as a scene file (the grids from .vol files)
@@ -2858,7 +2890,7 @@ def volume_render(tag, scene, settings, expect, rays):
                       syncs=syncs, pass_ms=per_pass, turns=turns, prof=prof)
 
 
-def pass_time_turns(scene, settings, rays, tag, rounds=3, fn=render_film):
+def pass_time_turns(scene, settings, rays, tag, rounds=2, fn=render_film):
     """Per-pass ms as the median of ``rounds`` differences of a 2-pass and
     a 1-pass render (``fn``: render_film, or job.render for the
     integrators with loops of their own) timed in turns (one warm-up pass
@@ -2882,7 +2914,7 @@ def pass_time_turns(scene, settings, rays, tag, rounds=3, fn=render_film):
 
 def volume_cornell_phase(dev, smi):
     """35. [volume cornell]: volume_cornell through render_film with
-    volpath at 1024^2, depth 5, 4 spp; tri_closest on the first bounce's
+    volpath at 1024^2, depth 5, 2 spp; tri_closest on the first bounce's
     shadow segments; card vs CPU at 128^2."""
     t0 = time.perf_counter()
     scene, settings = volume_cornell(dev)
@@ -2891,11 +2923,11 @@ def volume_cornell_phase(dev, smi):
         f"density atlas {scene.media.density_atlas.numel() * 4 / 2**20:.3f} "
         f"MiB, phases {scene.media.used_phase}")
     settings.width = settings.height = RES
-    settings.spp = SPP
+    settings.spp = V_SPP
     bounce = 1 + MAX_NULL_SEGMENTS
     film, out = volume_render(
         "volume cornell", scene, settings,
-        dict(closest=DEPTH * bounce * SPP), RES * RES * DEPTH * bounce)
+        dict(closest=DEPTH * bounce * V_SPP), RES * RES * DEPTH * bounce)
     img = develop(film).cpu().numpy()
     lum = check_image("volume cornell", img)
     left, right = left_right(img)
@@ -2926,7 +2958,7 @@ def volume_cornell_phase(dev, smi):
         raise AssertionError("[volume cornell] the card's tracking loops ran "
                              "another number of iterations than the CPU's")
     parity_gate(f"volume cornell {V_PARITY_RES}^2 depth {DEPTH}", card, cpu)
-    out.update(err=err, launches_per_pass=out["launches"]["closest"] // SPP,
+    out.update(err=err, launches_per_pass=out["launches"]["closest"] // V_SPP,
                cli=out_cli)
     log(f"[volume cornell] pass {out['pass_ms']:.3f} ms, peak "
         f"{out['peak']:.3f} GiB ({smi})")
@@ -3047,7 +3079,7 @@ B_MEAN_SPP = (16, 8)  # path / bdpt passes of the 128^2 mean comparisons
 # volume_cornell's mean comparison: a pass is host-bound on its tracking
 # loops, so the samples come from a larger image, not from more passes
 V_MEAN_RES = 1024
-V_MEAN_SPP = (8, 2)  # volpath / bdpt passes
+V_MEAN_SPP = (4, 2)  # volpath / bdpt passes
 PT_MEAN_SPP = (16, 32)  # path / ptracer passes
 
 
@@ -3334,10 +3366,488 @@ def bdpt_volume_phase(dev, smi):
     return dict(rel=rel, seconds=bd_s)
 
 
+# ---------------------------------------------------------------------------
+# photon mapping, VPL, irradiance caching, adaptive sampling, multichannel
+# ---------------------------------------------------------------------------
+
+PH_RES = 128  # the card vs CPU images and the means against path
+PH_PHOTONS = 250000  # photons a pass of the sppm phases (the default)
+PH_PARITY_PHOTONS = 20000  # photons a pass of the sppm card vs CPU images
+PH_MEAN_SPP = 32  # path passes of the 128^2 means
+
+
+def intersect_calls(run, keep, fn="intersect_v"):
+    """(o, d, tmin, tmax) of the calls ``keep`` (indices) of
+    ``isect.<fn>`` during ``run()``, as the integrator hands them over."""
+    calls, orig = {}, getattr(isect, fn)
+    count = [0]
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        if count[0] in keep:
+            calls[count[0]] = (o, d, tmin, tmax)
+        count[0] += 1
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    setattr(isect, fn, spy)
+    try:
+        run()
+    finally:
+        setattr(isect, fn, orig)
+    return [calls[k] for k in keep]
+
+
+def slice_render(tag, scene, settings, expect):
+    """job.render with every count set to 0 first, timed by CUDA events;
+    raises unless the launches are ``expect`` (totals, the keys given; the
+    others 0).  Returns (image numpy, counts, ms, peak GiB)."""
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    ms = cuda_ms(lambda: out.setdefault("img", job.render(scene, settings)),
+                 1, warm=False)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: expect.get(k, 0) for k in got}
+    log(f"[{tag}] render {settings.width}x{settings.height} spp "
+        f"{settings.spp} integrator {settings.integrator}: launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v or want[k])
+        + f"; {ms:.3f} ms (CUDA events); peak device memory {peak:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"[{tag}] expected launches {want}, got {got}")
+    return out["img"].cpu().numpy(), got, ms, peak
+
+
+def slice_parity(tag, scene, cpu_scene, settings, **props):
+    """Card vs CPU at PH_RES^2 under the gate (``props`` override the
+    integrator's properties)."""
+    st = loop_settings(settings, settings.integrator, PH_RES, **props)
+    parity_gate(f"{tag} {PH_RES}^2",
+                image_values(scene, st, PH_RES, spp=st.spp),
+                image_values(cpu_scene, st, PH_RES, spp=st.spp))
+
+
+def _on(x, dev):
+    """Tensors (in tuples, named tuples and dicts) moved to ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_on(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def sppm_parity(tag, scene, cpu_scene, settings, res, photons):
+    """sppm card vs CPU at res^2: the image under the gate with the card's
+    passes given the CPU's photons (``sppm.photon_trace``'s output of the
+    CPU run, moved to the card), every other stage the card's own; the
+    photon trace held apart (one pass's deposits card vs CPU: the valid
+    flags and the positions); the image with the card's own photons
+    under the gate's sum only.  A 1-ulp change of the light rays'
+    directions alone moves ~1.6% of a 128^2 sppm image's pixels by up to
+    ~3% (a CPU run): a photon's last bit decides its count at a radius,
+    and the radius update carries the count into the next passes."""
+    st = loop_settings(settings, "sppm", res, photon_count=photons)
+    orig, seen = sppm.photon_trace, []
+
+    def record(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return seen[-1]
+
+    sppm.photon_trace = record
+    try:
+        cpu = image_values(cpu_scene, st, res, spp=st.spp)
+    finally:
+        sppm.photon_trace = orig
+    fed = iter(seen)
+    sppm.photon_trace = lambda *a, **kw: _on(next(fed), scene.device)
+    try:
+        card = image_values(scene, st, res, spp=st.spp)
+    finally:
+        sppm.photon_trace = orig
+    parity_gate(f"{tag} {res}^2, the CPU's photons", card, cpu)
+    own = image_values(scene, st, res, spp=st.spp)
+    rel = abs(float(own.sum()) - float(cpu.sum())) / float(cpu.sum())
+    st_own = parity_stats(own, cpu)
+    log(f"[{tag}] {res}^2 with the card's own photons: sum rel {rel:.3e} "
+        f"(gate < 5e-3), per pixel " + ", ".join(
+            f"{k} {st_own[k]:.3e}" for k in ("p999", "frac_bad", "max_rel")))
+    if not rel < 5e-3:
+        raise AssertionError(f"[{tag}] card vs CPU image sum")
+    md = st.integrator_props.get("max_depth", -1)
+    ph = [orig(sc, rng.make_sampler_v(torch.arange(photons, device=sc.device),
+                                      0, 0), md if md > 0 else 8,
+               want_volume=True) for sc in (scene, cpu_scene)]
+    card_v, cpu_v = ph[0][3].cpu(), ph[1][3]
+    both = card_v & cpu_v
+    dp = torch.stack([(a.cpu() - b).abs() for a, b in zip(ph[0][0],
+                                                          ph[1][0])]).amax(0)
+    moved = int((both & (dp > 1e-4)).sum())
+    flips = int((card_v != cpu_v).sum())
+    close = dp[both & (dp <= 1e-4)]
+    log(f"[{tag}] one pass's photon deposits card vs CPU: "
+        f"{int(cpu_v.sum())} of {cpu_v.numel()} valid, flags unlike {flips},"
+        f" moved beyond 1e-4 {moved} (a path whose roulette or edge went "
+        f"the other way), the rest within "
+        f"{float(close.max()) if close.numel() else 0.0:.3e}")
+    if flips + moved > max(int(cpu_v.sum()) * 1e-3, 1):
+        raise AssertionError(f"[{tag}] photon deposits card vs CPU")
+
+
+def irrcache_parity(tag, scene, cpu_scene, settings, res):
+    """irrcache card vs CPU at res^2: the image under the gate with the
+    card's final pass given the CPU's records (``irrcache.cache_records``
+    of the CPU run, moved to the card); the records apart (valid flags
+    unlike on at most 0.2%, the share of E and R within rel 1e-3); the
+    image with the card's own records under the gate's sum only.  On a
+    square image the records of the diagonal's pixel centres lie on the
+    box's edge between the floor and the green wall: the last bit of a
+    camera ray decides whether it hits, and their hemisphere rays start on
+    the wall's plane, where the last bit of a direction decides hit or
+    miss for many of their samples."""
+    st = loop_settings(settings, "irrcache", res)
+    orig, seen = irrcache.cache_records, []
+
+    def record(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return seen[-1]
+
+    irrcache.cache_records = record
+    try:
+        cpu = image_values(cpu_scene, st, res, spp=st.spp)
+    finally:
+        irrcache.cache_records = orig
+    irrcache.cache_records = lambda *a, **kw: _on(seen[0], scene.device)
+    try:
+        card = image_values(scene, st, res, spp=st.spp)
+    finally:
+        irrcache.cache_records = orig
+    parity_gate(f"{tag} {res}^2, the CPU's records", card, cpu)
+    own_rec, _ = orig(scene, st, int(st.seed))
+    cpu_rec = seen[0][0]
+    both = own_rec["valid"].cpu() & cpu_rec["valid"]
+    flips = int((own_rec["valid"].cpu() != cpu_rec["valid"]).sum())
+    shares = {}
+    for k in ("E", "R"):
+        a, b = own_rec[k].cpu()[both], cpu_rec[k][both]
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-6)).reshape(len(b), -1)
+        shares[k] = float((rel.amax(1) <= 1e-3).float().mean())
+    own = image_values(scene, st, res, spp=st.spp)
+    rel = abs(float(own.sum()) - float(cpu.sum())) / float(cpu.sum())
+    st_own = parity_stats(own, cpu)
+    log(f"[{tag}] records card vs CPU: {len(cpu_rec['R'])}, valid flags "
+        f"unlike {flips} (camera rays through pixel centres on the box's "
+        f"edge), of the valid ones within rel 1e-3: E {shares['E']:.4f}, R "
+        f"{shares['R']:.4f};"
+        f" {res}^2 with the card's own records: sum rel {rel:.3e} (gate < "
+        f"5e-3), per pixel " + ", ".join(
+            f"{k} {st_own[k]:.3e}" for k in ("p999", "frac_bad", "max_rel")))
+    if (not rel < 5e-3 or min(shares.values()) < 0.95
+            or flips > max(1, len(cpu_rec["R"]) // 500)):
+        raise AssertionError(f"[{tag}] card vs CPU records or image sum")
+
+
+def mean_vs_path(tag, scene, settings, depth, rtol, **props):
+    """The PH_RES^2 mean of the settings' integrator within rtol of the
+    card's path tracer at ``depth`` (PH_MEAN_SPP passes)."""
+    st = loop_settings(settings, settings.integrator, PH_RES, **props)
+    img = job.render(scene, st).cpu().numpy()
+    path = job.render(scene, loop_settings(st, "path", depth=depth,
+                                           spp=PH_MEAN_SPP)).cpu().numpy()
+    return mean_against(tag, img, path, rtol)
+
+
+def slice_profile(tag, scene, settings, passes):
+    """Device operations, device time and idle share a pass of job.render
+    at ``passes`` passes (one profiled run after a warm-up run)."""
+    p = device_profile(tag, lambda k: job.render(scene, settings,
+                                                 spp=passes), passes=1,
+                       top=4)
+    if p is not None:
+        for k in ("ops", "device_ms"):
+            p[k] /= passes
+        log(f"[{tag}] a pass: {p['ops']:.1f} device operations, "
+            f"{p['device_ms']:.3f} ms of device time, idle share "
+            f"{p['idle']:.3f}")
+    return p
+
+
+def sppm_cornell_phase(dev, smi):
+    """42. [sppm cornell]: sppm on _tiny_cornell at 1024^2, 250,000 photons
+    of 8 bounces, 4 passes: 15 closest-hit launches a pass (the camera ray,
+    six delta bounces, eight photon bounces), no any hit; both brute-force
+    kernels bit for bit on the photons' first two rays; card vs CPU at
+    128^2 (2 passes of 20,000 photons, ``sppm_parity``); its 128^2 mean
+    within 12% of the card's path."""
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "sppm", RES, SPP, -1,
+                             photon_count=PH_PHOTONS)
+    sppm.reset_gather_stats()
+    img, got, ms, peak = slice_render("sppm cornell", scene, settings,
+                                      dict(closest=15 * SPP))
+    g = dict(sppm.GATHER_STATS)
+    check_image("sppm cornell", img)
+    left, right = left_right(img)
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("[sppm cornell] red wall not on the left / "
+                             "green not on the right")
+    log(f"[sppm cornell] a pass: {ms / SPP:.3f} ms, gather chunks "
+        f"{g['chunks'] / SPP:.1f}, pairs {g['pairs'] / SPP:.4e}, kept "
+        f"within the radius {g['kept'] / SPP:.4e}")
+    prof = slice_profile("sppm cornell", scene, settings, 1)
+    # the photons' rays from the lights and their first bounce
+    calls = intersect_calls(lambda: job.render(scene, settings, spp=1),
+                            [7, 8])
+    err = {"closest": 0.0, "anyhit": 0.0}
+    for name, (o, d, tmin, tmax) in zip(("light rays", "first bounce"),
+                                        calls):
+        e = check_tri(f"sppm cornell photon {name}", dict(
+            geom=scene.geom, o=o, d=d, forms=[("photon rays", tmin, tmax)]))
+        err = {k: max(err[k], e[k]) for k in err}
+    cpu_scene, _ = tiny_cornell("cpu")
+    sppm_parity("sppm cornell", scene, cpu_scene,
+                loop_settings(settings, "sppm", spp=2), PH_RES,
+                PH_PARITY_PHOTONS)
+    rel = mean_vs_path("sppm cornell", scene, settings, -1, 0.12)
+    return dict(pass_ms=ms / SPP, per_pass=(got["closest"] // SPP, 0),
+                prof=prof, peak=peak, err=err, rel=rel, gather=g)
+
+
+def sppm_volume_phase(dev, smi):
+    """43. [sppm volume]: sppm on volume_cornell (its homogeneous media
+    deposit volume photons; the beam estimate along the camera rays'
+    first segments in the fog, whose mixture phase goes through the port's
+    phase functions, ROADMAP C16) at 128^2, card vs CPU."""
+    scene, settings = volume_cornell(dev)
+    cpu_scene, _ = volume_cornell("cpu")
+    st = loop_settings(settings, "sppm", PH_RES, 2, DEPTH,
+                       photon_count=PH_PARITY_PHOTONS)
+    pid = torch.arange(PH_PARITY_PHOTONS, device=dev)
+    vol = sppm.photon_trace(scene, rng.make_sampler_v(pid, 0, 0), DEPTH,
+                            want_volume=True)[-1]
+    n_vol = int(vol[3].sum())
+    t0 = time.perf_counter()
+    card = image_values(scene, st, PH_RES)
+    card_s = time.perf_counter() - t0
+    no_media = dataclasses.replace(scene, media=dataclasses.replace(
+        scene.media, n_media=0))
+    flat = image_values(no_media, st, PH_RES)
+    log(f"[sppm volume] {PH_RES}^2 {st.spp} passes of "
+        f"{PH_PARITY_PHOTONS} photons in {card_s:.2f} s; a pass's first "
+        f"photons leave {n_vol} volume photons; the image mean "
+        f"{card.mean():.5f} with media, {flat.mean():.5f} with the media "
+        f"off")
+    if n_vol < 100 or not np.isfinite(card).all():
+        raise AssertionError("[sppm volume] no volume photons, or a "
+                             "non-finite image")
+    sppm_parity("sppm volume", scene, cpu_scene, st, PH_RES,
+                PH_PARITY_PHOTONS)
+    return dict(volume_photons=n_vol, seconds=card_s)
+
+
+def sppm_large_phase(dev, smi):
+    """44. [sppm large]: sppm on the 1,120,504-triangle scene (photons from
+    the unit environment's bounding disk) at 768^2, depth 3, 2 passes: 10
+    hier_closest launches a pass (the camera ray, six delta bounces, three
+    photon bounces), no brute-force launch; both hierarchy kernels bit for
+    bit on the photons' first two rays; card vs CPU at 64^2."""
+    scene, settings = large_scene(dev)
+    settings = loop_settings(settings, "sppm", L_RES, L_SPP, L_DEPTH,
+                             photon_count=PH_PHOTONS)
+    img, got, ms, peak = slice_render("sppm large", scene, settings,
+                                      dict(hier_closest=10 * L_SPP))
+    lum = check_image("sppm large", img)
+    corners = lum[[0, 0, -1, -1], [0, -1, 0, -1]]
+    log(f"[sppm large] corners luminance {np.round(corners, 5).tolist()}, "
+        f"mean {lum.mean():.5f}")
+    if not (np.abs(corners - 1.0) < 1e-3).all():
+        raise AssertionError("[sppm large] the corners do not see the unit "
+                             "environment")
+    prof = slice_profile("sppm large", scene, settings, 1)
+    calls = intersect_calls(lambda: job.render(scene, settings, spp=1),
+                            [7, 8])
+    err = 0.0
+    for name, (o, d, tmin, tmax) in zip(("light rays", "first bounce"),
+                                        calls):
+        e, _, _ = check_hier(f"sppm large photon {name}", scene.clusters,
+                             o, d, tmin, tmax)
+        err = max(err, e)
+    cpu_scene, _ = large_scene("cpu")
+    sppm_parity("sppm large", scene, cpu_scene, settings, 64,
+                PH_PARITY_PHOTONS)
+    return dict(pass_ms=ms / L_SPP, per_pass=(got["hier_closest"] // L_SPP,
+                                             0), prof=prof, peak=peak,
+                err=err)
+
+
+def vpl_cornell_phase(dev, smi):
+    """45. [vpl cornell]: vpl on _tiny_cornell at 1024^2, 256 light paths,
+    depth 5 (768 VPLs a pass), 2 passes: 8 closest-hit launches a pass (the
+    camera ray, four delta bounces, three light bounces) and 1 + 768 / 16
+    any-hit launches (the next-event ray, 16 VPLs a wavefront); both
+    brute-force kernels bit for bit on the first VPL wavefront's shadow
+    rays; card vs CPU at 128^2 (one pass); its 128^2 mean within 10% of
+    the card's path at depth 5."""
+    scene, settings = tiny_cornell(dev)
+    # a VPL pass takes four of the settings' samples (render_vpl)
+    settings = loop_settings(settings, "vpl", RES, 8, DEPTH, vpl_count=256)
+    n_vpl = 256 * (DEPTH - 2)
+    batch = vpl.VPL_LANES // (RES * RES)
+    n_any = 1 + -(-n_vpl // batch)
+    img, got, ms, peak = slice_render(
+        "vpl cornell", scene, settings,
+        dict(closest=(5 + DEPTH - 2) * 2, anyhit=n_any * 2))
+    check_image("vpl cornell", img)
+    left, right = left_right(img)
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("[vpl cornell] red wall not on the left / "
+                             "green not on the right")
+    prof = slice_profile("vpl cornell", scene, settings, 1)
+    o, d, tmin, tmax = intersect_calls(
+        lambda: job.render(scene, settings, spp=1), [1], "occluded_v")[0]
+    err = check_tri("vpl cornell VPL shadow rays", dict(
+        geom=scene.geom, o=o, d=d,
+        forms=[("VPL tmin, per-ray tmax", tmin, tmax)]))
+    cpu_scene, _ = tiny_cornell("cpu")
+    slice_parity("vpl cornell", scene, cpu_scene, settings, spp=1)
+    rel = mean_vs_path("vpl cornell", scene, settings, DEPTH, 0.10)
+    return dict(pass_ms=ms / 2, per_pass=(got["closest"] // 2,
+                                         got["anyhit"] // 2),
+                prof=prof, peak=peak, err=err, rel=rel, vpls=n_vpl)
+
+
+def irrcache_cornell_phase(dev, smi):
+    """46. [irrcache cornell]: irrcache on _tiny_cornell at 1024^2, a
+    record every 4 pixels (65,536: 256 long-reach ones dense, the rest in
+    the hash grid), 588 hemisphere samples of the nested path at depth 3,
+    1 spp: launches, records and the dense/grid split; card vs CPU at
+    128^2; its 128^2 mean within 20% of the card's path at depth 6."""
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "irrcache", RES, 1, None,
+                             quality=1.0, resolution=4, irr_samples=588,
+                             nested=dict(name="path", max_depth=3))
+    m = (RES // 4) ** 2
+    batches = -(-588 // (irrcache.IRR_LANES // m))
+    img, got, ms, peak = slice_render(
+        "irrcache cornell", scene, settings,
+        dict(closest=1 + 4 * batches + 1, anyhit=2 * batches + 1))
+    gs = dict(irrcache.GRID_STATS)
+    log(f"[irrcache cornell] {gs['records']} records: {gs['dense']} dense, "
+        f"{gs['grid']} in the grid, {gs['pairs']:.4e} grid pairs; "
+        f"{batches} hemisphere wavefronts; the render {ms:.3f} ms")
+    check_image("irrcache cornell", img)
+    prof = slice_profile("irrcache cornell", scene, settings, 1)
+    cpu_scene, _ = tiny_cornell("cpu")
+    irrcache_parity("irrcache cornell", scene, cpu_scene, settings, PH_RES)
+    rel = mean_vs_path("irrcache cornell", scene, settings, 6, 0.20)
+    return dict(pass_ms=ms, launches=(got["closest"], got["anyhit"]),
+                prof=prof, peak=peak, rel=rel, grid=gs)
+
+
+def adaptive_cornell_phase(dev, smi):
+    """47. [adaptive cornell]: adaptive on _tiny_cornell at 1024^2, rounds
+    of 4 samples, maxError 0.05, at most 32 rounds, the nested path at
+    depth 5: the active pixels of each round, launches (5 + 4 a sample);
+    card vs CPU at 128^2 (4 rounds); its 128^2 mean within 15% of the
+    card's path (8 rounds)."""
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "adaptive", RES, SPP, None,
+                             max_error=0.05, p_value=0.05, max_spp=32,
+                             nested=dict(name="path", max_depth=DEPTH))
+    rounds = []
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    ms = cuda_ms(lambda: out.setdefault("img", adaptive.render_adaptive(
+        scene, settings, round_cb=lambda r, pix: rounds.append(len(pix)))),
+        1, warm=False)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(rounds) * SPP
+    log(f"[adaptive cornell] {len(rounds)} rounds of {SPP} samples in "
+        f"{ms:.3f} ms, active pixels a round: {rounds}; launches "
+        f"{got['closest']} + {got['anyhit']}; peak {peak:.3f} GiB")
+    if (got["closest"], got["anyhit"]) != (DEPTH * n, (DEPTH - 1) * n):
+        raise AssertionError("[adaptive cornell] launches")
+    if rounds[0] != RES * RES or rounds != sorted(rounds, reverse=True):
+        raise AssertionError("[adaptive cornell] active pixel counts")
+    check_image("adaptive cornell", out["img"].cpu().numpy())
+    cpu_scene, _ = tiny_cornell("cpu")
+    slice_parity("adaptive cornell", scene, cpu_scene, settings, max_spp=4)
+    rel = mean_vs_path("adaptive cornell", scene, settings, DEPTH, 0.15,
+                       max_spp=8)
+    return dict(ms=ms, rounds=rounds, launches=(got["closest"],
+                                                got["anyhit"]), peak=peak,
+                rel=rel)
+
+
+def multichannel_phase(dev, smi):
+    """48. [multichannel]: path (depth 5) and field shapeIndex from a scene
+    file through the command line at 1024^2, 2 spp: the EXR's layers read
+    back (R, G, B and field.R/G/B) equal the render's in half precision;
+    the path layer is path's own render; card vs CPU at 128^2."""
+    xml = with_integrator(CORNELL_XML.format(res=RES, spp=2,
+                                             max_depth=DEPTH),
+                          '<integrator type="multichannel">'
+                          '<integrator type="path"><integer name="maxDepth" '
+                          f'value="{DEPTH}"/></integrator>'
+                          '<integrator type="field"><string name="field" '
+                          'value="shapeIndex"/></integrator></integrator>')
+    path = xml_file("multichannel.xml", xml)
+    out = os.path.join(XML_DIR, "multichannel.exr")
+    t0 = time.perf_counter()
+    run_cli(path, "-o", out)
+    cli_s = time.perf_counter() - t0
+    data, meta = exr.read_exr(out, all_channels=True)
+    names = meta["channels"].split(",")
+    scene, settings = scene_xml.load_scene(path, device=dev)
+    primary = job.render(scene, settings).cpu().numpy()
+    want_names, stack = settings.aux_channels
+    if sorted(names) != sorted(want_names) or data.shape[-1] != 6:
+        raise AssertionError(f"[multichannel] EXR layers {names}")
+    half = stack.astype(np.float16).astype(np.float32)
+    diff = sum(int((data[..., names.index(c)] != half[..., k]).sum())
+               for k, c in enumerate(want_names))
+    alone = job.render(scene, loop_settings(settings, "path",
+                                            depth=DEPTH)).cpu().numpy()
+    log(f"[multichannel] command line {RES}^2 2 spp: {cli_s:.2f} s; layers "
+        f"{names}; EXR entries unlike the render's (half) {diff}; path "
+        f"layer against path alone: max |diff| "
+        f"{float(np.abs(primary - alone).max()):.3e}; shape indices "
+        f"{sorted(set(np.unique(stack[..., 3]).tolist()))}")
+    if diff or not np.array_equal(primary, stack[..., :3]):
+        raise AssertionError("[multichannel] layers differ")
+    cpu_scene, cpu_settings = scene_xml.load_scene(path, device="cpu")
+    st = loop_settings(settings, "multichannel", PH_RES)
+    card = job.render(scene, st)
+    card_stack = st.aux_channels[1]
+    cst = loop_settings(cpu_settings, "multichannel", PH_RES)
+    job.render(cpu_scene, cst)
+    parity_gate(f"multichannel path layer {PH_RES}^2",
+                card_stack[..., :3].sum(-1), cst.aux_channels[1][..., :3]
+                .sum(-1))
+    if not np.array_equal(card_stack[..., 3:], cst.aux_channels[1][..., 3:]):
+        raise AssertionError("[multichannel] field layer card vs CPU")
+    del card
+    return dict(seconds=cli_s)
+
+
+def photon_phases(dev, smi):
+    """Phases 42-48."""
+    return [phase(dev, smi) for phase in (
+        sppm_cornell_phase, sppm_volume_phase, sppm_large_phase,
+        vpl_cornell_phase, irrcache_cornell_phase, adaptive_cornell_phase,
+        multichannel_phase)]
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None,
                   volume_launches=None, ptracer_launches=None,
-                  bdpt_launches=None):
+                  bdpt_launches=None, photon_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
@@ -3346,7 +3856,8 @@ def kernel_record(name, source, replaces, launches, err, timing, key,
                 grad_launches=grad_launches, xml_launches=xml_launches,
                 volume_launches=volume_launches,
                 ptracer_launches=ptracer_launches,
-                bdpt_launches=bdpt_launches)
+                bdpt_launches=bdpt_launches,
+                photon_launches=photon_launches)
 
 
 def light_tracing_phases(dev, smi):
@@ -3498,33 +4009,61 @@ def main():
                      ("bdpt large", bl)))
         + f"; bdpt volume mean rel to volpath {bv['rel']} ({smi})")
 
+    t0 = time.perf_counter()
+    sc, sv, sl, vc2, ic, ad, mc2 = photon_phases(dev, smi)
+    log(f"[summary] phases 42-48 {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{k} pass {v['pass_ms']:.3f} ms, launches a pass {v['per_pass']}, "
+        f"device ops per pass {fmt(v['prof'] and v['prof']['ops'])}, device "
+        f"ms per pass {fmt(v['prof'] and v['prof']['device_ms'])}, idle "
+        f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+        for k, v in (("sppm cornell", sc), ("sppm large", sl),
+                     ("vpl cornell", vc2)))
+        + f"; irrcache {ic['pass_ms']:.3f} ms, launches {ic['launches']}, "
+        f"device ops {fmt(ic['prof'] and ic['prof']['ops'])}, records "
+        f"{ic['grid']['records']} ({ic['grid']['dense']} dense, "
+        f"{ic['grid']['grid']} in the grid), peak {ic['peak']:.3f} GiB; "
+        f"adaptive {ad['ms']:.3f} ms, {len(ad['rounds'])} rounds, launches "
+        f"{ad['launches']}, peak {ad['peak']:.3f} GiB; sppm volume "
+        f"{sv['volume_photons']} volume photons; multichannel command line "
+        f"{mc2['seconds']:.2f} s ({smi})")
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
                       launches[0], max(timing["closest_err"], vc["err"],
                                        pc["err"]["closest"],
-                                       bc["err"]["closest"]),
+                                       bc["err"]["closest"],
+                                       sc["err"]["closest"],
+                                       vc2["err"]["closest"]),
                       timing, "closest", grad_launches[0],
                       timing["closest_device"], x_launches[0],
                       vc["launches_per_pass"], pc["per_pass"][0],
-                      bc["per_pass"][0]),
+                      bc["per_pass"][0],
+                      dict(sppm=sc["per_pass"][0], vpl=vc2["per_pass"][0],
+                           irrcache=ic["launches"][0])),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], max(timing["anyhit_err"],
                                        pc["err"]["anyhit"],
-                                       bc["err"]["anyhit"]),
+                                       bc["err"]["anyhit"],
+                                       sc["err"]["anyhit"],
+                                       vc2["err"]["anyhit"]),
                       timing, "anyhit", grad_launches[1],
                       timing["anyhit_device"], x_launches[1], None,
-                      pc["per_pass"][1], bc["per_pass"][1]),
+                      pc["per_pass"][1], bc["per_pass"][1],
+                      dict(sppm=0, vpl=vc2["per_pass"][1],
+                           irrcache=ic["launches"][1])),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
-                      hlaunches[0], max(err_h, vl["err"], bl["err"]), htiming,
+                      hlaunches[0], max(err_h, vl["err"], bl["err"],
+                                        sl["err"]), htiming,
                       "closest", hgrad_launches[0], htiming["closest_device"],
                       xl_launches[0], vl["launches_per_pass"], None,
-                      bl["per_pass"][0]),
+                      bl["per_pass"][0], dict(sppm=sl["per_pass"][0])),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],
-                      xl_launches[1], None, None, bl["per_pass"][1]),
+                      xl_launches[1], None, None, bl["per_pass"][1],
+                      dict(sppm=0)),
         kernel_record("hier_closest_motion", HIER_SOURCE,
                       HIER_MOTION_REPLACES, ml["launches"][0], ml["err"], mt,
                       "motion_closest", None, mt["motion_closest_device"]),

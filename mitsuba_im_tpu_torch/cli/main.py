@@ -8,8 +8,10 @@ card by default; without one the command raises, and ``--device cpu``
 runs the kernels' plain versions), rendered by ``render_film`` with the
 scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
 ``field`` or ``motion``), or by ``render`` through the render loop of
-``ptracer`` or ``bdpt`` (which, as the reference's, take no ``-c``/``-z``/
-``-r``/``-S``), and written as EXR, or as a tone-mapped PNG/PPM by the
+``ptracer``, ``bdpt``, ``sppm``/``ppm``/``photonmapper``, ``vpl``,
+``adaptive``, ``multichannel`` or ``irrcache`` (which, as the
+reference's, take no ``-c``/``-z``/``-r``/``-S``; a multichannel EXR holds
+every child's layer), and written as EXR, or as a tone-mapped PNG/PPM by the
 output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
 band by band into an out-of-core film (``film/tiled.py``, at its
 default band height, as the reference's command line), without

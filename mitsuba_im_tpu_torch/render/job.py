@@ -14,9 +14,11 @@ and ``direct``, ``ao``, ``field`` and ``motion``
 (``integrators/simple.py``); the integrators still unported raise, naming
 their ROADMAP item.  :func:`render` returns the developed image of every
 integrator: ``ptracer`` (:func:`render_ptracer`, particles splatted into a
-box film and normalized by the image plane) and ``bdpt``
-(``integrators/bdpt.py::render_bdpt``) through loops of their own, the
-others through :func:`render_film`.  A scene with
+box film and normalized by the image plane), ``bdpt``
+(``integrators/bdpt.py::render_bdpt``), ``sppm``/``ppm``, ``vpl``,
+``adaptive`` (its nested integrator's ``integrator_fn`` in rounds),
+``multichannel`` and ``irrcache`` through loops of their own, the others
+through :func:`render_film`.  A scene with
 deformable shapes renders each pass at one shutter time,
 ``shutter_open + shutter_time * u`` with ``u`` the pass index's golden-ratio
 word (:func:`shutter_time`), shared by the pass's wavefront.  The port
@@ -81,7 +83,8 @@ class RenderSettings:
 
 INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
 # integrators with render loops of their own (:func:`render`)
-LOOP_INTEGRATORS = ("ptracer", "bdpt")
+LOOP_INTEGRATORS = ("ptracer", "bdpt", "sppm", "ppm", "vpl", "adaptive",
+                    "multichannel", "irrcache")
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -131,6 +134,10 @@ def integrator_fn(settings: RenderSettings):
         return lambda scene, s, o, d, **kw: simple.motion_li_v(
             scene, s, o, d, prev_to_world=prev, width=settings.width,
             height=settings.height)
+    if name == "adaptive":
+        nested = dict(ip.get("nested", {"name": "path"}))
+        return integrator_fn(RenderSettings(
+            integrator=nested.pop("name", "path"), integrator_props=nested))
     # an unported integrator's factory raises, naming its ROADMAP item
     create("integrator", Properties(name))
     raise NotImplementedError(
@@ -238,15 +245,37 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
 def render(scene: Scene, settings: RenderSettings, spp: int | None = None,
            progress_cb=None) -> torch.Tensor:
     """The settings' image, (H, W, 3) on the scene's device (the
-    reference's ``render``): ``ptracer`` and ``bdpt`` through their own
-    loops, every other integrator through :func:`render_film` and
-    ``develop``."""
-    if settings.integrator == "ptracer":
+    reference's ``render``): the integrators of ``LOOP_INTEGRATORS``
+    through their own loops, every other integrator through
+    :func:`render_film` and ``develop``; ``multichannel`` leaves its
+    layers on ``settings.aux_channels``."""
+    name = settings.integrator
+    if name == "ptracer":
         return render_ptracer(scene, settings, spp=spp)
-    if settings.integrator == "bdpt":
+    if name == "bdpt":
         from ..integrators.bdpt import render_bdpt
 
         return render_bdpt(scene, settings, spp=spp, progress_cb=progress_cb)
+    if name in ("sppm", "ppm"):
+        from ..integrators.sppm import render_sppm
+
+        return render_sppm(scene, settings, spp=spp, progress_cb=progress_cb)
+    if name == "vpl":
+        from ..integrators.vpl import render_vpl
+
+        return render_vpl(scene, settings, spp=spp)
+    if name == "adaptive":
+        from ..integrators.adaptive import render_adaptive
+
+        return render_adaptive(scene, settings, spp=spp)
+    if name == "multichannel":
+        from ..integrators.multichannel import render_multichannel
+
+        return render_multichannel(scene, settings, spp=spp)
+    if name == "irrcache":
+        from ..integrators.irrcache import render_irrcache
+
+        return render_irrcache(scene, settings, spp=spp)
     film = render_film(scene, settings, spp=spp, progress_cb=progress_cb)
     return develop(film)
 
@@ -313,11 +342,21 @@ def save_render(path: str, img, settings: RenderSettings,
                 metadata: dict | None = None) -> None:
     """Write a developed (H, W, 3) image (a tensor on any device, or numpy)
     by the extension of ``path``; PNG, JPEG and PPM go through
-    :func:`tonemap_ldr`."""
+    :func:`tonemap_ldr`.  An EXR of a multichannel render holds its layers
+    (``settings.aux_channels``), the first child's as R, G, B."""
     from ..io import bitmap as bmp
 
     if isinstance(img, torch.Tensor):
         img = img.detach().cpu().numpy()
-    if os.path.splitext(path)[1].lower() in (".png", ".jpg", ".ppm"):
+    ext = os.path.splitext(path)[1].lower()
+    aux = getattr(settings, "aux_channels", None)
+    if aux is not None and ext == ".exr":
+        from ..io.exr import write_exr
+
+        channel_names, stack = aux
+        write_exr(path, stack, metadata=metadata,
+                  channel_names=channel_names)
+        return
+    if ext in (".png", ".jpg", ".ppm"):
         img = tonemap_ldr(img, settings)
     bmp.save(path, img, metadata=metadata)

@@ -78,11 +78,14 @@ HKT = dict(eval=(1e-4, 1e-6), wo=4e-6, pdf=(1e-5, 4e-6),
 # case -> (reference records, port records, sample tolerances); each case
 # also carries a diffuse row, so dispatch selects among types
 CASES = {
+    # MF's bounds: the cosine lobe's wo.z = sqrt(1 - x^2 - y^2) magnifies
+    # the last bit of the libraries' cos/sin near the horizon (1.88e-6 of
+    # COS's 4e-6 on one CPU, past it on another)
     "roughdiffuse": (
         [_j("roughdiffuse", reflectance=[0.7, 0.5, 0.3], alpha=0.5),
          _j("roughdiffuse")],
         [tbc.diffuse_record([0.7, 0.5, 0.3], rough=True, alpha=0.5),
-         tbc.diffuse_record(rough=True)], COS),
+         tbc.diffuse_record(rough=True)], MF),
     "roughdiffuse_twosided": (
         [_twosided(_j("roughdiffuse", alpha=0.3))],
         [tbc.twosided(tbc.diffuse_record(rough=True, alpha=0.3))], COS),

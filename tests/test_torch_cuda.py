@@ -20,7 +20,9 @@ versions, and ``volume_cornell`` and ``volume_large`` rendered on the card
 against the CPU; the particle tracer and the bidirectional path tracer
 through ``render`` on the Cornell box and the large scene against the CPU
 with their launch counts, their means against the path tracer, and bdpt
-against volpath on ``volume_cornell``.
+against volpath on ``volume_cornell``; sppm, vpl, irrcache and adaptive
+on the card against the CPU with their launch counts, and the photon and
+VPL rays through both kernel families against the plain versions.
 """
 import dataclasses
 
@@ -633,3 +635,137 @@ def test_bdpt_kajiya_kay_matches_volpath_on_card(cuda):
     a, b = (render(s, small, spp=1).sum(-1).cpu().numpy().ravel()
             for s in (scene, cpu_scene))
     assert _gate_ok(a, b)
+
+
+# the new loop integrators at 64^2 on the Cornell box: (integrator
+# properties, passes, closest and any-hit launches of the render)
+PHOTON_CASES = {
+    "sppm": (dict(max_depth=5, photon_count=20000), 2, (2 * 12, 0)),
+    "vpl": (dict(max_depth=4, vpl_count=64), 2, (2 * 7, 2 * 2)),
+    "irrcache": (dict(resolution=4, irr_samples=48,
+                      nested=dict(name="path", max_depth=3)), 1,
+                 (1 + 4 + 1, 2 + 1)),
+    "adaptive": (dict(max_error=0.05, max_spp=3,
+                      nested=dict(name="path", max_depth=3)), 2,
+                 (3 * 3 * 2, 3 * 2 * 2)),
+}
+# what the CPU run hands the card's: sppm's photons and irrcache's records
+# (a photon's last bit decides its count at a radius and the radius
+# update carries it on; a record on the box's edge starts its hemisphere
+# rays on a wall's plane), so the gate holds every other stage
+FED = {"sppm": ("sppm", "photon_trace"),
+       "irrcache": ("irrcache", "cache_records")}
+
+
+def _on(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_on(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@pytest.mark.parametrize("integrator", list(PHOTON_CASES))
+def test_photon_integrators_card_vs_cpu(cuda, integrator, monkeypatch):
+    """sppm, vpl, irrcache and adaptive through job.render at 64^2: their
+    launch counts on the card (sppm: the camera ray, six delta bounces and
+    five photon bounces a pass; vpl: four delta bounces, two light
+    bounces, the next-event ray and one wavefront of the 128 VPLs a pass;
+    irrcache: the records' rays, one hemisphere wavefront, the final pass;
+    adaptive: the nested path's launches for every sample of every
+    round), and the card's image against the CPU's under
+    parity_check.py's gate (sppm's passes given the CPU's photons,
+    irrcache's final pass the CPU's records)."""
+    import importlib
+
+    from mitsuba_im_tpu_torch.render.job import render
+
+    props, spp, launches = PHOTON_CASES[integrator]
+    scenes = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = tiny_cornell(dev)
+        scenes[dev.type] = (scene, dataclasses.replace(
+            settings, width=64, height=64, integrator=integrator,
+            integrator_props=props))
+    scene, settings = scenes["cuda"]
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    card = render(scene, settings, spp=spp).sum(-1).cpu().numpy()
+    got = (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches,
+           ch.hier_closest.launches, ch.hier_anyhit.launches)
+    assert got == (*launches, 0, 0)
+    assert np.isfinite(card).all() and card.mean() > 0
+    cpu_scene, cpu_settings = scenes["cpu"]
+    if integrator not in FED:
+        cpu = render(cpu_scene, cpu_settings, spp=spp).sum(-1).cpu().numpy()
+        assert _gate_ok(card.ravel(), cpu.ravel())
+        return
+    mod_name, fn = FED[integrator]
+    mod = importlib.import_module(
+        f"mitsuba_im_tpu_torch.integrators.{mod_name}")
+    orig, fed = getattr(mod, fn), []
+
+    def record(*a, **kw):
+        fed.append(orig(*a, **kw))
+        return fed[-1]
+
+    monkeypatch.setattr(mod, fn, record)
+    cpu = render(cpu_scene, cpu_settings, spp=spp).sum(-1).cpu().numpy()
+    given = iter(list(fed))
+    monkeypatch.setattr(mod, fn, lambda *a, **kw: _on(next(given), cuda))
+    card_fed = render(scene, settings, spp=spp).sum(-1).cpu().numpy()
+    assert _gate_ok(card_fed.ravel(), cpu.ravel())
+    # with its own photons or records, the card's image sum
+    assert abs(card.sum() - cpu.sum()) / cpu.sum() < 5e-3
+
+
+def test_photon_rays_match_plain_versions(cuda):
+    """The photon tracer's rays (sppm on the Cornell box) and the VPL
+    shadow rays through both brute-force kernels, and the photon rays of
+    the large scene through both hierarchy kernels, bit for bit."""
+    from mitsuba_im_tpu_torch.render.job import render
+
+    for which in ("cornell", "large"):
+        scene, settings = (tiny_cornell(cuda) if which == "cornell"
+                           else large_scene(cuda))
+        cases = [("sppm", dict(max_depth=3, photon_count=4096), 1,
+                  "intersect_v", 8)]
+        if which == "cornell":
+            cases.append(("vpl", dict(max_depth=4, vpl_count=32), 1,
+                          "occluded_v", 1))
+        for integrator, props, spp, fn, call in cases:
+            st = dataclasses.replace(settings, width=64, height=64,
+                                     integrator=integrator,
+                                     integrator_props=props)
+            seen, orig = [], getattr(isect, fn)
+
+            def spy(geom, o, d, tmin, tmax, **kw):
+                seen.append((o, d, tmin, tmax))
+                return orig(geom, o, d, tmin, tmax, **kw)
+
+            setattr(isect, fn, spy)
+            try:
+                render(scene, st, spp=spp)
+            finally:
+                setattr(isect, fn, orig)
+            o, d, tmin, tmax = seen[call]
+            if which == "cornell":
+                g = scene.geom
+                tris = (g.tri_p0, g.tri_e1, g.tri_e2)
+                assert _same(ci.closest_tris_v(*tris, o, d, tmin, tmax),
+                             ci.closest_tris_plain(*tris, o, d, tmin, tmax))
+                assert torch.equal(
+                    ci.anyhit_tris_v(*tris, o, d, tmin, tmax),
+                    ci.anyhit_tris_plain(*tris, o, d, tmin, tmax))
+            else:
+                h = scene.clusters
+                k = ch.hier_closest(h, o, d, tmin, tmax)
+                p, _ = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax)
+                assert all(torch.equal(a, b) for a, b in zip(k, p))
+                assert torch.equal(
+                    ch.hier_anyhit(h, o, d, tmin, tmax),
+                    hy.intersect_hierarchy_plain(h, o, d, tmin, tmax,
+                                                 any_hit=True)[0].found)

@@ -496,13 +496,10 @@ def test_loader_features(tmp_path):
 
 UNPORTED = {
     "mlt": '<integrator type="mlt"/>',
-    "adaptive": '<integrator type="adaptive"/>',
-    "irrcache": '<integrator type="irrcache"/>',
-    "vpl": '<integrator type="vpl"/>',
-    "sppm": '<integrator type="sppm"/>',
     "pssmlt": '<integrator type="pssmlt"/>',
     "erpt": '<integrator type="erpt"/>',
     "singlescatter": '<subsurface type="singlescatter"/>',
+    "dipole": '<subsurface type="dipole"/>',
     "subsurface": '<shape type="sphere"><subsurface type="dipole"/>'
                   '</shape>',
 }
