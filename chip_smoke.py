@@ -116,8 +116,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    ``texture.atlas`` and d sum(Li)/d ``emitter.radiance``; 5 + 4 launches
    forward and 9 + 8 with the replay; finite; non-zero on the bitmap's
    texels; radiance linearity (the area light is the only emitter); peak
-   device memory; the fwd+bwd pass time and its ratio to phase 17's pass;
-   the share of a pass's device time in the gathers' backward
+   device memory; the fwd+bwd pass time (one pass timed after the peak's)
+   and its ratio to phase 17's pass; the share of a pass's device time in
+   the gathers' backward
    (``index_put``/``indexing_backward``); card vs CPU atlas gradient at
    64^2, max rel < 5e-3;
 21. samplers: every kind (independent, stratified, ldsampler, sobol,
@@ -131,8 +132,10 @@ Phases, in order; any failure raises and the run exits non-zero:
    the Gaussian filter of radius 2) at 1024^2, depth 5, 4 spp: 5 closest
    and 4 any-hit launches per pass, no hierarchy launch; the image finite
    and non-negative; the pass time, device operations, device time, idle
-   share and peak memory; the pass time and device operations of
-   ldsampler/independent x Gaussian/box, timed in turns; at 128^2 each
+   share and peak memory; the pass time of every sampler with the
+   Gaussian and of ldsampler/independent with the box, timed in turns,
+   and the device operations of independent and ldsampler with the
+   Gaussian and of independent with the box; at 128^2 each
    light alone lights the image (the collimated beam alone leaves it
    black, as in the reference);
 23. card vs CPU on lights_cornell at 128^2, depth 5, then at 64^2, depth
@@ -274,7 +277,51 @@ Phases, in order; any failure raises and the run exits non-zero:
    128^2; its mean within 15% of path's;
 48. ``[multichannel]``: path and field shapeIndex from a scene file through
    the command line at 1024^2: the EXR's six layers read back, the path
-   layer path's own render; card vs CPU at 128^2.
+   layer path's own render; card vs CPU at 128^2;
+49. ``[subsurface cornell]``: ``subsurface_cornell`` (a dipole block of 512
+   points, the dense branch, and a singlescatter block) through
+   ``job.render`` at 1024^2, depth 5, 1 spp: the table build's 8 any-hit
+   launches (the points' irradiance), 13 closest-hit and 8 any-hit
+   launches a pass (the single-scatter estimator's 2 + 1 a bounce), the
+   dipole lanes and (lane, point) pairs a bounce, the pass time (CUDA
+   events), device operations, device time, idle share, peak memory; both
+   brute-force kernels bit for bit on the points' shadow rays and the
+   first bounce's refracted rays; the light the table adds at 128^2; card
+   vs CPU at 128^2 under the gate;
+50. ``[subsurface grid]``: ``subsurface_grid`` (three dipole blocks, 1,536
+   points: the hash grid's 27-cell scan) at 256^2, depth 5: the same
+   measurements, the grid's pairs a bounce, card vs CPU at 128^2;
+51. ``[subsurface large]``: ``subsurface_large`` (the 1,120,504-triangle
+   sphere) at 768^2, depth 3, under ``dipole`` (8 hier_anyhit launches to
+   build the table) and under ``singlescatter`` (7 + 4 launches a pass):
+   the same measurements; both hierarchy kernels bit for bit on the
+   points' shadow rays and the refracted rays; card vs CPU at 128^2;
+52. ``[pssmlt cornell]``: pssmlt (``job.render``) on the Cornell box at
+   1024^2, maxDepth 5, pLarge 0.3, burnIn 32, bidirectional, 1 mutation a
+   pixel, with 65,536 chains (16 steps; the default 8,192 chains' 128
+   host-bound steps took the phase past 60 s): 9 closest-hit and 14
+   any-hit launches an evaluation (8 luminance rounds and a step each),
+   steps/s, a step's time, device profile and its splats' device time;
+   both brute-force kernels bit for bit on a step's first inner
+   connection; card vs CPU on 4,096 chains: ``_eval`` of the same tables
+   lane by lane (lanes beyond rel 1e-4: at most 1%) and one step's
+   acceptance decisions from the same state (at least 99% agree); its
+   128^2 mean (8,192 chains, 4 mutations a pixel) within 10% of the
+   card's path, each channel within 20% (tests/test_mcmc.py's limits);
+53. ``[pssmlt large]``: bidirectional pssmlt on the 1,120,504-triangle
+   scene at 768^2, depth 3, 65,536 chains: the init and 4 steps, 5 + 5
+   hierarchy launches an evaluation; the same measurements, both
+   hierarchy kernels bit for bit on the first inner connection, card vs
+   CPU on 1,024 chains;
+54. ``[erpt cornell]``: erpt on the Cornell box at 1024^2, maxDepth 5,
+   chainLength 100, a seed a pixel, unidirectional: 101 evaluations of
+   1,048,576 chains, 5 + 4 launches each; steps/s, a step's device profile
+   and splat time; card vs CPU: ``_eval`` lane by lane, a 128^2 pass of 2
+   steps (its luminance sum within 1e-3: each chain deposits its seed's);
+   its 128^2 mean against path;
+55. ``[slice files]``: the slice's scene files through the command line on
+   the card at 128^2: a nested ``dipole`` and a ``singlescatter`` by
+   ``<ref>``, pssmlt bidirectional and not, erpt.
 
 Every phase logs its seconds (``[seconds] name: s``).  The next-to-last
 line is the kernels' JSON record, the last line
@@ -312,7 +359,9 @@ from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
                                                 eval_environment_v)
 from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
 from mitsuba_im_tpu_torch.io import bitmap, exr, png
-from mitsuba_im_tpu_torch.integrators import adaptive, irrcache, sppm, vpl
+from mitsuba_im_tpu_torch.integrators import (adaptive, erpt, irrcache,
+                                              pssmlt, sppm, vpl)
+from mitsuba_im_tpu_torch import subsurface as ss
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.integrators.volpath import MAX_NULL_SEGMENTS
 from mitsuba_im_tpu_torch.media import medium as med
@@ -332,6 +381,8 @@ from mitsuba_im_tpu_torch.scenes import (CORNELL_CAMERA, LIGHTS, LIGHTS_LENS,
                                          VOLUME_RADIUS)
 from mitsuba_im_tpu_torch.media.volume import write_vol
 from mitsuba_im_tpu_torch.scenes import LARGE_CAMERA, SUN_DIR, displaced_sphere
+from mitsuba_im_tpu_torch.scenes import (subsurface_cornell, subsurface_grid,
+                                         subsurface_large, subsurface_record)
 from mitsuba_im_tpu_torch.emitter import hosek
 from mitsuba_im_tpu_torch.scene import build as scene_build
 from mitsuba_im_tpu_torch.scene import mesh as mesh_mod
@@ -1107,8 +1158,15 @@ def large_path_phase(scene, settings):
     return launches
 
 
+@functools.lru_cache(maxsize=1)
+def cpu_large_scene():
+    """``large_scene("cpu")``, built once for every phase's card vs CPU
+    comparison on it (a 1,120,504-triangle hierarchy takes seconds)."""
+    return large_scene("cpu")
+
+
 def large_parity_phase(cuda_scene):
-    cpu_scene, _ = large_scene("cpu")
+    cpu_scene, _ = cpu_large_scene()
     parity_gate(f"large scene ({cpu_scene.geom.n_tris} tris) 64^2 depth "
                 f"{L_DEPTH}", path_luminance(cuda_scene, 64, L_DEPTH),
                 path_luminance(cpu_scene, 64, L_DEPTH))
@@ -1142,14 +1200,17 @@ def grad_peak(scene, settings, cfg, labels, counts=None):
     return (*out, torch.cuda.max_memory_allocated() / 2**30)
 
 
-def grad_pass_time(scene, settings, cfg, labels, k_lo, k_hi, rays, tag):
+def grad_pass_time(scene, settings, cfg, labels, k_lo, k_hi, rays, tag,
+                   warm=True):
     """Per fwd+bwd pass ms from differencing two pass counts (bench.py's
-    definition: rays are the forward queries)."""
+    definition: rays are the forward queries); ``warm`` False where the
+    caller has just run a pass."""
     def run(k):
         return lambda: [grad_pass(scene, settings, cfg, labels, s)
                         for s in range(k)]
 
-    run(1)()  # warm up once; each count is then timed once
+    if warm:
+        run(1)()  # warm up once; each count is then timed once
     t_lo = cuda_ms(run(k_lo), 1, warm=False)
     t_hi = cuda_ms(run(k_hi), 1, warm=False)
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
@@ -1682,8 +1743,10 @@ def texture_grad_phase(dev, fwd_ms):
     check_linearity("texture grad", grads, li, scene.emitters.radiance)
     del grads, li, g
     rays = RES * RES * (1 + 2 * n_iters)
-    per_pass = grad_pass_time(scene, settings, cfg, T_LABELS, 1, 2, rays,
-                              "texture grad")
+    # one timed pass after grad_peak's (each is ~7 s, 97% of it device
+    # time in indexing_backward, so the enqueue's fixed cost is nothing)
+    per_pass = grad_pass_time(scene, settings, cfg, T_LABELS, 0, 1, rays,
+                              "texture grad", warm=False)
     log(f"[texture grad] fwd+bwd pass / forward pass (phase 17) "
         f"{per_pass:.3f} / {fwd_ms:.3f} ms = {per_pass / fwd_ms:.3f}")
     share = scatter_share("texture grad", lambda: grad_pass(
@@ -1776,9 +1839,9 @@ def with_options(settings, sampler=None, rfilter=None):
 
 def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=1):
     """{name: [per-pass ms, ...]} of each settings variant, differencing
-    k_lo and k_hi passes, the variants in turns (forward, then back,
-    ``rounds`` times)."""
-    order = (list(variants) + list(reversed(variants))) * rounds
+    k_lo and k_hi passes, the variants in turns (``rounds`` times in
+    order)."""
+    order = list(variants) * rounds
     out = {k: [] for k in variants}
     for k in variants:  # warm up
         render_film(scene, variants[k], spp=1)
@@ -1788,6 +1851,10 @@ def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=1):
         out[k].append((cuda_ms(run(k_hi), 1) - cuda_ms(run(k_lo), 1))
                       / (k_hi - k_lo))
     return out
+
+
+LIGHTS_PROFILED = ("independent+gaussian", "ldsampler+gaussian",
+                   "independent+box")
 
 
 def lights_path_phase(dev):
@@ -1840,14 +1907,16 @@ def lights_path_phase(dev):
     variants = {f"{smp}+{flt}": with_options(settings, smp,
                                              FILTER_NAMES[flt])
                 for smp, flt in pairs}
-    times = pass_times_in_turns(scene, variants, 1, 3)
+    times = pass_times_in_turns(scene, variants, 1, 2)
     costs = {}
     for k, st in variants.items():
-        p = device_profile(f"lights {k}",
-                           lambda n, st=st: render_film(scene, st, spp=n))
+        # profiled: the samplers' extremes and the filter's saving
+        p = (device_profile(f"lights {k}",
+                            lambda n, st=st: render_film(scene, st, spp=n))
+             if k in LIGHTS_PROFILED else None)
         costs[k] = (times[k], p and p["ops"], p and p["device_ms"])
-    log("[lights] pass ms in turns (there and back; median) and "
-        "device operations and device ms per pass: " + "; ".join(
+    log("[lights] pass ms in turns (median) and device operations and "
+        "device ms per pass: " + "; ".join(
             f"{k} {statistics.median(ts):.3f} ms ("
             f"{', '.join(f'{t:.3f}' for t in ts)}), {fmt(o)} ops, "
             f"{fmt(d)} device ms" for k, (ts, o, d) in costs.items()))
@@ -2890,12 +2959,12 @@ def volume_render(tag, scene, settings, expect, rays):
                       syncs=syncs, pass_ms=per_pass, turns=turns, prof=prof)
 
 
-def pass_time_turns(scene, settings, rays, tag, rounds=2, fn=render_film):
+def pass_time_turns(scene, settings, rays, tag, rounds=1, fn=render_film):
     """Per-pass ms as the median of ``rounds`` differences of a 2-pass and
     a 1-pass render (``fn``: render_film, or job.render for the
     integrators with loops of their own) timed in turns (one warm-up pass
-    first); the differences show how far a host-bound pass spreads within
-    one run."""
+    first); with more rounds the differences show how far a host-bound
+    pass spreads within one run."""
     def run(k):
         return lambda: fn(scene, settings, spp=k)
 
@@ -3296,7 +3365,7 @@ def bdpt_large_phase(dev, smi):
                                       [2 * (L_DEPTH - 1)])[0]
     err, _, _ = check_hier("bdpt large inner connection segments",
                            scene.clusters, o, d, tmin, tmax)
-    cpu_scene, _ = large_scene("cpu")
+    cpu_scene, _ = cpu_large_scene()
     parity_gate(f"bdpt large 64^2 depth {L_DEPTH}",
                 image_values(scene, settings, 64),
                 image_values(cpu_scene, settings, 64))
@@ -3675,7 +3744,7 @@ def sppm_large_phase(dev, smi):
         e, _, _ = check_hier(f"sppm large photon {name}", scene.clusters,
                              o, d, tmin, tmax)
         err = max(err, e)
-    cpu_scene, _ = large_scene("cpu")
+    cpu_scene, _ = cpu_large_scene()
     sppm_parity("sppm large", scene, cpu_scene, settings, 64,
                 PH_PARITY_PHOTONS)
     return dict(pass_ms=ms / L_SPP, per_pass=(got["hier_closest"] // L_SPP,
@@ -3844,10 +3913,549 @@ def photon_phases(dev, smi):
         multichannel_phase)]
 
 
+# ---------------------------------------------------------------------------
+# subsurface scattering and primary-sample MCMC
+# ---------------------------------------------------------------------------
+
+SS_PARITY_RES = 128  # the subsurface and MCMC card vs CPU images and means
+SS_RAY_RES = 256  # the render whose refracted rays the kernels are held on
+MC_EVAL_LANES = 4096  # tables (and chains a step) of the MCMC card vs CPU
+MC_CHAINS = 65536  # pssmlt's chains on the card (the default's 8,192 took
+# the phase past 60 s: 128 host-bound steps of ~14,500 operations each)
+MC_MEAN = (8192, 4)  # chains and mutations a pixel of pssmlt's 128^2 mean
+PATH_MEAN_SPP = 16  # path passes of the MCMC phases' 128^2 means
+ERPT_MEAN = (1, 25)  # seeds a pixel and chain length of erpt's mean
+
+
+def subsurface_build(tag, make):
+    """``make()`` with every count set to 0 first and the first any-hit
+    call of the build (the irradiance points' shadow rays) recorded.
+    Returns (scene, settings, the build's launches, that call or None)."""
+    seen, orig = [], isect.occluded_v
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        if not seen:
+            seen.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    isect.occluded_v = spy
+    t0 = time.perf_counter()
+    try:
+        scene, settings = make()
+        torch.cuda.synchronize()
+    finally:
+        isect.occluded_v = orig
+    got = {k: v for k, v in launch_counts().items() if v}
+    tab = scene.subsurface
+    log(f"[{tag}] scene and subsurface table built in "
+        f"{time.perf_counter() - t0:.2f} s: P {tab.n_points} points "
+        f"({'dense' if tab.n_points <= ss.DENSE_MAX else 'grid'} branch), "
+        f"{tab.sigma_tr.shape[0]} records, singlescatter "
+        f"{tab.has_single}, cell {float(tab.cell):.4f}; the table build's "
+        f"launches {got}")
+    return scene, settings, got, (seen[0] if seen else None)
+
+
+def refracted_rays(scene, settings):
+    """(o, d, tmin, tmax) of the first bounce's refracted rays (the second
+    closest-hit call of a pass with a singlescatter record) of a
+    SS_RAY_RES^2 render."""
+    st = loop_settings(settings, "path", SS_RAY_RES)
+    return intersect_calls(lambda: job.render(scene, st, spp=1), [1])[0]
+
+
+def subsurface_render(tag, scene, settings, expect, cpu_scene):
+    """The render (launches a pass ``expect``), its (lane, point) pairs a
+    bounce, the device profile of a pass, the light the table adds at
+    SS_PARITY_RES^2 and card vs CPU there under the gate."""
+    ss.reset_subsurface_stats()
+    img, got, ms, peak = slice_render(tag, scene, settings, expect)
+    st = dict(ss.SUBSURFACE_STATS)
+    check_image(tag, img)
+    calls = max(st["calls"], 1)
+    log(f"[{tag}] a pass {ms:.3f} ms; a bounce: {st['lanes'] / calls:.1f} "
+        f"dipole lanes, (lane, point) pairs dense {st['dense_pairs'] / calls:.4e}"
+        f", grid {st['grid_pairs'] / calls:.4e} (kept {st['kept'] / calls:.4e})")
+    prof = slice_profile(tag, scene, settings, 1)
+    small = loop_settings(settings, "path", SS_PARITY_RES)
+    with_t = image_values(scene, small, SS_PARITY_RES).mean()
+    without = image_values(dataclasses.replace(scene, subsurface=None), small,
+                           SS_PARITY_RES).mean()
+    log(f"[{tag}] {SS_PARITY_RES}^2 mean with the table {with_t:.5f}, "
+        f"without {without:.5f}")
+    if not with_t > without:
+        raise AssertionError(f"[{tag}] the subsurface table adds no light")
+    parity_gate(f"{tag} {SS_PARITY_RES}^2", image_values(
+        scene, small, SS_PARITY_RES), image_values(cpu_scene, small,
+                                                   SS_PARITY_RES))
+    return dict(pass_ms=ms, launches=got, peak=peak, prof=prof, stats=st)
+
+
+def subsurface_cornell_phase(dev, smi):
+    """49. [subsurface cornell]: ``subsurface_cornell`` (a dipole block of
+    512 points, the dense branch, and a singlescatter block) at 1024^2,
+    depth 5, 1 spp: the table build's 8 any-hit launches, 5 + 4 path
+    launches a pass and 2 + 1 a bounce of the single-scatter estimator;
+    both brute-force kernels bit for bit on the irradiance points' shadow
+    rays and the first bounce's refracted rays; card vs CPU at 128^2."""
+    scene, settings, build, shadow = subsurface_build(
+        "subsurface cornell", lambda: subsurface_cornell(dev))
+    if build != dict(anyhit=8):
+        raise AssertionError(f"[subsurface cornell] table build {build}")
+    bounces = DEPTH - 1
+    out = subsurface_render(
+        "subsurface cornell", scene, settings,
+        dict(closest=DEPTH + 2 * bounces, anyhit=bounces + bounces),
+        subsurface_cornell("cpu", SS_PARITY_RES)[0])
+    err = {"closest": 0.0, "anyhit": 0.0}
+    for name, (o, d, tmin, tmax) in (
+            ("irradiance shadow rays", shadow),
+            ("refracted rays", refracted_rays(scene, settings))):
+        e = check_tri(f"subsurface cornell {name}", dict(
+            geom=scene.geom, o=o, d=d, forms=[(name, tmin, tmax)]))
+        err = {k: max(err[k], e[k]) for k in err}
+    out.update(build=build, err=err, per_pass=(out["launches"]["closest"],
+                                               out["launches"]["anyhit"]))
+    return out
+
+
+def subsurface_grid_phase(dev, smi):
+    """50. [subsurface grid]: ``subsurface_grid`` (three dipole blocks,
+    1,536 points, the hash grid's 27-cell scan) at 256^2, depth 5: 24
+    any-hit launches to build the table, 5 + 4 a pass; card vs CPU at
+    128^2."""
+    scene, settings, build, _ = subsurface_build(
+        "subsurface grid", lambda: subsurface_grid(dev))
+    if build != dict(anyhit=8) or scene.subsurface.n_points <= ss.DENSE_MAX:
+        raise AssertionError(f"[subsurface grid] table build {build}")
+    out = subsurface_render("subsurface grid", scene, settings,
+                            dict(closest=DEPTH, anyhit=DEPTH - 1),
+                            subsurface_grid("cpu", SS_PARITY_RES)[0])
+    if not out["stats"]["grid_pairs"] > 0:
+        raise AssertionError("[subsurface grid] the grid branch ran no pair")
+    out.update(build=build, per_pass=(out["launches"]["closest"],
+                                      out["launches"]["anyhit"]))
+    return out
+
+
+def subsurface_large_phase(dev, smi):
+    """51. [subsurface large]: ``subsurface_large`` (the 1,120,504-triangle
+    sphere) at 768^2, depth 3, under ``dipole`` (512 points, 8
+    hier_anyhit launches to build the table, 3 + 2 a pass) and under
+    ``singlescatter`` (3 + 2 and 2 + 1 a bounce); both hierarchy kernels
+    bit for bit on the points' shadow rays and the refracted rays; card vs
+    CPU at 128^2 each."""
+    out = {}
+    cpu_scene = subsurface_large("cpu", "dipole", SS_PARITY_RES)[0]
+    for kind in ("dipole", "singlescatter"):
+        tag = f"subsurface large {kind}"
+        scene, settings, build, shadow = subsurface_build(
+            tag, lambda: subsurface_large(dev, kind))
+        single = kind == "singlescatter"
+        if build != ({} if single else dict(hier_anyhit=8)):
+            raise AssertionError(f"[{tag}] table build {build}")
+        if single:  # the CPU scene's geometry, its table swapped
+            cpu_scene = dataclasses.replace(
+                cpu_scene, subsurface=ss.build_subsurface(
+                    [subsurface_record("singlescatter", 6.0)], None,
+                    cpu_scene))
+        b = L_DEPTH - 1
+        r = subsurface_render(
+            tag, scene, settings,
+            dict(hier_closest=L_DEPTH + (2 * b if single else 0),
+                 hier_anyhit=b + (b if single else 0)), cpu_scene)
+        err = 0.0
+        for name, call in (("irradiance shadow rays", shadow),
+                           ("refracted rays", refracted_rays(scene, settings)
+                            if single else None)):
+            if call is not None:
+                e, _, _ = check_hier(f"{tag} {name}", scene.clusters, *call)
+                err = max(err, e)
+        r.update(build=build, err=err, per_pass=(
+            r["launches"]["hier_closest"], r["launches"]["hier_anyhit"]))
+        out[kind] = r
+        del scene
+    return out
+
+
+def mc_lane_parity(tag, scene, cpu_scene, cfg, W, H):
+    """_eval of the same MC_EVAL_LANES tables on the card and the CPU:
+    the lanes whose colour or target differs beyond rel 1e-4."""
+    lanes = min(cfg.n_chains, MC_EVAL_LANES)
+    cfg = dataclasses.replace(cfg, n_chains=lanes)
+    tab = pssmlt._draw_table(torch.arange(lanes), 5, 7,
+                             pssmlt._n_blocks(cfg), 1)
+    card = [x.cpu() for x in pssmlt._eval(scene, tab.to(scene.device), cfg,
+                                          W, H)]
+    cpu = pssmlt._eval(cpu_scene, tab, cfg, W, H)
+    col = ((card[1] - cpu[1]).abs() / cpu[1].abs().clamp_min(1e-3)
+           ).flatten(1).amax(1)
+    tgt = (card[2] - cpu[2]).abs() / cpu[2].abs().clamp_min(1e-3)
+    # a light-tracing splat the camera does not see has a value of 0 and
+    # no meaningful film position (NaN or far off the film)
+    seen = (cpu[1] != 0).any(-1)
+    dpos = torch.where(seen[..., None], (card[0] - cpu[0]).abs(), 0.0
+                       ).flatten(1).amax(1)
+    bad = int(((col > 1e-4) | (tgt > 1e-4) | (dpos > 1e-4 * W)).sum())
+    log(f"[{tag}] _eval of {lanes} tables card vs CPU: lanes beyond "
+        f"rel 1e-4 {bad}, largest colour rel {float(col.max()):.3e}, target "
+        f"rel {float(tgt.max()):.3e}, splat positions |diff| "
+        f"{float(dpos.max()):.3e} px")
+    if bad > lanes // 100:
+        raise AssertionError(f"[{tag}] _eval card vs CPU")
+    return bad
+
+
+def mc_step_agreement(tag, scene, cpu_scene, state, cfg, W, H, seed):
+    """One pssmlt_run step from the same state (the card's first
+    MC_EVAL_LANES chains) on the card and on the CPU: the share of
+    acceptance decisions that agree."""
+    cfg = dataclasses.replace(cfg, n_chains=min(cfg.n_chains, MC_EVAL_LANES))
+    state = tuple(x[:cfg.n_chains] for x in state[:4]) + tuple(state[4:])
+    out = []
+    for sc in (scene, cpu_scene):
+        st = tuple(x.to(sc.device) for x in state)
+        img = torch.zeros((H, W, 3), device=sc.device)
+        _, new = pssmlt.pssmlt_run(sc, img, st, seed, 1, cfg=cfg, width=W,
+                                   height=H, n_steps=1, accumulate=True)
+        out.append((new[0].cpu() != state[0].cpu()).any(2).any(1))
+    agree = float((out[0] == out[1]).float().mean())
+    log(f"[{tag}] one step from the same state card vs CPU: accepted "
+        f"{int(out[0].sum())} / {int(out[1].sum())} of {len(out[0])}, "
+        f"decisions that agree {agree:.5f}")
+    if agree < 0.99:
+        raise AssertionError(f"[{tag}] acceptance decisions card vs CPU")
+    return agree
+
+
+def mc_step_measures(tag, run, splat_mod, note):
+    """``run(k)`` runs k steps (after ``note``'s fixed work): a step's
+    CUDA-event ms (5 steps less 1), the device profile of run(1) and the
+    device time of that step's two splats (profiled alone on its own
+    inputs; ``splat_mod`` is the module whose ``_splat_px`` it calls)."""
+    step_ms = (cuda_ms(lambda: run(5), 1) - cuda_ms(lambda: run(1), 1)) / 4
+    prof = device_profile(f"{tag} {note}", run, passes=1, top=4)
+    calls, orig = [], splat_mod._splat_px
+
+    def spy(im, pos, val, w):
+        calls.append((im, pos, val, w))
+        return orig(im, pos, val, w)
+
+    splat_mod._splat_px = spy
+    try:
+        run(1)
+    finally:
+        splat_mod._splat_px = orig
+    calls = calls[-2:]  # the last step's current and proposed states
+    orig(*calls[0])  # warm
+    ev = device_events(lambda _: [orig(*c) for c in calls], 1)
+    splat = device_us(ev) / 1e3 if ev else None
+    log(f"[{tag}] a step {step_ms:.3f} ms (CUDA events, "
+        f"{1000 / step_ms:.2f} steps/s); its two splats "
+        f"({calls[0][1].shape[0]} chains x {calls[0][1].shape[1]} splats "
+        f"each) {fmt(splat)} ms of device time, {len(ev)} device "
+        f"operations")
+    return dict(step_ms=step_ms, prof=prof, splat_ms=splat)
+
+
+def mcmc_mean(tag, scene, settings, rtol=0.10, channel_rtol=0.20, **props):
+    """The SS_PARITY_RES^2 mean of the settings' MCMC integrator within
+    rtol of the card's path (each channel within channel_rtol),
+    tests/test_mcmc.py's limits."""
+    st = loop_settings(settings, settings.integrator, SS_PARITY_RES, **props)
+    img = job.render(scene, st).cpu().numpy()
+    path = job.render(scene, loop_settings(
+        st, "path", spp=PATH_MEAN_SPP)).cpu().numpy()
+    return mean_against(tag, img, path, rtol, channel_rtol)
+
+
+def pssmlt_cornell_phase(dev, smi):
+    """52. [pssmlt cornell]: pssmlt on _tiny_cornell at 1024^2, maxDepth 5,
+    the plugin's defaults (pLarge 0.3, burnIn 32, bidirectional) but
+    65,536 chains, 1 mutation a pixel: 16 steps, 8 luminance rounds, 9
+    closest and 14 any-hit launches an evaluation; a step's time, device
+    profile and splat time; both brute-force kernels bit for bit on the
+    first step's first inner connection; card vs CPU: _eval lane by lane,
+    one step's acceptance decisions; its 128^2 mean (8,192 chains) against
+    path."""
+    tag = "pssmlt cornell"
+    t0 = time.perf_counter()
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "pssmlt", RES, 1, DEPTH,
+                             n_chains=MC_CHAINS)
+    cfg = pssmlt.pssmlt_config(scene, settings)
+    n_steps = RES * RES // cfg.n_chains
+    evals = 8 + n_steps
+    n_any = 2 * (DEPTH - 1) + (DEPTH - 2) * (DEPTH - 1) // 2
+    img, got, ms, peak = slice_render(tag, scene, settings, dict(
+        closest=(2 * DEPTH - 1) * evals, anyhit=n_any * evals))
+    check_image(tag, img)
+    log(f"[{tag}] {n_steps} steps of {cfg.n_chains} chains (bidirectional "
+        f"{cfg.bidirectional}) in {ms:.3f} ms with the init: "
+        f"{n_steps / (ms / 1e3):.2f} steps/s")
+    state = pssmlt.pssmlt_init(scene, settings.seed, cfg=cfg, width=RES,
+                               height=RES)
+    img_t = torch.zeros((RES, RES, 3), device=dev)
+    meas = mc_step_measures(tag, lambda k: pssmlt.pssmlt_run(
+        scene, img_t, state, settings.seed, 1, cfg=cfg, width=RES,
+        height=RES, n_steps=k, accumulate=True), pssmlt, "a step")
+    seen, orig = [], isect.occluded_v
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        seen.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    isect.occluded_v = spy
+    try:
+        pssmlt.pssmlt_run(scene, img_t, state, settings.seed, 1, cfg=cfg,
+                          width=RES, height=RES, n_steps=1,
+                          accumulate=False)
+    finally:
+        isect.occluded_v = orig
+    o, d, tmin, tmax = seen[2 * (DEPTH - 1)]  # after NEE and t = 1
+    err = check_tri(f"{tag} first inner connection", dict(
+        geom=scene.geom, o=o, d=d, forms=[("connection", tmin, tmax)]))
+    t1 = time.perf_counter()
+    cpu_scene, _ = tiny_cornell("cpu")
+    bad = mc_lane_parity(tag, scene, cpu_scene, cfg, RES, RES)
+    agree = mc_step_agreement(tag, scene, cpu_scene, state, cfg, RES, RES,
+                              settings.seed)
+    t2 = time.perf_counter()
+    rel = mcmc_mean(tag, scene, settings, n_chains=MC_MEAN[0],
+                    spp=MC_MEAN[1])
+    log(f"[{tag}] seconds: the render and the card's measures "
+        f"{t1 - t0:.1f}, card vs CPU {t2 - t1:.1f}, the mean "
+        f"{time.perf_counter() - t2:.1f}")
+    return dict(ms=ms, steps=n_steps, evals=evals, per_eval=(
+        2 * DEPTH - 1, n_any), launches=got, peak=peak, err=err, bad=bad,
+        agree=agree, rel=rel, **meas)
+
+
+def pssmlt_large_phase(dev, smi):
+    """53. [pssmlt large]: bidirectional pssmlt on the 1,120,504-triangle
+    scene at 768^2, depth 3, 65,536 chains: the init and 4 steps, 5
+    hier_closest and 5 hier_anyhit launches an evaluation; a step's time,
+    device profile and splat time; both hierarchy kernels bit for bit on
+    the first inner connection; card vs CPU: _eval lane by lane and one
+    step's acceptance decisions (1,024 chains each)."""
+    tag = "pssmlt large"
+    scene, settings = large_scene(dev)
+    settings = loop_settings(settings, "pssmlt", L_RES, 1, L_DEPTH,
+                             n_chains=65536)
+    cfg = pssmlt.pssmlt_config(scene, settings)
+    seed = settings.seed
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img = torch.zeros((L_RES, L_RES, 3), device=dev)
+    box = {}
+
+    def run():
+        box["state"] = pssmlt.pssmlt_init(scene, seed, cfg=cfg, width=L_RES,
+                                          height=L_RES)
+        box["img"], box["end"] = pssmlt.pssmlt_run(
+            scene, img, box["state"], seed, 1, cfg=cfg, width=L_RES,
+            height=L_RES, n_steps=4, accumulate=True)
+
+    ms = cuda_ms(run, 1, warm=False)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_any = 2 * (L_DEPTH - 1) + (L_DEPTH - 2) * (L_DEPTH - 1) // 2
+    want = {k: 0 for k in got}
+    want.update(hier_closest=12 * (2 * L_DEPTH - 1), hier_anyhit=12 * n_any)
+    log(f"[{tag}] init (8 luminance rounds) and 4 steps of {cfg.n_chains} "
+        f"chains: {ms:.3f} ms (CUDA events), launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        + f", peak {peak:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"[{tag}] expected launches {want}, got {got}")
+    out_img = box["img"].cpu().numpy()
+    if not (np.isfinite(out_img).all() and out_img.sum() > 0):
+        raise AssertionError(f"[{tag}] splatted image")
+    meas = mc_step_measures(tag, lambda k: pssmlt.pssmlt_run(
+        scene, img, box["state"], seed, 1, cfg=cfg, width=L_RES,
+        height=L_RES, n_steps=k, accumulate=True), pssmlt, "a step")
+    seen, orig = [], isect.occluded_v
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        seen.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    isect.occluded_v = spy
+    try:
+        pssmlt.pssmlt_run(scene, img, box["state"], seed, 1, cfg=cfg,
+                          width=L_RES, height=L_RES, n_steps=1,
+                          accumulate=False)
+    finally:
+        isect.occluded_v = orig
+    e, _, _ = check_hier(f"{tag} first inner connection", scene.clusters,
+                         *seen[2 * (L_DEPTH - 1)])
+    t1 = time.perf_counter()
+    cpu_scene, _ = cpu_large_scene()
+    small = dataclasses.replace(cfg, n_chains=1024)
+    bad = mc_lane_parity(tag, scene, cpu_scene, small, L_RES, L_RES)
+    agree = mc_step_agreement(tag, scene, cpu_scene, box["state"], small,
+                              L_RES, L_RES, seed)
+    log(f"[{tag}] card vs CPU {time.perf_counter() - t1:.1f} s")
+    return dict(ms=ms, launches=got, per_eval=(2 * L_DEPTH - 1, n_any),
+                peak=peak, err=e, bad=bad, agree=agree, **meas)
+
+
+def erpt_cornell_phase(dev, smi):
+    """54. [erpt cornell]: erpt on _tiny_cornell at 1024^2, maxDepth 5,
+    chainLength 100, 1 seed a pixel, unidirectional (the plugin's default):
+    101 evaluations of 1,048,576 chains, 5 + 4 launches each; a step's
+    device profile and splat time; card vs CPU: _eval lane by lane, a
+    128^2 pass of 2 steps (the luminance each chain deposits is its
+    seed's, whatever it accepts); its 128^2 mean against path."""
+    tag = "erpt cornell"
+    scene, settings = tiny_cornell(dev)
+    settings = loop_settings(settings, "erpt", RES, 1, DEPTH,
+                             chain_length=100)
+    evals = 1 + 100
+    img, got, ms, peak = slice_render(tag, scene, settings, dict(
+        closest=DEPTH * evals, anyhit=(DEPTH - 1) * evals))
+    check_image(tag, img)
+    log(f"[{tag}] 100 steps of {RES * RES} chains in {ms:.3f} ms: "
+        f"{100 / (ms / 1e3):.2f} steps/s")
+    cfg = pssmlt.PSSMLTConfig(max_depth=DEPTH, n_chains=RES * RES)
+    seed = settings.seed
+    img_t = torch.zeros((RES, RES, 3), device=dev)
+    meas = mc_step_measures(tag, lambda k: erpt.erpt_pass(
+        scene, img_t, 1, seed, cfg=cfg, width=RES, height=RES,
+        chain_length=k), erpt, "the seeds' evaluation and a step")
+    cpu_scene, _ = tiny_cornell("cpu")
+    bad = mc_lane_parity(tag, scene, cpu_scene, cfg, RES, RES)
+    small = loop_settings(settings, "erpt", SS_PARITY_RES, chain_length=2)
+    card = job.render(scene, small).cpu().numpy()
+    cpu = job.render(cpu_scene, small).cpu().numpy()
+    lum_rel = abs(luminance(card).sum() - luminance(cpu).sum()) / \
+        luminance(cpu).sum()
+    st = parity_stats(card.sum(-1), cpu.sum(-1))
+    log(f"[{tag}] {SS_PARITY_RES}^2 pass of 2 steps card vs CPU: luminance "
+        f"sum rel {lum_rel:.3e}, pixels beyond rel 1e-3 "
+        f"{st['frac_bad']:.4f}, p999 {st['p999']:.3e}")
+    if lum_rel > 1e-3 or st["frac_bad"] > 0.05:
+        raise AssertionError(f"[{tag}] card vs CPU pass")
+    rel = mcmc_mean(tag, scene, settings, spp=ERPT_MEAN[0],
+                    chain_length=ERPT_MEAN[1])
+    return dict(ms=ms, evals=evals, per_eval=(DEPTH, DEPTH - 1),
+                launches=got, peak=peak, bad=bad, lum_rel=lum_rel, rel=rel,
+                **meas)
+
+
+# the XML Cornell with a cube under a nested dipole and a sphere under a
+# singlescatter record named by <ref> (both left out for the comparison)
+SSS_SHAPES = """
+    <subsurface type="singlescatter" id="single">
+        <rgb name="sigmaS" value="8 8 8"/>
+        <rgb name="sigmaA" value="0.5 1 2"/>
+    </subsurface>
+    <shape type="cube">
+        <transform name="toWorld"><scale value="0.3"/>
+            <translate x="-0.35" y="0.3" z="-0.2"/></transform>
+        <bsdf type="diffuse"><rgb name="reflectance" value="0.1"/></bsdf>
+        {dipole}
+    </shape>
+    <shape type="sphere">
+        <point name="center" x="0.4" y="0.3" z="0.2"/>
+        <float name="radius" value="0.3"/>
+        <bsdf type="diffuse"><rgb name="reflectance" value="0.1"/></bsdf>
+        {single}
+    </shape>
+</scene>"""
+SSS_RECORDS = dict(dipole='<subsurface type="dipole"><rgb name="sigmaS" '
+                   'value="40 40 40"/><rgb name="sigmaA" value="2 4 8"/>'
+                   '</subsurface>', single='<ref id="single"/>')
+MCMC_FILES = {
+    "pssmlt": '<integrator type="pssmlt"><integer name="maxDepth" '
+              'value="5"/></integrator>',
+    "pssmlt_unidirectional": '<integrator type="pssmlt"><integer '
+                             'name="maxDepth" value="5"/><boolean '
+                             'name="bidirectional" value="false"/>'
+                             '</integrator>',
+    "erpt": '<integrator type="erpt"><integer name="maxDepth" value="5"/>'
+            '<integer name="chainLength" value="10"/></integrator>',
+}
+
+
+def slice14_files_phase(dev, smi):
+    """55. [slice files]: the slice's scene files through the command line
+    on the card (its default device) at 128^2: a cube under a nested
+    dipole and a sphere under a singlescatter record by <ref> (path, depth
+    5, 2 spp; the table's points and records), pssmlt bidirectional and
+    not and erpt (64^2, 2 mutations or seeds a pixel): each EXR finite, not
+    black, and the subsurface file brighter than without its records."""
+    base = CORNELL_XML.format(res=SS_PARITY_RES, spp=2, max_depth=DEPTH)
+    means = {}
+    files = {"subsurface": base.replace("</scene>", SSS_SHAPES.format(
+                 **SSS_RECORDS)),
+             "no subsurface": base.replace("</scene>", SSS_SHAPES.format(
+                 dipole="", single=""))}
+    files.update({k: with_integrator(CORNELL_XML.format(
+        res=64, spp=2, max_depth=DEPTH), v)
+        for k, v in MCMC_FILES.items()})
+    for name, text in files.items():
+        path = xml_file(name.replace(" ", "_") + ".xml", text)
+        out = os.path.join(XML_DIR, name.replace(" ", "_") + ".exr")
+        t0 = time.perf_counter()
+        run_cli(path, "-o", out)
+        img, _ = exr.read_exr(out)
+        means[name] = float(img.mean())
+        log(f"[slice files] {name}: {time.perf_counter() - t0:.2f} s, mean "
+            f"{means[name]:.5f}")
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"[slice files] {name}: image")
+    scene, _ = scene_xml.load_scene(xml_file("subsurface.xml",
+                                             files["subsurface"]), device=dev)
+    tab = scene.subsurface
+    log(f"[slice files] the subsurface file's table: {tab.n_points} points, "
+        f"{tab.sigma_tr.shape[0]} records, singlescatter {tab.has_single}")
+    if not (tab.n_points == 512 and tab.has_single
+            and means["subsurface"] > means["no subsurface"]):
+        raise AssertionError("[slice files] the subsurface records")
+    return means
+
+
+def slice14_phases(dev, smi):
+    """Phases 49-55."""
+    return [phase(dev, smi) for phase in (
+        subsurface_cornell_phase, subsurface_grid_phase,
+        subsurface_large_phase, pssmlt_cornell_phase, pssmlt_large_phase,
+        erpt_cornell_phase, slice14_files_phase)]
+
+
+def slice14_summary(seconds, s_c, s_g, s_l, p_c, p_l, e_c, smi):
+    """The ``[summary]`` line of phases 49-55."""
+    log(f"[summary] phases 49-55 {seconds:.1f} s: "
+        + "; ".join(
+            f"{k} pass {v['pass_ms']:.3f} ms, launches a pass {v['per_pass']}"
+            f", table build {v['build']}, device ops a pass "
+            f"{fmt(v['prof'] and v['prof']['ops'])}, device ms "
+            f"{fmt(v['prof'] and v['prof']['device_ms'])}, idle "
+            f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+            for k, v in (("subsurface cornell", s_c),
+                         ("subsurface grid", s_g),
+                         ("subsurface large dipole", s_l["dipole"]),
+                         ("subsurface large singlescatter",
+                          s_l["singlescatter"])))
+        + "; " + "; ".join(
+            f"{k} a step {v['step_ms']:.3f} ms, launches an evaluation "
+            f"{v['per_eval']}, splats {fmt(v['splat_ms'])} device ms a step, "
+            f"device ops {fmt(v['prof'] and v['prof']['ops'])}, idle "
+            f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+            for k, v in (("pssmlt cornell", p_c), ("pssmlt large", p_l),
+                         ("erpt cornell", e_c)))
+        + f" ({smi})")
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None,
                   volume_launches=None, ptracer_launches=None,
-                  bdpt_launches=None, photon_launches=None):
+                  bdpt_launches=None, photon_launches=None,
+                  slice14_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
@@ -3857,7 +4465,8 @@ def kernel_record(name, source, replaces, launches, err, timing, key,
                 volume_launches=volume_launches,
                 ptracer_launches=ptracer_launches,
                 bdpt_launches=bdpt_launches,
-                photon_launches=photon_launches)
+                photon_launches=photon_launches,
+                slice14_launches=slice14_launches)
 
 
 def light_tracing_phases(dev, smi):
@@ -4027,6 +4636,11 @@ def main():
         f"{sv['volume_photons']} volume photons; multichannel command line "
         f"{mc2['seconds']:.2f} s ({smi})")
 
+    t0 = time.perf_counter()
+    s_c, s_g, s_l, p_c, p_l, e_c, _ = slice14_phases(dev, smi)
+    slice14_summary(time.perf_counter() - t0, s_c, s_g, s_l, p_c, p_l, e_c,
+                    smi)
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
@@ -4034,36 +4648,62 @@ def main():
                                        pc["err"]["closest"],
                                        bc["err"]["closest"],
                                        sc["err"]["closest"],
-                                       vc2["err"]["closest"]),
+                                       vc2["err"]["closest"],
+                                       s_c["err"]["closest"],
+                                       p_c["err"]["closest"]),
                       timing, "closest", grad_launches[0],
                       timing["closest_device"], x_launches[0],
                       vc["launches_per_pass"], pc["per_pass"][0],
                       bc["per_pass"][0],
                       dict(sppm=sc["per_pass"][0], vpl=vc2["per_pass"][0],
-                           irrcache=ic["launches"][0])),
+                           irrcache=ic["launches"][0]),
+                      dict(subsurface_cornell=s_c["per_pass"][0],
+                           subsurface_grid=s_g["per_pass"][0],
+                           pssmlt_cornell_per_eval=p_c["per_eval"][0],
+                           erpt_cornell_per_eval=e_c["per_eval"][0])),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], max(timing["anyhit_err"],
                                        pc["err"]["anyhit"],
                                        bc["err"]["anyhit"],
                                        sc["err"]["anyhit"],
-                                       vc2["err"]["anyhit"]),
+                                       vc2["err"]["anyhit"],
+                                       s_c["err"]["anyhit"],
+                                       p_c["err"]["anyhit"]),
                       timing, "anyhit", grad_launches[1],
                       timing["anyhit_device"], x_launches[1], None,
                       pc["per_pass"][1], bc["per_pass"][1],
                       dict(sppm=0, vpl=vc2["per_pass"][1],
-                           irrcache=ic["launches"][1])),
+                           irrcache=ic["launches"][1]),
+                      dict(subsurface_cornell=s_c["per_pass"][1],
+                           subsurface_cornell_table=s_c["build"]["anyhit"],
+                           subsurface_grid=s_g["per_pass"][1],
+                           subsurface_grid_table=s_g["build"]["anyhit"],
+                           pssmlt_cornell_per_eval=p_c["per_eval"][1],
+                           erpt_cornell_per_eval=e_c["per_eval"][1])),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[0], max(err_h, vl["err"], bl["err"],
-                                        sl["err"]), htiming,
+                                        sl["err"], s_l["dipole"]["err"],
+                                        s_l["singlescatter"]["err"],
+                                        p_l["err"]), htiming,
                       "closest", hgrad_launches[0], htiming["closest_device"],
                       xl_launches[0], vl["launches_per_pass"], None,
-                      bl["per_pass"][0], dict(sppm=sl["per_pass"][0])),
+                      bl["per_pass"][0], dict(sppm=sl["per_pass"][0]),
+                      dict(subsurface_large_dipole=s_l["dipole"][
+                          "per_pass"][0], subsurface_large_single=s_l[
+                          "singlescatter"]["per_pass"][0],
+                          pssmlt_large_per_eval=p_l["per_eval"][0])),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],
                       xl_launches[1], None, None, bl["per_pass"][1],
-                      dict(sppm=0)),
+                      dict(sppm=0),
+                      dict(subsurface_large_dipole=s_l["dipole"][
+                          "per_pass"][1], subsurface_large_dipole_table=s_l[
+                          "dipole"]["build"]["hier_anyhit"],
+                          subsurface_large_single=s_l["singlescatter"][
+                              "per_pass"][1],
+                          pssmlt_large_per_eval=p_l["per_eval"][1])),
         kernel_record("hier_closest_motion", HIER_SOURCE,
                       HIER_MOTION_REPLACES, ml["launches"][0], ml["err"], mt,
                       "motion_closest", None, mt["motion_closest_device"]),

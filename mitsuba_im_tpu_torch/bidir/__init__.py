@@ -1,4 +1,6 @@
 """Path-space tools (``mitsuba_im_tpu/bidir/``): the verification harness
-over the bidirectional path tracer's subpaths (``verification.py``).  The
-path sampler and the manifold walk come with the MLT family (ROADMAP
-queue A item 7.8), which runs them on the MCMC primary-sample table."""
+over the bidirectional path tracer's subpaths (``verification.py``) and
+the splat sampler that evaluates every bidirectional strategy of a
+primary-sample table (``pathsampler.py``, pssmlt's and erpt's
+bidirectional mode).  The manifold walk comes with ``mlt`` (ROADMAP queue
+A item 7.8)."""

@@ -20,9 +20,14 @@ the per-lane scramble takes them as numbers: the same words, without a
 device operation per unrolled step.
 A division by a sampler constant multiplies by its float32 reciprocal, as
 XLA compiles the reference's (and as PyTorch's CUDA kernel divides by a
-Python number), so the card, the CPU and the reference round alike.  The
-MCMC ``table``
-mode (pssmlt, erpt) raises ``NotImplementedError``.
+Python number), so the card, the CPU and the reference round alike.
+
+The MCMC ``table`` mode (pssmlt, erpt): a sampler given an (N, B, 4)
+primary-sample table reads block ``dim // 4`` of each lane's row while
+that index is below B and the independent hash past the table's end,
+whatever its kind (the reference's ``rng.py:223-230, :341-350``).  The
+block index is the lanes' shared dimension counter, so the read is one
+gather along the block axis.
 """
 from __future__ import annotations
 
@@ -217,14 +222,39 @@ def _lds_pair_v(s: Sampler3, dim0: torch.Tensor):
     return torch.where(first, h0, u0), torch.where(first, h1, u1)
 
 
+def _table_block(s: Sampler3, dim: torch.Tensor):
+    """The four uniforms of block ``dim // 4``: the lanes' table rows where
+    the index is below B, the hash's words past the table's end."""
+    x, y, z, w = pcg4d_words(s.b0, s.b1, s.b2 ^ dim, s.b3)
+    n_blocks = s.table.shape[-2]
+    blk = dim >> 2
+    safe = torch.clamp_max(blk, n_blocks - 1)
+    tab = torch.gather(s.table, 1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
+    ok = blk < n_blocks
+    return tuple(torch.where(ok, tab[:, k], to_unit_float(t))
+                 for k, t in enumerate((x, y, z, w)))
+
+
+def draw_blocks(pixel: torch.Tensor, sample, seed, n_blocks: int):
+    """(N, n_blocks, 4) uniforms: the first ``n_blocks`` blocks of the
+    INDEPENDENT sampler of (pixel, sample, seed), each block's hash over
+    its own dimension, all in one call (bit for bit ``n_blocks`` calls of
+    :func:`next_block4_v`)."""
+    s = make_sampler_v(pixel, sample, seed)
+    dims = torch.arange(n_blocks, dtype=torch.int64,
+                        device=pixel.device)[None] * 4
+    words = pcg4d_words(s.b0[:, None], s.b1[:, None], s.b2[:, None] ^ dims,
+                        s.b3[:, None])
+    return torch.stack([to_unit_float(t) for t in words], dim=-1)
+
+
 def next_block4_v(s: Sampler3):
     """Draw 4 dimensions with ONE hash (or two LDS pairs); returns
     (sampler, (u0, u1, u2, u3))."""
-    if s.table is not None:
-        raise NotImplementedError(
-            "next_block4_v: the MCMC table mode (pssmlt, erpt) is not ported")
     dim = ((s.dim + 3) & ~3) & MASK32
     s2 = s.replace(dim=(dim + 4) & MASK32)
+    if s.table is not None:
+        return s2, _table_block(s, dim)
     if s.kind in (LDSAMPLER, SOBOL, HALTON, HAMMERSLEY):
         return s2, (*_lds_pair_v(s, dim), *_lds_pair_v(s, dim + 2))
     x, y, z, w = pcg4d_words(s.b0, s.b1, s.b2 ^ dim, s.b3)

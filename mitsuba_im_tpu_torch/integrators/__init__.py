@@ -3,7 +3,8 @@
 ``path``, ``volpath`` (and ``volpath_simple``, the same estimator),
 ``direct``, ``ao``, ``field``, ``motion``, ``ptracer``, ``bdpt``,
 ``adaptive``, ``multichannel``, ``irrcache``, ``sppm``, ``ppm`` and
-``photonmapper`` (recorded as ``sppm``) and ``vpl`` record their name and
+``photonmapper`` (recorded as ``sppm``), ``vpl``, ``pssmlt`` and ``erpt``
+record their name and
 parameters into the builder's render settings, which
 ``render/job.py::integrator_fn`` turns into the integrator (the
 integrators of ``render/job.py::LOOP_INTEGRATORS`` render through their
@@ -11,10 +12,13 @@ own loops, ``render/job.py::render``).  ``adaptive`` and ``irrcache``
 keep their nested integrator's record, ``multichannel`` its children's.
 ``motion`` records only ``timeDelta``, as the reference's, so from a scene
 file its previous sensor pose is the current one (ROADMAP C13).  Every
-other integrator the JAX package registers is registered here too and
-raises ``NotImplementedError`` naming its ROADMAP queue A item 7 entry
-when a scene asks for it: nothing renders it with ``path`` instead.  The
-subsurface integrators belong to entry 7.7 and raise the same way.
+other integrator the JAX package registers (``mlt``) is registered here
+too and raises ``NotImplementedError`` naming its ROADMAP queue A item 7
+entry when a scene asks for it: nothing renders it with ``path`` instead.
+``pssmlt`` and ``erpt`` also read the reference Mitsuba's
+``bidirectional`` flag where a scene file sets it (the JAX factories drop
+it, so there pssmlt is always bidirectional and erpt never; ROADMAP C23);
+without it their properties are the JAX factories' exactly.
 """
 from __future__ import annotations
 
@@ -149,6 +153,27 @@ def _vpl(props: Properties, ctx=None):
         clamping=props.get_float("clamping", 0.1)))
 
 
-register_unported("integrator", ("pssmlt", "mlt", "erpt"), "queue A item 7.8")
-register_unported("subsurface", ("dipole", "singlescatter"),
-                  "queue A item 7.7")
+def _bidirectional(props: Properties, ip: dict) -> dict:
+    if "bidirectional" in props:
+        ip["bidirectional"] = props.get_bool("bidirectional")
+    return ip
+
+
+@register("integrator", "pssmlt")
+def _pssmlt(props: Properties, ctx=None):
+    ip = _mc_props(props)
+    ip["p_large"] = props.get_float("pLarge", 0.3)
+    ip["n_chains"] = props.get_int("chains", 8192)
+    ip["burn_in"] = props.get_int("burnIn", 32)
+    return _set(ctx, "pssmlt", _bidirectional(props, ip))
+
+
+@register("integrator", "erpt")
+def _erpt(props: Properties, ctx=None):
+    ip = _mc_props(props)
+    ip["chain_length"] = props.get_int("chainLength", 100)
+    ip["chains_per_pixel"] = props.get_float("numChains", 1.0)
+    return _set(ctx, "erpt", _bidirectional(props, ip))
+
+
+register_unported("integrator", ("mlt",), "queue A item 7.8")

@@ -25,8 +25,15 @@ filter (``render/raydiff.py``); that bounce is peeled off the loop, as it
 is under ``skip_direct``, and replays as a unit of its own.  Scenes with
 MASK or BLEND rows draw one block of four uniforms per bounce before NEE:
 its first picks BLEND components; the MASK pass-through takes the BSDF
-block's fourth.  Scenes with subsurface scattering are refused where they
-are built.
+block's fourth.  Scenes with a subsurface table add each vertex's LoSub
+after that selection draw and before NEE, as the reference does
+(path.py:128-146): the dipole's point sum (``subsurface/eval_lo``) and,
+with a singlescatter record in the scene, the refracted-ray estimator
+(``eval_lo_single``) on a block of its own, drawn on every bounce so that
+the sampler's dimension is the reference's, the peeled first bounce
+included.  Reverse mode through such a scene raises: the points'
+irradiance is a build-time table that no gradient reaches, so a gradient
+would be silently short of its term.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from ..emitter import table as em
 from ..render.raydiff import uv_differentials
 from ..scene.geometry import Interaction3
 from ..scene.scene import Scene
+from ..subsurface import eval_lo, eval_lo_single
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +90,12 @@ def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
 
     Returns (radiance V3 of (N,) components, sampler); the radiance carries
     the graph to every scene or ray tensor that requires grad."""
-    remat = (cfg.remat and torch.is_grad_enabled()
-             and _requires_grad(scene, o, d))
+    wants_grad = torch.is_grad_enabled() and _requires_grad(scene, o, d)
+    if wants_grad and scene.subsurface is not None:
+        raise NotImplementedError(
+            "path_li_v: gradients through a scene with subsurface "
+            "scattering (its irradiance table is not differentiated)")
+    remat = cfg.remat and wants_grad
     use_duv = (dddx is not None and dddy is not None
                and scene.textures.has_mip)
     return _path_li_v(scene, sampler, o, d, cfg, remat,
@@ -154,6 +166,19 @@ def _path_li_v(scene, sampler, o, d, cfg, remat, diffs):
         else:
             bparams = scene.bsdf_at_v(_fake_it_v(st), duv=duv)
 
+        # --- subsurface scattering (its.LoSub) ------------------------------
+        st_li0 = st["li"]
+        if scene.subsurface is not None:
+            ss_id = scene.subsurface_at(st["shape"], act)
+            lo_sub = eval_lo(scene.subsurface, st["p"],
+                             torch.abs(st["wi_local"].z), ss_id)
+            st_li0 = st_li0 + v.where(act, st["thr"] * lo_sub, zeros)
+            if scene.subsurface.has_single:
+                s, ss_blk = mrng.next_block4_v(s)
+                lo_ss = eval_lo_single(scene.subsurface, scene, st["p"],
+                                       st["ns"], st["d_world"], ss_id, ss_blk)
+                st_li0 = st_li0 + v.where(act, st["thr"] * lo_ss, zeros)
+
         # --- next-event estimation (sampleEmitterDirect, path.cpp:176) ----
         s, nee_blk = mrng.next_block4_v(s)
         ds = em.sample_direct_v(scene.emitters, scene.geom, st["p"],
@@ -170,7 +195,7 @@ def _path_li_v(scene, sampler, o, d, cfg, remat, diffs):
         keep_nee = can_nee & ~occ
         if skip_first:
             keep_nee = torch.zeros_like(keep_nee)
-        st_li = st["li"] + v.where(keep_nee, contrib, zeros)
+        st_li = st_li0 + v.where(keep_nee, contrib, zeros)
 
         # --- BSDF sampling (path.cpp:211) ---------------------------------
         s, bsdf_blk = mrng.next_block4_v(s)

@@ -138,11 +138,14 @@ def neighbour_runs(bucket_sorted, x: V3, cell, cap: int):
     return starts, torch.clamp_max(fulls, cap), fulls
 
 
-def pair_chunks(starts, runs, chunk: int = PAIR_CHUNK):
+def pair_chunks(starts, runs, chunk: int = PAIR_CHUNK, stats=None):
     """Yield (q, ci, idx) for chunks of the (query, cell, slot) pairs that
     exist, in query, then cell, then slot order: the query, its cell's
     index in 0..26 and the position ``starts[q, ci] + slot`` in the sorted
-    grid.  A chunk holds about ``chunk`` pairs (at most chunk + 27 cap)."""
+    grid.  A chunk holds about ``chunk`` pairs (at most chunk + 27 cap).
+    The chunks and pairs are counted into ``stats`` (``GATHER_STATS`` by
+    default)."""
+    stats = GATHER_STATS if stats is None else stats
     nq, nc = runs.shape
     dev = runs.device
     if nq == 0:
@@ -165,8 +168,8 @@ def pair_chunks(starts, runs, chunk: int = PAIR_CHUNK):
             torch.arange(r.numel(), device=dev), r, output_size=n)
         first = torch.cumsum(r, 0) - r
         slot = torch.arange(n, device=dev) - first[e]
-        GATHER_STATS["chunks"] += 1
-        GATHER_STATS["pairs"] += n
+        stats["chunks"] += 1
+        stats["pairs"] += n
         yield (q0 + e // nc, e % nc,
                starts[q0:q1].reshape(-1)[e] + slot)
         q0, done = q1, end

@@ -17,8 +17,11 @@ integrator: ``ptracer`` (:func:`render_ptracer`, particles splatted into a
 box film and normalized by the image plane), ``bdpt``
 (``integrators/bdpt.py::render_bdpt``), ``sppm``/``ppm``, ``vpl``,
 ``adaptive`` (its nested integrator's ``integrator_fn`` in rounds),
-``multichannel`` and ``irrcache`` through loops of their own, the others
-through :func:`render_film`.  A scene with
+``multichannel``, ``irrcache``, ``pssmlt`` (``integrators/pssmlt.py``,
+mutations a pixel for ``spp``, ``progress_cb`` after each chunk of steps)
+and ``erpt`` (``integrators/erpt.py``, seeds a pixel) through loops of
+their own, the others through :func:`render_film`; ``mlt`` raises, naming
+its ROADMAP item.  A scene with
 deformable shapes renders each pass at one shutter time,
 ``shutter_open + shutter_time * u`` with ``u`` the pass index's golden-ratio
 word (:func:`shutter_time`), shared by the pass's wavefront.  The port
@@ -84,7 +87,7 @@ class RenderSettings:
 INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
 # integrators with render loops of their own (:func:`render`)
 LOOP_INTEGRATORS = ("ptracer", "bdpt", "sppm", "ppm", "vpl", "adaptive",
-                    "multichannel", "irrcache")
+                    "multichannel", "irrcache", "pssmlt", "erpt")
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -276,6 +279,15 @@ def render(scene: Scene, settings: RenderSettings, spp: int | None = None,
         from ..integrators.irrcache import render_irrcache
 
         return render_irrcache(scene, settings, spp=spp)
+    if name == "pssmlt":
+        from ..integrators.pssmlt import render_pssmlt
+
+        return render_pssmlt(scene, settings, spp=spp,
+                             progress_cb=progress_cb)
+    if name == "erpt":
+        from ..integrators.erpt import render_erpt
+
+        return render_erpt(scene, settings, spp=spp)
     film = render_film(scene, settings, spp=spp, progress_cb=progress_cb)
     return develop(film)
 

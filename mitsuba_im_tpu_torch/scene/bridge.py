@@ -11,7 +11,10 @@ instances' normal rotations (``geom.inst_rot``), the frame-1 mirror of a
 deformable scene (``motion.*``) and the IRAWAN weave patterns
 (``bsdfs.weaves``, the reference's ``WeavePattern`` records field by field,
 its normalization included) and the participating media (``media.*``,
-with the shapes' medium columns and the camera's medium).  Neither
+with the shapes' medium columns and the camera's medium) and the
+subsurface table (``subsurface.*``: the records' coefficients, the points,
+their irradiance and the hash grid, with its statics), which arrives bit
+for bit, the grid's order and buckets as the port's int64 words.  Neither
 imports jax: ``np.asarray`` reads the reference's arrays.
 """
 from __future__ import annotations
@@ -27,12 +30,13 @@ from ..bsdf.irawan import WeavePattern
 from ..emitter import table as em
 from ..media import medium as med
 from ..sensor.table import SENSOR_LEAVES, Sensor
+from .. import subsurface as ss
 from ..texture import texture as tx
 from .geometry import GEOMETRY_LEAVES, Geometry
 from .scene import Scene
 
 SCENE_LEAVES = ("shape_bsdf", "shape_emitter", "shape_interior",
-                "shape_exterior")
+                "shape_exterior", "shape_subsurface")
 _EMITTER_SRC = {"select_pmf": ("select", "pmf"),
                 "select_cdf": ("select", "cdf"),
                 **{"env_" + k: ("env_dist", k) for k in em.ENV_DIST_LEAVES}}
@@ -68,6 +72,10 @@ def export_tables(src) -> tuple[dict, dict]:
     if src.motion is not None:
         for k, a in src.motion.items():
             arrays[f"motion.{k}"] = np.asarray(a)
+    sub = src.subsurface
+    if sub is not None:
+        for k in ss.SUBSURFACE_LEAVES:
+            arrays[f"subsurface.{k}"] = np.asarray(getattr(sub, k))
     g, b, e = src.geom, src.bsdfs, src.emitters
     statics = {
         "geom.n_tris": g.n_tris, "geom.n_spheres": g.n_spheres,
@@ -90,6 +98,9 @@ def export_tables(src) -> tuple[dict, dict]:
            for k in ("n_media", "used_phase", "has_hetero",
                      "has_fancy_phase")},
     }
+    if sub is not None:
+        statics.update({f"subsurface.{k}": getattr(sub, k)
+                        for k in ss.SUBSURFACE_STATICS})
     if h is not None:
         statics.update({"clusters.n_supers": h.n_supers,
                         "clusters.n_tris": h.n_tris,
@@ -109,8 +120,6 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
     """The port's Scene from exported tables, on ``device`` (the card unless
     the CPU is asked for)."""
     device = entry_device(device)
-    if statics.get("scene.subsurface"):
-        raise NotImplementedError("subsurface scattering is not ported yet")
 
     ga = _sub(arrays, "geom")
     geom = Geometry(
@@ -150,11 +159,17 @@ def scene_from_numpy(arrays: dict, statics: dict, device="cuda") -> Scene:
         _sub(arrays, "media"),
         {k[len("media."):]: x for k, x in statics.items()
          if k.startswith("media.")}, device)
+    subsurface = None
+    if statics.get("scene.subsurface"):
+        subsurface = ss.table_from_arrays(
+            _sub(arrays, "subsurface"),
+            {k: statics[f"subsurface.{k}"] for k in ss.SUBSURFACE_STATICS},
+            device)
     sc = _sub(arrays, "scene")
     return Scene(geom=geom, bsdfs=bsdfs, textures=textures,
                  emitters=emitters, sensor=sensor, media=media,
                  camera_medium=int(statics["scene.camera_medium"]),
-                 clusters=clusters, motion=motion,
+                 clusters=clusters, motion=motion, subsurface=subsurface,
                  shutter=tuple(float(np.float32(sa[k])) for k in
                                ("shutter_open", "shutter_time")),
                  **{k: host_tensor(sc[k], np.int32, device)

@@ -14,7 +14,11 @@ settings, and the two-level cluster hierarchy of scenes above
 ``BRUTE_FORCE_MAX`` triangles (the motion hierarchy for a deformable one),
 and the participating media: the medium records of the ``media``
 factories, each shape's interior and exterior medium and the camera's
-(``camera_medium``).  Subsurface scattering is not ported.  Instancing and
+(``camera_medium``), and the subsurface records (``add_subsurface``) with
+each shape's record, whose table (``subsurface/build_subsurface``: the
+surface points, their irradiance through the scene's own intersection
+kernels, the hash grid) is built on the scene's device once the scene
+exists, as the reference builds it.  Instancing and
 deformable motion together raise, as in the reference.  The scene loader
 (``scene/xml.py``) drives it through the registered plugins and sets
 ``resolve_path`` to its search path.  The host arithmetic (float64 numpy, then one cast to float32) is
@@ -65,6 +69,8 @@ class SceneBuilder:
         self.shape_interior: list[int] = []
         self.shape_exterior: list[int] = []
         self.camera_medium: int = INVALID
+        self.subsurface_records: list[dict] = []
+        self.shape_subsurface: list[int] = []
         self.sensor: Sensor | None = None
         self.settings = RenderSettings()
         # the frame-1 mirror of the triangle tables (deformable shapes)
@@ -148,14 +154,23 @@ class SceneBuilder:
         return self.add_bsdf(bc.default_record())
 
     def new_shape(self, bsdf_id: int, emitter_id: int = INVALID,
-                  interior: int = INVALID, exterior: int = INVALID) -> int:
-        """A shape of BSDF row ``bsdf_id``, its emitter and the medium rows
-        inside and outside it; returns the shape id."""
+                  interior: int = INVALID, exterior: int = INVALID,
+                  subsurface: int = INVALID) -> int:
+        """A shape of BSDF row ``bsdf_id``, its emitter, the medium rows
+        inside and outside it and its subsurface record; returns the shape
+        id."""
         self.shape_bsdf.append(bsdf_id)
         self.shape_emitter.append(emitter_id)
         self.shape_interior.append(interior)
         self.shape_exterior.append(exterior)
+        self.shape_subsurface.append(subsurface)
         return len(self.shape_bsdf) - 1
+
+    def add_subsurface(self, record: dict) -> int:
+        """A subsurface record (the ``subsurface`` factories' form); returns
+        its id."""
+        self.subsurface_records.append(record)
+        return len(self.subsurface_records) - 1
 
     def add_medium(self, record: dict) -> int:
         """A medium record (the ``media`` factories' form); its row is also
@@ -318,11 +333,18 @@ class SceneBuilder:
                                         dtype=torch.int32, device=device),
             shape_exterior=torch.tensor(self.shape_exterior or [INVALID],
                                         dtype=torch.int32, device=device),
+            shape_subsurface=torch.tensor(self.shape_subsurface or [INVALID],
+                                          dtype=torch.int32, device=device),
             camera_medium=self.camera_medium,
             clusters=clusters,
             motion=motion,
             shutter=shutter,
         )
+        if self.subsurface_records:
+            from ..subsurface import build_subsurface
+
+            scene = dataclasses.replace(scene, subsurface=build_subsurface(
+                self.subsurface_records, self, scene))
         return scene, self.settings
 
     def _instanced_hierarchy(self, tri: dict, device):

@@ -9,8 +9,10 @@ tables (``motion``); :meth:`Scene.with_time` is the scene at one shutter
 time, which a render pass shares across its wavefront.  Participating
 media (``media``, a one-row vacuum table without any) are named per shape
 (``shape_interior``, ``shape_exterior``) and for the camera
-(``camera_medium``), as in the reference.  Subsurface scattering is not
-ported; a scene that needs it raises where it is built (:mod:`.bridge`).
+(``camera_medium``), as in the reference.  A shape's subsurface record
+(``shape_subsurface``) names its row of the subsurface table
+(``subsurface``, :class:`..subsurface.SubsurfaceTable`, or None), which
+:meth:`Scene.subsurface_at` looks up for the path integrator.
 """
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ class Scene:
     # shutter time needs no read from the device
     shutter: tuple = (0.0, 0.0)
     camera_medium: int = INVALID  # the sensor's medium id
+    shape_subsurface: torch.Tensor | None = None  # (S,) int32 record ids
+    subsurface: object = None  # SubsurfaceTable or None
 
     @property
     def device(self) -> torch.device:
@@ -154,3 +158,12 @@ class Scene:
         sid = torch.where(shape_id == INVALID, 0, shape_id)
         return torch.where(shape_id == INVALID, INVALID,
                            self.shape_emitter[sid])
+
+    def subsurface_at(self, shape_id, valid) -> torch.Tensor:
+        """The subsurface record of the lanes' shapes, INVALID where the
+        lane is not ``valid`` or the shape has none."""
+        if self.shape_subsurface is None:
+            return torch.full(shape_id.shape, INVALID, dtype=torch.int32,
+                              device=shape_id.device)
+        sid = torch.where(valid, shape_id, 0)
+        return torch.where(valid, self.shape_subsurface[sid], INVALID)

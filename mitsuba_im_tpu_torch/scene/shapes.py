@@ -45,15 +45,16 @@ def attach_area_emitter(b, record: dict, shape_id: int, kind=AK_TRIMESH,
 def sphere(b, bsdf_id: int, center=(0.0, 0.0, 0.0), radius: float = 1.0,
            to_world: Transform | None = None,
            emitter: dict | None = None, interior: int = INVALID,
-           exterior: int = INVALID) -> int:
+           exterior: int = INVALID, subsurface: int = INVALID) -> int:
     """A sphere (``to_world`` moves its centre and scales its radius by the
     mean axis scale); with an ``area`` record ``emitter`` it emits.  The
-    media rows ``interior`` and ``exterior`` lie inside and outside it.
-    Returns the shape id."""
+    media rows ``interior`` and ``exterior`` lie inside and outside it;
+    ``subsurface`` is its subsurface record.  Returns the shape id."""
     xf = to_world if to_world is not None else Transform()
     center = xf.apply_point(center)
     radius = float(radius * np.linalg.norm(xf.m[:3, :3], axis=0).mean())
-    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior)
+    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior,
+                      subsurface=subsurface)
     prim = b.add_sphere(center, radius, sid)
     if emitter is not None:
         attach_area_emitter(b, emitter, sid, AK_SPHERE, prim,
@@ -63,7 +64,8 @@ def sphere(b, bsdf_id: int, center=(0.0, 0.0, 0.0), radius: float = 1.0,
 
 def disk(b, bsdf_id: int, to_world: Transform | None = None,
          flip_normals: bool = False, emitter: dict | None = None,
-         interior: int = INVALID, exterior: int = INVALID) -> int:
+         interior: int = INVALID, exterior: int = INVALID,
+         subsurface: int = INVALID) -> int:
     """The unit disk in the xy plane facing +z, placed by ``to_world`` (its
     radius is the length of the transformed x axis); ``flip_normals`` turns
     it to face -z.  With an ``area`` record ``emitter`` it emits from its
@@ -79,7 +81,8 @@ def disk(b, bsdf_id: int, to_world: Transform | None = None,
         n = -n
     s_u = s_axis / max(np.linalg.norm(s_axis), 1e-12)
     t_u = np.cross(n, s_u)
-    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior)
+    sid = b.new_shape(bsdf_id, interior=interior, exterior=exterior,
+                      subsurface=subsurface)
     prim = b.add_disk(c, n, s_u, t_u, radius, sid)
     if emitter is not None:
         attach_area_emitter(b, emitter, sid, AK_DISK, prim,
@@ -89,24 +92,30 @@ def disk(b, bsdf_id: int, to_world: Transform | None = None,
 
 # -- the registered plugins ------------------------------------------------
 
-def _medium_ids(props: Properties) -> dict:
+def _child_ids(props: Properties, ctx) -> dict:
     """The rows of the shape's ``interior`` and ``exterior`` media (nested
-    or by ``<ref>``), INVALID where it names none."""
+    or by ``<ref>``) and its ``subsurface`` record (a nested record is
+    added to the builder; a loaded child or a ``<ref>`` is its id), INVALID
+    where it names none.  Call after :func:`_shape_bsdf`: the reference
+    adds the BSDF row first."""
     out = {}
     for key in ("interior", "exterior"):
         rec = props.children.get(key)
         out[key] = (rec["id"] if isinstance(rec, dict) and "id" in rec
                     else INVALID)
+    ss = props.children.get("subsurface")
+    if isinstance(ss, dict):
+        out["subsurface"] = ctx.add_subsurface(ss)
+    elif isinstance(ss, (int, np.integer)):
+        out["subsurface"] = int(ss)
+    else:
+        out["subsurface"] = INVALID
     return out
 
 
 def _shape_bsdf(props: Properties, ctx) -> int:
     """The shape's BSDF row: its nested record, a referenced id, or a new
-    default row.  Subsurface children are not ported."""
-    if "subsurface" in props.children:
-        raise NotImplementedError(
-            "shape subsurface children are not ported yet (ROADMAP queue A "
-            "item 7.7)")
+    default row."""
     b = props.children.get("bsdf")
     if isinstance(b, dict):
         return ctx.add_bsdf(b)
@@ -116,8 +125,10 @@ def _shape_bsdf(props: Properties, ctx) -> int:
 
 
 def _new_shape(props: Properties, ctx) -> int:
-    """A new shape with the BSDF and media of its children."""
-    return ctx.new_shape(_shape_bsdf(props, ctx), **_medium_ids(props))
+    """A new shape with the BSDF, media and subsurface record of its
+    children."""
+    bsdf_id = _shape_bsdf(props, ctx)
+    return ctx.new_shape(bsdf_id, **_child_ids(props, ctx))
 
 
 def _finish_mesh(props: Properties, ctx, mesh: TriMesh) -> int:
@@ -183,16 +194,18 @@ def _sphere(props: Properties, ctx=None):
     xf = props.get_transform("toWorld", Transform())
     center = props.get_point("center", np.zeros(3))
     radius = props.get_float("radius", 1.0)
-    return sphere(ctx, _shape_bsdf(props, ctx), center, radius, xf,
-                  _emitter_child(props), **_medium_ids(props))
+    bsdf_id = _shape_bsdf(props, ctx)
+    return sphere(ctx, bsdf_id, center, radius, xf, _emitter_child(props),
+                  **_child_ids(props, ctx))
 
 
 @register("shape", "disk")
 def _disk(props: Properties, ctx=None):
     xf = props.get_transform("toWorld", Transform())
     flip = props.get_bool("flipNormals", False)
-    return disk(ctx, _shape_bsdf(props, ctx), xf, flip,
-                _emitter_child(props), **_medium_ids(props))
+    bsdf_id = _shape_bsdf(props, ctx)
+    return disk(ctx, bsdf_id, xf, flip, _emitter_child(props),
+                **_child_ids(props, ctx))
 
 
 def _quad_mesh() -> TriMesh:

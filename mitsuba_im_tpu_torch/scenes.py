@@ -794,3 +794,155 @@ def volume_large(device="cuda", res: int = 768,
     b.settings.integrator = "volpath"
     b.settings.integrator_props = dict(max_depth=3)
     return b.build(device)
+
+
+# ---------------------------------------------------------------------------
+# subsurface scattering
+# ---------------------------------------------------------------------------
+
+# the Cornell blocks: (centre x, centre z, width, depth, height, turn about
+# y in degrees); the tall and the short block, and a third, small one
+SUBSURFACE_BLOCKS = ((-0.35, -0.3, 0.55, 0.55, 1.2, 20.0),
+                     (0.4, 0.3, 0.55, 0.55, 0.6, -18.0),
+                     (-0.1, 0.55, 0.35, 0.35, 0.35, 40.0))
+# sigma_tr = sqrt(3 sigma_a (sigma_s + sigma_a)) of the dipole record below
+# is (15.9, 23.0, 33.9) a unit: diffusion lengths 0.063, 0.043, 0.029,
+# 0.05-0.11 of the blocks' 0.55 width; its cell 4 / 15.9 = 0.25
+SUBSURFACE_DIPOLE = dict(sigma_s=np.full(3, 40.0),
+                         sigma_a=np.array([2.0, 4.0, 8.0]))
+# mean free paths 1 / sigma_t of 0.12, 0.11, 0.10: about a fifth of the
+# short block's width
+SUBSURFACE_SINGLE = dict(sigma_s=np.full(3, 8.0),
+                         sigma_a=np.array([0.5, 1.0, 2.0]))
+
+
+def subsurface_record(kind: str = "dipole", scale: float = 1.0,
+                      tint=(1.0, 1.0, 1.0)) -> dict:
+    """A ``dipole`` or ``singlescatter`` record as its factory records it
+    (g 0, eta 1.33): :data:`SUBSURFACE_DIPOLE` or
+    :data:`SUBSURFACE_SINGLE`, scaled by ``scale`` (lengths / ``scale``)
+    and sigma_a by ``tint``."""
+    if kind not in ("dipole", "singlescatter"):
+        raise ValueError(f"subsurface kind {kind!r}")
+    c = SUBSURFACE_DIPOLE if kind == "dipole" else SUBSURFACE_SINGLE
+    return dict(sigma_s=c["sigma_s"] * scale,
+                sigma_a=c["sigma_a"] * np.asarray(tint, np.float64) * scale,
+                g=0.0, eta=1.33, single=kind == "singlescatter")
+
+
+def block_mesh(cx, cz, w, d, h, turn_deg) -> TriMesh:
+    """A closed box of 12 triangles on the floor (y 0 to ``h``), ``w`` x
+    ``d`` turned about y, wound so that every geometric normal faces out
+    (face normals: no vertex normals)."""
+    a = np.radians(turn_deg)
+    rot = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                    [-np.sin(a), 0.0, np.cos(a)]])
+    corners = np.array([[x * w / 2, y * h, z * d / 2] for x in (-1, 1)
+                        for y in (0, 1) for z in (-1, 1)])
+    p = corners @ rot.T + [cx, 0.0, cz]
+    quads = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3))
+    centre = p.mean(0)
+    idx = []
+    for q in quads:
+        for tri in ((q[0], q[1], q[2]), (q[2], q[3], q[0])):
+            n = np.cross(p[tri[1]] - p[tri[0]], p[tri[2]] - p[tri[0]])
+            if np.dot(n, p[list(tri)].mean(0) - centre) < 0:
+                tri = (tri[0], tri[2], tri[1])
+            idx.append(tri)
+    return TriMesh(p, np.array(idx, np.int64))
+
+
+def fill_subsurface_cornell(b, grid: bool = False):
+    """The content of :func:`subsurface_cornell` (or, with ``grid``, of
+    :func:`subsurface_grid`) into the builder ``b`` (the JAX package's
+    too): ``_tiny_cornell``'s box and light and the blocks of
+    :data:`SUBSURFACE_BLOCKS` under a dim diffuse coat (reflectance 0.1),
+    each with its subsurface record."""
+    _cornell_box(b)
+    coat = bc.default_record()
+    coat["refl"] = np.full(3, 0.1)
+    cid = b.add_bsdf(coat)
+    if grid:
+        recs = [subsurface_record("dipole", tint=t)
+                for t in ((1.0, 1.0, 1.0), (4.0, 1.0, 0.5),
+                          (0.5, 1.0, 4.0))]
+    else:
+        recs = [subsurface_record("dipole"),
+                subsurface_record("singlescatter")]
+    for blk, rec in zip(SUBSURFACE_BLOCKS, recs):
+        b.add_trimesh(block_mesh(*blk),
+                      b.new_shape(cid, subsurface=b.add_subsurface(rec)))
+
+
+def _subsurface_settings(b, res: int, depth: int):
+    b.settings.width = b.settings.height = res
+    b.settings.spp = 1
+    b.settings.rfilter = F_BOX
+    b.settings.integrator = "path"
+    b.settings.integrator_props = dict(max_depth=depth)
+
+
+def subsurface_cornell(device="cuda", res: int = 1024):
+    """The Cornell box with a tall 12-triangle block under ``dipole``
+    (sigmaS 40, sigmaA (2, 4, 8): diffusion lengths 0.063, 0.043, 0.029,
+    one record of 512 points, the dense branch) and a short block under
+    ``singlescatter`` (sigmaS 8, sigmaA (0.5, 1, 2)), both eta 1.33 under a
+    diffuse coat of reflectance 0.1; ``path`` at ``res``^2, depth 5, 1 spp,
+    the box filter.  Returns (Scene, settings) on ``device``, the card
+    unless the CPU is asked for."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_subsurface_cornell(b)
+    _cornell_sensor(b)
+    _subsurface_settings(b, res, 5)
+    return b.build(device)
+
+
+def subsurface_grid(device="cuda", res: int = 256):
+    """The box of :func:`subsurface_cornell` with three dipole blocks (the
+    tall, the short and a small one; sigma_a tinted (1, 1, 1), (4, 1, 0.5)
+    and (0.5, 1, 4)): three records of 512 points, 1,536 > 1,024, so
+    shading takes the hash grid's 27-cell scan; ``path`` at ``res``^2,
+    depth 5, 1 spp."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_subsurface_cornell(b, grid=True)
+    _cornell_sensor(b)
+    _subsurface_settings(b, res, 5)
+    return b.build(device)
+
+
+def fill_subsurface_large(b, kind: str = "dipole",
+                          n_tris_target: int = 1_120_000):
+    """The content of :func:`subsurface_large` into the builder ``b``."""
+    pos, idx = displaced_sphere(n_tris_target)
+    coat = bc.default_record()
+    coat["refl"] = np.full(3, 0.1)
+    # lengths scaled to the 0.08 sphere: diffusion lengths 0.0105, 0.0072,
+    # 0.0049 (dipole), mean free paths 0.020-0.017 (singlescatter)
+    rec = subsurface_record(kind, scale=6.0)
+    b.add_trimesh(TriMesh(pos, idx).compute_normals(),
+                  b.new_shape(b.add_bsdf(coat),
+                              subsurface=b.add_subsurface(rec)))
+    b.add_emitter(emf.constant(1.0))
+
+
+def subsurface_large(device="cuda", kind: str = "dipole", res: int = 768,
+                     n_tris_target: int = 1_120_000):
+    """The large scene's displaced sphere (1,120,504 triangles at the
+    default target, the hierarchy route) under a diffuse coat of
+    reflectance 0.1 and a ``kind`` record (``dipole``: 512 points, the
+    dense branch; ``singlescatter``) with lengths scaled by 1/6 to the
+    sphere, under the unit constant environment, through the large
+    scene's pinhole; ``path`` at ``res``^2, depth 3, 1 spp.  Returns
+    (Scene, settings) on ``device``."""
+    device = entry_device(device)
+    b = SceneBuilder()
+    fill_subsurface_large(b, kind, n_tris_target)
+    c = LARGE_CAMERA
+    b.sensor = make_sensor(  # a host copy; build() moves it to device
+        S_PERSPECTIVE, Transform.look_at(c["origin"], c["target"], c["up"]),
+        fov_deg=c["fov_deg"], device="cpu")
+    _subsurface_settings(b, res, 3)
+    return b.build(device)

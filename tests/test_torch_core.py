@@ -50,7 +50,9 @@ def test_sampler_blocks_bit_exact(sample, seed):
 def test_other_sampler_kinds_raise():
     """The SOBOL kind, which raised before the samplers were ported (the
     name is kept), draws the reference's blocks bit for bit (every kind:
-    test_torch_sampler.py); the MCMC table mode still raises."""
+    test_torch_sampler.py); so does the MCMC table mode, which raised
+    until it was ported (test_torch_mcmc.py has its draws past the table
+    and over the QMC kinds)."""
     pix = np.arange(64, dtype=np.uint32)
     js = jrng.make_sampler_v(jnp.asarray(pix), jnp.uint32(3), jnp.uint32(9),
                              kind=jrng.SOBOL, spp=4)
@@ -61,10 +63,18 @@ def test_other_sampler_kinds_raise():
         ts, tu = trng.next_block4_v(ts)
         for a, b in zip(ju, tu):
             np.testing.assert_array_equal(npy(b), npy(a))
-    s = trng.make_sampler_v(torch.arange(4), 0, 0).replace(
-        table=torch.zeros(4, 2, 4))
-    with pytest.raises(NotImplementedError):
-        trng.next_block4_v(s)
+    table = np.random.default_rng(4).random((64, 2, 4), dtype=np.float32)
+    js = jrng.make_sampler_v(jnp.asarray(pix), jnp.uint32(3), jnp.uint32(9),
+                             kind=jrng.SOBOL, spp=4).replace(
+        table=jnp.asarray(table))
+    ts = trng.make_sampler_v(torch.from_numpy(pix.astype(np.int64)), 3, 9,
+                             kind=trng.SOBOL, spp=4).replace(
+        table=torch.from_numpy(table))
+    for _ in range(3):
+        js, ju = jrng.next_block4_v(js)
+        ts, tu = trng.next_block4_v(ts)
+        for a, b in zip(ju, tu):
+            np.testing.assert_array_equal(npy(b), npy(a))
 
 
 def _uniforms(rng, n):

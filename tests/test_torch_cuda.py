@@ -22,7 +22,11 @@ through ``render`` on the Cornell box and the large scene against the CPU
 with their launch counts, their means against the path tracer, and bdpt
 against volpath on ``volume_cornell``; sppm, vpl, irrcache and adaptive
 on the card against the CPU with their launch counts, and the photon and
-VPL rays through both kernel families against the plain versions.
+VPL rays through both kernel families against the plain versions; the
+subsurface scenes (dense and grid dipoles, single scatter) on the card
+against the CPU with their launch counts, their shadow and refracted
+rays through both kernel families, and pssmlt and erpt on the card
+against the CPU.
 """
 import dataclasses
 
@@ -45,8 +49,10 @@ from mitsuba_im_tpu_torch.accel import intersect as isect
 from mitsuba_im_tpu_torch.media import medium as med
 from mitsuba_im_tpu_torch.scenes import (SUN_DIR, large_scene,
                                          lights_cornell, material_cornell,
-                                         textured_cornell, tiny_cornell,
-                                         volume_cornell, volume_large)
+                                         subsurface_cornell, subsurface_grid,
+                                         subsurface_large, textured_cornell,
+                                         tiny_cornell, volume_cornell,
+                                         volume_large)
 
 pytestmark = pytest.mark.cuda
 
@@ -769,3 +775,132 @@ def test_photon_rays_match_plain_versions(cuda):
                     ch.hier_anyhit(h, o, d, tmin, tmax),
                     hy.intersect_hierarchy_plain(h, o, d, tmin, tmax,
                                                  any_hit=True)[0].found)
+
+
+# subsurface scenes at 64^2: (maker, closest and any-hit launches of the
+# table build, then of a 1-spp pass)
+SUBSURFACE_CASES = {
+    "cornell": (lambda dev: subsurface_cornell(dev, 64), (0, 8), (13, 8)),
+    "grid": (lambda dev: subsurface_grid(dev, 64), (0, 8), (5, 4)),
+}
+
+
+@pytest.mark.parametrize("which", list(SUBSURFACE_CASES))
+def test_subsurface_render_card_vs_cpu(cuda, which):
+    """The dipole's table build (8 shadow wavefronts over the points) and a
+    pass through ``render`` with the single-scatter estimator's 2 + 1
+    launches a bounce on the card, its image against the CPU's under
+    parity_check.py's gate; the grid case takes the hash grid's scan."""
+    from mitsuba_im_tpu_torch import subsurface as ss
+    from mitsuba_im_tpu_torch.render.job import render
+
+    make, build, per_pass = SUBSURFACE_CASES[which]
+    ci.reset_launch_counts()
+    scene, settings = make(cuda)
+    assert (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches) == build
+    assert (scene.subsurface.n_points > ss.DENSE_MAX) == (which == "grid")
+    ci.reset_launch_counts()
+    card = render(scene, settings).sum(-1).cpu().numpy()
+    assert (ci.closest_tris_v.launches,
+            ci.anyhit_tris_v.launches) == per_pass
+    cpu_scene, cpu_settings = make(torch.device("cpu"))
+    cpu = render(cpu_scene, cpu_settings).sum(-1).cpu().numpy()
+    assert _gate_ok(card.ravel(), cpu.ravel())
+
+
+def test_subsurface_rays_match_plain_versions(cuda):
+    """The irradiance points' shadow rays and the refracted rays of the
+    single-scatter estimator through both kernel families, bit for bit:
+    subsurface_cornell (brute force) and the large sphere (hierarchy)."""
+    from mitsuba_im_tpu_torch.render.job import render
+
+    for which in ("cornell", "large"):
+        seen = {"occluded_v": [], "intersect_v": []}
+        origs = {fn: getattr(isect, fn) for fn in seen}
+
+        def spy_for(fn):
+            def spy(geom, o, d, tmin, tmax, **kw):
+                seen[fn].append((o, d, tmin, tmax))
+                return origs[fn](geom, o, d, tmin, tmax, **kw)
+            return spy
+
+        for fn in seen:
+            setattr(isect, fn, spy_for(fn))
+        try:
+            if which == "cornell":
+                scene, settings = subsurface_cornell(cuda, 64)
+            else:
+                scene, settings = subsurface_large(cuda, "dipole", 64)
+                single = subsurface_large(cuda, "singlescatter", 64)
+                scene_s, settings_s = single
+            shadow = seen["occluded_v"][0]
+            seen["intersect_v"].clear()
+            render(*(single if which == "large" else (scene, settings)))
+        finally:
+            for fn, orig in origs.items():
+                setattr(isect, fn, orig)
+        refracted = seen["intersect_v"][1]
+        for o, d, tmin, tmax in (shadow, refracted):
+            if which == "cornell":
+                g = scene.geom
+                tris = (g.tri_p0, g.tri_e1, g.tri_e2)
+                assert _same(ci.closest_tris_v(*tris, o, d, tmin, tmax),
+                             ci.closest_tris_plain(*tris, o, d, tmin, tmax))
+                assert torch.equal(
+                    ci.anyhit_tris_v(*tris, o, d, tmin, tmax),
+                    ci.anyhit_tris_plain(*tris, o, d, tmin, tmax))
+            else:
+                h = scene.clusters
+                k = ch.hier_closest(h, o, d, tmin, tmax)
+                p, _ = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax)
+                assert all(torch.equal(a, b) for a, b in zip(k, p))
+                assert torch.equal(
+                    ch.hier_anyhit(h, o, d, tmin, tmax),
+                    hy.intersect_hierarchy_plain(h, o, d, tmin, tmax,
+                                                 any_hit=True)[0].found)
+
+
+@pytest.mark.parametrize("integrator", ["pssmlt", "erpt"])
+def test_mcmc_card_vs_cpu(cuda, integrator):
+    """pssmlt (bidirectional, 512 chains) and erpt (unidirectional, chain
+    length 4) through ``render`` at 32^2, depth 4: their launches (7 + 9
+    an evaluation bidirectionally, 4 + 3 a replay),
+    ``_eval`` of the same tables card vs CPU within rel 1e-4 on all but
+    1% of the lanes, and the image's luminance sum against the CPU's
+    within 2% (a chain whose acceptance flips on a last bit walks another
+    way, so the images are not gated per pixel)."""
+    from mitsuba_im_tpu_torch.integrators import pssmlt
+    from mitsuba_im_tpu_torch.render.job import render
+
+    props = (dict(max_depth=4, n_chains=512, burn_in=4)
+             if integrator == "pssmlt" else dict(max_depth=4, chain_length=4))
+    imgs = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = tiny_cornell(dev)
+        settings = dataclasses.replace(settings, width=32, height=32,
+                                       integrator=integrator,
+                                       integrator_props=props)
+        ci.reset_launch_counts()
+        imgs[dev.type] = render(scene, settings, spp=4).cpu().numpy()
+        if dev.type == "cuda":
+            if integrator == "pssmlt":
+                evals, per = 8 + 32 * 32 * 4 // 512, (7, 9)
+            else:
+                evals, per = 4 * 5, (4, 3)
+            assert (ci.closest_tris_v.launches, ci.anyhit_tris_v.launches) \
+                == (per[0] * evals, per[1] * evals)
+            card_scene = scene
+        cfg = pssmlt.pssmlt_config(scene, settings) if integrator == \
+            "pssmlt" else pssmlt.PSSMLTConfig(max_depth=4, n_chains=512)
+    table = pssmlt._draw_table(torch.arange(512), 3, 7,
+                               pssmlt._n_blocks(cfg), 1)
+    cfg = dataclasses.replace(cfg, n_chains=512)
+    a = pssmlt._eval(card_scene, table.to(cuda), cfg, 32, 32)
+    b = pssmlt._eval(scene, table, cfg, 32, 32)
+    rel = ((a[1].cpu() - b[1]).abs() / b[1].abs().clamp_min(1e-3)
+           ).flatten(1).amax(1)
+    assert int((rel > 1e-4).sum()) <= 5
+    lum = [(x * np.array([0.212671, 0.715160, 0.072169])).sum()
+           for x in (imgs["cuda"], imgs["cpu"])]
+    assert np.isfinite(imgs["cuda"]).all() and lum[0] > 0
+    assert abs(lum[0] - lum[1]) / lum[1] < 0.02

@@ -81,8 +81,9 @@ def jax_shapes_scene(sphere_bsdf: dict | None = None,
 def scene_leaves(scene) -> dict:
     """{"<part>.<field>": tensor or static} of a port Scene, the cluster
     hierarchy's and the deformable motion mirror's included when the scene
-    has them, the media table, the shapes' and the camera's media, and the
-    shutter the scene's build read to the host."""
+    has them, the media table, the shapes' and the camera's media, the
+    shapes' subsurface records and the subsurface table but its traced
+    irradiance, and the shutter the scene's build read to the host."""
     import dataclasses
 
     out = {}
@@ -97,8 +98,17 @@ def scene_leaves(scene) -> dict:
     for f in dataclasses.fields(scene.media):
         out[f"media.{f.name}"] = getattr(scene.media, f.name)
     for k in ("shape_bsdf", "shape_emitter", "shape_interior",
-              "shape_exterior"):
+              "shape_exterior", "shape_subsurface"):
         out[f"scene.{k}"] = getattr(scene, k)
+    if scene.subsurface is None:
+        out["subsurface"] = None
+    else:
+        # the points' irradiance is traced by each package's own build
+        # (held at f32 tolerance in test_torch_subsurface.py)
+        for f in dataclasses.fields(scene.subsurface):
+            if f.name != "irr":
+                out[f"subsurface.{f.name}"] = getattr(scene.subsurface,
+                                                      f.name)
     out["scene.shutter"] = scene.shutter
     out["scene.camera_medium"] = scene.camera_medium
     if scene.motion is None:

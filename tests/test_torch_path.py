@@ -83,7 +83,9 @@ def test_mi_weight():
 def test_ray_differentials_raise():
     """Ray differentials, which raised before textures were ported (the
     name is kept), change nothing in a scene without MIP pyramids, as in
-    the reference; the MCMC table mode of the sampler raises."""
+    the reference; the MCMC table mode of the sampler, which raised until
+    it was ported, replays a table of the hash sampler's own blocks to the
+    same radiance."""
     scene = bridged(jax_cornell()[0])
     assert not scene.textures.has_mip
     pix = torch.arange(64)
@@ -94,7 +96,10 @@ def test_ray_differentials_raise():
                           **kw)[0] for kw in ({}, dict(dddx=d, dddy=d))]
     for a, b in zip(*li):
         assert torch.equal(a, b)
-    # the MCMC table mode, the one sampler mode left unported, raises
-    s = trng.make_sampler_v(pix, 0, 0).replace(table=torch.zeros(64, 2, 4))
-    with pytest.raises(NotImplementedError):
-        tpath.path_li_v(scene, s, o, d, cfg)
+    # the MCMC table mode: the first two blocks from a table of the
+    # sampler's own words, the rest past its end from the hash
+    table = trng.draw_blocks(pix, 0, 0, 2)
+    s = trng.make_sampler_v(pix, 0, 0).replace(table=table)
+    li_t, _ = tpath.path_li_v(scene, s, o, d, cfg)
+    for a, b in zip(li_t, li[0]):
+        assert torch.equal(a, b)

@@ -38,8 +38,11 @@ def _leaves(scene):
         for f in dataclasses.fields(obj):
             out[f"{part}.{f.name}"] = getattr(obj, f.name)
     for k in ("shape_bsdf", "shape_emitter", "shape_interior",
-              "shape_exterior"):
+              "shape_exterior", "shape_subsurface"):
         out[f"scene.{k}"] = getattr(scene, k)
+    if scene.subsurface is not None:
+        for f in dataclasses.fields(scene.subsurface):
+            out[f"subsurface.{f.name}"] = getattr(scene.subsurface, f.name)
     return out
 
 
