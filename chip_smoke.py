@@ -321,7 +321,28 @@ Phases, in order; any failure raises and the run exits non-zero:
    its 128^2 mean against path;
 55. ``[slice files]``: the slice's scene files through the command line on
    the card at 128^2: a nested ``dipole`` and a ``singlescatter`` by
-   ``<ref>``, pssmlt bidirectional and not, erpt.
+   ``<ref>``, pssmlt bidirectional and not, erpt;
+56. ``[mlt cornell]``: mlt (``job.render``) on ``caustic_cornell`` (a mirror
+   back wall, a glass sphere) at 1024^2, bidirectional, depth 5, 65,536
+   chains (16 steps), p_manifold 0.15: 9 + 14 launches an evaluation and
+   68 closest-hit launches a step's manifold walks; a step's time, device
+   profile and splat time, the manifold lanes' share of a step, each
+   pattern's matching and moved lanes, the acceptance, the peak memory;
+   both brute-force kernels bit for bit on the Newton re-projection rays;
+57. ``[mlt card vs cpu]``: 4,096 chains at 256^2, one step card vs CPU from
+   the same tables: the proposals (2 ulp), the manifold moves and factors,
+   the targets, the acceptance decisions; the C3 check (a moved lane's
+   replay reaches the solved vertex; the reference's polar write-back does
+   not);
+58. ``[mlt mean]``: its 128^2 mean (64 mutations a pixel, 131,072
+   chains) within 5% of bdpt's, each channel reported;
+59. ``[mlt large]``: mlt on the 1,120,504-triangle scene at 768^2, depth 3,
+   65,536 chains, the init and 4 steps: 5 + 5 hierarchy launches an
+   evaluation and 24 a step's manifold walks, a step's time and idle
+   share, both hierarchy kernels bit for bit on the re-projection rays;
+60. ``[slice files]``: tests/test_mcmc.py's caustic scene under
+   ``<integrator type="mlt"/>`` through the command line at 256^2, its
+   mean within 10% of the port's bdpt.
 
 Every phase logs its seconds (``[seconds] name: s``).  The next-to-last
 line is the kernels' JSON record, the last line
@@ -360,7 +381,7 @@ from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
 from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
 from mitsuba_im_tpu_torch.io import bitmap, exr, png
 from mitsuba_im_tpu_torch.integrators import (adaptive, erpt, irrcache,
-                                              pssmlt, sppm, vpl)
+                                              mlt, pssmlt, sppm, vpl)
 from mitsuba_im_tpu_torch import subsurface as ss
 from mitsuba_im_tpu_torch.integrators.path import PathConfig, path_li_v
 from mitsuba_im_tpu_torch.integrators.volpath import MAX_NULL_SEGMENTS
@@ -383,6 +404,8 @@ from mitsuba_im_tpu_torch.media.volume import write_vol
 from mitsuba_im_tpu_torch.scenes import LARGE_CAMERA, SUN_DIR, displaced_sphere
 from mitsuba_im_tpu_torch.scenes import (subsurface_cornell, subsurface_grid,
                                          subsurface_large, subsurface_record)
+from mitsuba_im_tpu_torch.scenes import caustic_cornell
+from mitsuba_im_tpu_torch.bidir import manifold as mf
 from mitsuba_im_tpu_torch.emitter import hosek
 from mitsuba_im_tpu_torch.scene import build as scene_build
 from mitsuba_im_tpu_torch.scene import mesh as mesh_mod
@@ -1351,11 +1374,15 @@ def large_grad_phase(scene, settings):
 # the new BSDF families and the environment map
 # ---------------------------------------------------------------------------
 
-def device_profile(tag, run, passes=1, top=0):
+def device_profile(tag, run, passes=1, top=0, warm=True):
     """Device operations, device ms and idle share per pass of ``run(k)``
-    (k passes) under torch.profiler, after one warm-up pass; with ``top``,
-    the device ms a pass of the ``top`` kernels by name that take most."""
-    run(1)
+    (k passes) under torch.profiler, recording the device's activity alone
+    (the same device events; collected in a fraction of the time of a
+    trace with the host's operations), after one warm-up pass unless
+    ``warm`` is False; with ``top``, the device ms a pass of the ``top``
+    kernels by name that take most."""
+    if warm:
+        run(1)
     events = device_events(run, passes)
     dev = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not dev:
@@ -2580,13 +2607,17 @@ def motion_large_phase(dev):
     timing = median_ms_in_turns(calls, 11)
     for k, v in device_ms_in_turns(calls, 11, names=HIER_KERNELS).items():
         timing[f"{k}_device"] = v
-    timing.update(median_ms_in_turns({
-        "motion_closest_plain": lambda: hy.intersect_hierarchy_plain(
-            ht, o, d, EPSILON, 1e30),
-        "motion_anyhit_plain": lambda: hy.intersect_hierarchy_plain(
-            ht, p, w, EPSILON, tmax, any_hit=True, active=found)}, 1))
-    sh = hy.intersect_hierarchy_plain(ht, p, w, EPSILON, tmax, any_hit=True,
-                                      active=found)[1]
+    # the plain versions (seconds a call) once each, the any hit's work
+    # counters kept for its bound
+    box = {}
+    timing["motion_closest_plain"] = cuda_ms(
+        lambda: hy.intersect_hierarchy_plain(ht, o, d, EPSILON, 1e30), 1,
+        warm=False)
+    timing["motion_anyhit_plain"] = cuda_ms(lambda: box.update(
+        sh=hy.intersect_hierarchy_plain(ht, p, w, EPSILON, tmax,
+                                        any_hit=True, active=found)[1]), 1,
+        warm=False)
+    sh = box["sh"]
     tables = hier_table_bytes(h) + h.blocks1.numel() * 4
 
     def flops(cnt):
@@ -2952,23 +2983,28 @@ def volume_render(tag, scene, settings, expect, rays):
     log(f"[{tag}] tracking loops: {iters:.1f} iterations a pass as the "
         f"batch counts them, {ran:.1f} of them run (the rest skipped beyond "
         f"reach), {syncs:.1f} host syncs a pass")
-    per_pass, turns = pass_time_turns(scene, settings, rays, tag)
+    # the counted render warmed the pass up
+    per_pass, turns = pass_time_turns(scene, settings, rays, tag,
+                                      warm=False)
     prof = device_profile(tag, lambda k: render_film(scene, settings,
-                                                     spp=k))
+                                                     spp=k), warm=False)
     return film, dict(launches=got, peak=peak, iters=iters, ran=ran,
                       syncs=syncs, pass_ms=per_pass, turns=turns, prof=prof)
 
 
-def pass_time_turns(scene, settings, rays, tag, rounds=1, fn=render_film):
+def pass_time_turns(scene, settings, rays, tag, rounds=1, fn=render_film,
+                    warm=True):
     """Per-pass ms as the median of ``rounds`` differences of a 2-pass and
     a 1-pass render (``fn``: render_film, or job.render for the
     integrators with loops of their own) timed in turns (one warm-up pass
-    first); with more rounds the differences show how far a host-bound
-    pass spreads within one run."""
+    first, unless ``warm`` is False where the caller has just rendered);
+    with more rounds the differences show how far a host-bound pass
+    spreads within one run."""
     def run(k):
         return lambda: fn(scene, settings, spp=k)
 
-    run(1)()
+    if warm:
+        run(1)()
     turns = []
     for _ in range(rounds):
         t1 = cuda_ms(run(1), 1, warm=False)
@@ -3189,11 +3225,13 @@ def counted_image(tag, scene, settings, expect):
 
 def loop_measures(tag, scene, settings, rays):
     """The pass time in turns, and the device operations, device time and
-    idle share a pass (torch.profiler) of job.render."""
+    idle share a pass (torch.profiler) of job.render, after the caller's
+    counted render (no warm-up of their own)."""
     per_pass, turns = pass_time_turns(scene, settings, rays, tag,
-                                      fn=job.render)
+                                      fn=job.render, warm=False)
     prof = device_profile(tag, lambda k: job.render(scene, settings,
-                                                    spp=k), top=4)
+                                                    spp=k), top=4,
+                          warm=False)
     return dict(pass_ms=per_pass, turns=turns, prof=prof)
 
 
@@ -3294,13 +3332,19 @@ def ptracer_lights_phase(dev, smi):
                 image_values(cpu_scene, settings, B_PARITY_RES))
 
 
+def bidir_anyhit(depth):
+    """Any-hit launches of one bidirectional evaluation: the NEE and t = 1
+    connections of depth - 1 vertices each, and the inner connections."""
+    return 2 * (depth - 1) + (depth - 2) * (depth - 1) // 2
+
+
 def bdpt_cornell_phase(dev, smi):
     """39. [bdpt cornell]: bdpt on _tiny_cornell at 1024^2, depth 5, 4
     spp, the light image on."""
     scene, settings = tiny_cornell(dev)
     settings = loop_settings(settings, "bdpt", RES, SPP, DEPTH,
                              light_image=True)
-    n_any = 2 * (DEPTH - 1) + (DEPTH - 2) * (DEPTH - 1) // 2
+    n_any = bidir_anyhit(DEPTH)
     img, got, peak = counted_image(
         "bdpt cornell", scene, settings,
         dict(closest=2 * DEPTH - 1, anyhit=n_any))
@@ -3344,7 +3388,7 @@ def bdpt_large_phase(dev, smi):
     connection's segments; card vs CPU at 64^2."""
     scene, settings = large_scene(dev)
     settings = loop_settings(settings, "bdpt", L_RES, L_SPP, L_DEPTH)
-    n_any = 2 * (L_DEPTH - 1) + (L_DEPTH - 2) * (L_DEPTH - 1) // 2
+    n_any = bidir_anyhit(L_DEPTH)
     img, got, peak = counted_image(
         "bdpt large", scene, settings,
         dict(hier_closest=2 * L_DEPTH - 1, hier_anyhit=n_any))
@@ -3468,7 +3512,8 @@ def intersect_calls(run, keep, fn="intersect_v"):
 def slice_render(tag, scene, settings, expect):
     """job.render with every count set to 0 first, timed by CUDA events;
     raises unless the launches are ``expect`` (totals, the keys given; the
-    others 0).  Returns (image numpy, counts, ms, peak GiB)."""
+    others 0; a function is called after the render for them).  Returns
+    (image numpy, counts, ms, peak GiB)."""
     ci.reset_launch_counts()
     ch.reset_launch_counts()
     torch.cuda.synchronize()
@@ -3478,6 +3523,8 @@ def slice_render(tag, scene, settings, expect):
                  1, warm=False)
     got = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if callable(expect):
+        expect = expect()
     want = {k: expect.get(k, 0) for k in got}
     log(f"[{tag}] render {settings.width}x{settings.height} spp "
         f"{settings.spp} integrator {settings.integrator}: launches "
@@ -3631,10 +3678,10 @@ def mean_vs_path(tag, scene, settings, depth, rtol, **props):
 
 def slice_profile(tag, scene, settings, passes):
     """Device operations, device time and idle share a pass of job.render
-    at ``passes`` passes (one profiled run after a warm-up run)."""
+    at ``passes`` passes (one profiled run; the caller has rendered)."""
     p = device_profile(tag, lambda k: job.render(scene, settings,
                                                  spp=passes), passes=1,
-                       top=4)
+                       top=4, warm=False)
     if p is not None:
         for k in ("ops", "device_ms"):
             p[k] /= passes
@@ -4188,7 +4235,7 @@ def pssmlt_cornell_phase(dev, smi):
     cfg = pssmlt.pssmlt_config(scene, settings)
     n_steps = RES * RES // cfg.n_chains
     evals = 8 + n_steps
-    n_any = 2 * (DEPTH - 1) + (DEPTH - 2) * (DEPTH - 1) // 2
+    n_any = bidir_anyhit(DEPTH)
     img, got, ms, peak = slice_render(tag, scene, settings, dict(
         closest=(2 * DEPTH - 1) * evals, anyhit=n_any * evals))
     check_image(tag, img)
@@ -4262,7 +4309,7 @@ def pssmlt_large_phase(dev, smi):
     ms = cuda_ms(run, 1, warm=False)
     got = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    n_any = 2 * (L_DEPTH - 1) + (L_DEPTH - 2) * (L_DEPTH - 1) // 2
+    n_any = bidir_anyhit(L_DEPTH)
     want = {k: 0 for k in got}
     want.update(hier_closest=12 * (2 * L_DEPTH - 1), hier_anyhit=12 * n_any)
     log(f"[{tag}] init (8 luminance rounds) and 4 steps of {cfg.n_chains} "
@@ -4451,11 +4498,530 @@ def slice14_summary(seconds, s_c, s_g, s_l, p_c, p_l, e_c, smi):
         + f" ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# Veach-style MLT and the specular manifold walk
+# ---------------------------------------------------------------------------
+
+MLT_CHAINS = 65536  # the MLT phases' chains on the card (16 steps at 1024^2)
+MLT_P_MANIFOLD = 0.15  # the manifold weight of tests/test_mcmc.py's
+# calibrated MLT render
+MLT_PARITY = (4096, 256)  # chains and image side of the card vs CPU step
+MLT_MEAN = (128, 64, 131072, 8)  # side, mutations a pixel, chains (8
+# steps: each costs the host alike whatever its chains) and bdpt passes
+MLT_FILE_RES = 256  # the caustic scene file's image side
+
+# tests/test_mcmc.py's caustic scene (copied: the smoke imports no test)
+# under mlt, one mutation a pixel
+CAUSTIC_XML = """\
+<scene version="0.6.0">
+    <integrator type="mlt"/>
+    <sensor type="perspective">
+        <float name="fov" value="45"/>
+        <transform name="toWorld">
+            <lookat origin="0, 1.2, 2.5" target="0, 0.2, 0" up="0, 1, 0"/>
+        </transform>
+        <sampler type="independent">
+            <integer name="sampleCount" value="1"/>
+        </sampler>
+        <film type="hdrfilm">
+            <integer name="width" value="{res}"/>
+            <integer name="height" value="{res}"/>
+        </film>
+    </sensor>
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="4"/></transform>
+        <bsdf type="diffuse"><rgb name="reflectance" value="0.7 0.7 0.7"/></bsdf>
+    </shape>
+    <shape type="sphere">
+        <float name="radius" value="0.35"/>
+        <point name="center" x="0" y="0.5" z="0"/>
+        <bsdf type="dielectric"/>
+    </shape>
+    <shape type="sphere">
+        <float name="radius" value="0.03"/>
+        <point name="center" x="0" y="1.8" z="0"/>
+        <emitter type="area"><rgb name="radiance" value="2000 2000 2000"/></emitter>
+    </shape>
+</scene>
+"""
+
+
+def walk_launches(depth, info):
+    """Closest-hit launches of one _manifold_tables call from its record
+    ``info``: the eye walk's depth, and K first re-projections and 20 K
+    Newton re-projections for each chain length K that some lane matched
+    (the patterns of one length walk together, on their matching lanes)."""
+    return depth + sum(21 * K for K in {K for (i0, K), r in info.items()
+                                        if bool(r["match"].any())})
+
+
+def closest_launches():
+    return ci.closest_tris_v.launches + ch.hier_closest.launches
+
+
+class ManifoldSpy:
+    """Wraps mlt._manifold_tables while active: for each call, its record
+    (the caller's ``info`` or its own), its closest-hit launches and CUDA
+    events around it on the device's stream."""
+
+    def __enter__(self):
+        self.orig, self.calls = mlt._manifold_tables, []
+
+        def spy(*a, info=None, **kw):
+            rec = dict(info={} if info is None else info,
+                       events=[torch.cuda.Event(enable_timing=True)
+                               for _ in range(2)])
+            n0 = closest_launches()
+            rec["events"][0].record()
+            out = self.orig(*a, info=rec["info"], **kw)
+            rec["events"][1].record()
+            rec["launches"] = closest_launches() - n0
+            self.calls.append(rec)
+            return out
+
+        mlt._manifold_tables = spy
+        return self
+
+    def __exit__(self, *exc):
+        mlt._manifold_tables = self.orig
+
+    def launches(self, tag, depth):
+        """The calls' closest-hit launches, summed; raises unless each
+        call's are walk_launches of its record."""
+        got = [c["launches"] for c in self.calls]
+        want = [walk_launches(depth, c["info"]) for c in self.calls]
+        if got != want:
+            raise AssertionError(f"[{tag}] manifold walk launches {got}, "
+                                 f"expected {want}")
+        return sum(got)
+
+    def ms(self):
+        """The device ms between the events around each call, summed."""
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in
+                   (c["events"] for c in self.calls))
+
+
+def manifold_lanes(cfg, seed, t):
+    """(lanes, the step's (N, 4) selection uniforms) of the chains whose
+    mutation at step t is the manifold perturbation."""
+    u_aux = pssmlt._draw_table(torch.arange(cfg.n_chains), t, seed, 2,
+                               4)[:, 0]
+    sel = mlt.mutation_masks(u_aux[:, 0], cfg)[4]
+    return torch.nonzero(sel).squeeze(1), u_aux
+
+
+def manifold_call(scene, table, cfg, seed, t, info=None):
+    """``run()`` = mlt._manifold_tables on the lanes that select it at step
+    t of ``table`` (on the scene's device), as mlt_step_tables calls it."""
+    idx, u_aux = manifold_lanes(cfg, seed, t)
+    dev = scene.device
+    idx_d, tab, u = idx.to(dev), table.to(dev), u_aux.to(dev)
+    return idx, lambda: mlt._manifold_tables(
+        scene, tab[idx_d], cfg, u[idx_d, 1:3], chain=idx_d, info=info)
+
+
+def reference_walk(scene, table, cfg, seed, t):
+    """``run()`` = the Newton walk of pattern (0, 1) on every lane that
+    selects the manifold mutation at step t of ``table``, whether it
+    matches the pattern or not, as the reference walks them: the
+    re-projection rays of a scene where no lane matches, which the port
+    does not trace."""
+    idx, u_aux = manifold_lanes(cfg, seed, t)
+    dev = scene.device
+    idx_d, u = idx.to(dev), u_aux.to(dev)
+    sigma = cfg.manifold_sigma * scene.emitters.bsphere_radius
+
+    def run():
+        eye = mlt.eye_walk(scene, table.to(dev)[idx_d], cfg, idx_d)
+        w = mlt.pattern_chain(eye, 0, 1, *mlt.box_muller(u[idx_d, 1:3]),
+                              sigma)
+        return mf.manifold_walk(scene, w["a_p"], w["pos"], w["b_new"],
+                                w["eta"])
+    return run
+
+
+def pattern_counts(info):
+    """{pattern: (matching lanes, moved lanes)} of a _manifold_tables
+    record."""
+    return {k: (int(r["match"].sum()), int(r["moved"].sum()))
+            for k, r in info.items()}
+
+
+def mlt_step_measures(tag, run, state):
+    """``run(k)`` runs k steps from ``state`` (warm): a step's CUDA-event
+    ms and the CUDA-event ms of its manifold lanes inside it, the chains it
+    accepted, the device time of its two splats (profiled alone on their
+    own inputs) and another step's device profile."""
+    box, calls, orig = {}, [], mlt._splat_px
+
+    def spy(im, pos, val, w):
+        calls.append((im, pos, val, w))
+        return orig(im, pos, val, w)
+
+    mlt._splat_px = spy
+    try:
+        with ManifoldSpy() as man:
+            step_ms = cuda_ms(lambda: box.update(out=run(1)), 1, warm=False)
+    finally:
+        mlt._splat_px = orig
+    man_ms = man.ms()
+    accepted = float((box["out"][1][0] != state[0]).any(2).any(1)
+                     .float().mean())
+    ev = device_events(lambda _: [orig(*c) for c in calls[-2:]], 1)
+    splat = device_us(ev) / 1e3 if ev else None
+    prof = device_profile(f"{tag} a step", run, top=4, warm=False)
+    log(f"[{tag}] a step {step_ms:.3f} ms (CUDA events, "
+        f"{1000 / step_ms:.2f} steps/s), its manifold lanes {man_ms:.3f} ms "
+        f"of it ({man_ms / step_ms:.3f}), accepted {accepted:.4f} of the "
+        f"chains; its two splats ({calls[-1][1].shape[0]} chains x "
+        f"{calls[-1][1].shape[1]} splats each) {fmt(splat)} ms of device "
+        f"time, {len(ev)} device operations")
+    return dict(step_ms=step_ms, man_ms=man_ms, prof=prof, splat_ms=splat,
+                accepted=accepted)
+
+
+def manifold_measures(tag, scene, table, cfg, seed, keep, depth):
+    """The manifold lanes of step 1 from ``table``, alone, with every count
+    set to 0 first: each pattern's matching and moved lanes, the call's
+    closest-hit launches (raises unless walk_launches of its record) and
+    its intersection calls ``keep``."""
+    info = {}
+    idx, man = manifold_call(scene, table, cfg, seed, 1, info)
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    rays = intersect_calls(man, keep)
+    got = closest_launches()
+    counts = pattern_counts(info)
+    log(f"[{tag}] a step's {len(idx)} manifold lanes: {got} closest-hit "
+        f"launches; each pattern's (matching, moved) lanes {counts}")
+    if got != walk_launches(depth, info):
+        raise AssertionError(f"[{tag}] manifold launches {got}, expected "
+                             f"{walk_launches(depth, info)}")
+    return dict(counts=counts, lanes=len(idx), rays=rays, launches=got)
+
+
+def mlt_cornell_phase(dev, smi):
+    """56. [mlt cornell]: mlt (job.render) on caustic_cornell at 1024^2,
+    bidirectional, depth 5, 65,536 chains, 1 mutation a pixel (16 steps,
+    the burn-in 4 of them), p_manifold 0.15: each step's manifold lanes'
+    closest-hit launches counted around their call and held to the
+    matches it recorded (the eye walk's 5, 21 when some lane matches a
+    K = 1 pattern, 42 for K = 2), and the rest of the render's launches to
+    9 closest and 14 any-hit an evaluation (8 luminance rounds and the
+    steps); a step's time, its manifold lanes' time inside it, device
+    profile, acceptance and splat time from the render's last state; one
+    step's manifold lanes alone: their launches, each pattern's matching
+    and moved lanes; the peak memory; both brute-force kernels bit for bit
+    on the Newton re-projection rays of the tenth iteration of each chain
+    length."""
+    tag = "mlt cornell"
+    t0 = time.perf_counter()
+    scene, settings = caustic_cornell(dev, RES)
+    settings = loop_settings(settings, "mlt", RES, 1, DEPTH,
+                             n_chains=MLT_CHAINS, p_manifold=MLT_P_MANIFOLD)
+    cfg = mlt.mlt_config(scene, settings)
+    seed = settings.seed
+    n_steps = RES * RES // cfg.n_chains
+    evals = 8 + n_steps
+    with ManifoldSpy() as walks, Spy(mlt, "mlt_run") as last:
+        img, got, ms, peak = slice_render(tag, scene, settings, lambda: dict(
+            closest=(2 * DEPTH - 1) * evals + walks.launches(tag, DEPTH),
+            anyhit=bidir_anyhit(DEPTH) * evals))
+    check_image(tag, img)
+    walked = [c["launches"] for c in walks.calls]
+    per_eval = ((got["closest"] - sum(walked)) // evals,
+                got["anyhit"] // evals)
+    log(f"[{tag}] {n_steps} steps of {cfg.n_chains} chains (bidirectional "
+        f"{cfg.bidirectional}, p_manifold {cfg.p_manifold}) in {ms:.3f} ms "
+        f"with the init: {n_steps / (ms / 1e3):.2f} steps/s; launches "
+        f"{per_eval} an evaluation x {evals} and the manifold walks' "
+        f"closest {walked} by step")
+    state = last.result[1]
+    img_t = torch.zeros((RES, RES, 3), device=dev)
+    meas = mlt_step_measures(tag, lambda k: mlt.mlt_run(
+        scene, img_t, state, seed, 1, cfg=cfg, width=RES, height=RES,
+        n_steps=k, accumulate=True), state)
+    # the tenth iteration's first re-projection of each chain length
+    first = {1: DEPTH + 1 + 9, 2: DEPTH + 21 + 2 + 2 * 9}
+    man = manifold_measures(tag, scene, state[0], cfg, seed,
+                            list(first.values()), DEPTH)
+    if not man["counts"][(0, 1)][1] or not man["counts"][(0, 2)][1]:
+        raise AssertionError(f"[{tag}] no mirror or glass chain moved")
+    err = {"closest": 0.0, "anyhit": 0.0}
+    # the triangles alone: check_tri's hit record is held against the
+    # merge of the same triangles (the glass sphere is no kernel's)
+    tris_only = dataclasses.replace(scene.geom, n_spheres=0)
+    for K, (o, d, tmin, tmax) in zip(first, man["rays"]):
+        e = check_tri(f"{tag} K = {K} re-projection rays", dict(
+            geom=tris_only, o=o, d=d, forms=[("re-projection", tmin,
+                                               tmax)]))
+        err = {n: max(err[n], e[n]) for n in err}
+    log(f"[{tag}] seconds {time.perf_counter() - t0:.1f}")
+    return dict(ms=ms, steps=n_steps, per_eval=per_eval,
+                walk=man["launches"], walked=walked, launches=got, peak=peak,
+                err=err, counts=man["counts"], **meas)
+
+
+def replay_miss(scene, tables, cfg, idx, info):
+    """For each moved lane, the distance from its replayed eye path's first
+    specular vertex to the vertex the walk solved (N,), and the same for
+    the reference's polar write-back of the solved direction (ROADMAP
+    C3)."""
+    chain = idx.to(scene.device)
+    eye = mlt.eye_walk(scene, tables, cfg, chain)
+    polar = tables.clone()
+    for (i0, K), r in info.items():
+        a = eye[i0]
+        wo = mlt._dir(a["p"], V3.from_array(r["first"]))
+        wol = V3(wo.dot(a["ss"]), wo.dot(a["ts"]), wo.dot(a["ns"]))
+        ph = torch.atan2(wol.y, wol.x) / (2.0 * np.pi)
+        m = r["moved"]
+        polar[m, 1 + i0, 1] = torch.clamp(wol.x ** 2 + wol.y ** 2, 0.0,
+                                          0.999999)[m]
+        polar[m, 1 + i0, 2] = (ph - torch.floor(ph))[m]
+    out = []
+    for tab in (tables, polar):
+        e = mlt.eye_walk(scene, tab, cfg, chain)
+        miss = []
+        for (i0, K), r in info.items():
+            hit = torch.stack(list(e[i0 + 1]["p"]), -1)
+            miss.append((hit - r["first"]).norm(dim=-1)[r["moved"]])
+        out.append(torch.cat(miss).cpu())
+    return out
+
+
+def mlt_parity_phase(dev, smi):
+    """57. [mlt card vs cpu]: caustic_cornell at 256^2, 4,096 chains, depth
+    5, p_manifold 0.15, step 1 on the card and on the CPU from the same
+    tables: the lens, caustic, multi-chain, large and small proposals
+    equal (to 2 ulp on the circle: the lens step's cos/sin and the small
+    step's exp), the manifold lanes' moves alike on >= 99% and their
+    factors within rel 1e-3 where both moved, the targets I' of the card's
+    proposals within rel 1e-4 on >= 99.5% of the lanes, the acceptance
+    decisions of a whole step alike on >= 99.5%; ROADMAP C3 on the card:
+    each moved lane's replayed proposal reaches the solved first specular
+    vertex within a tenth of the step sigma on >= 99% of them, and the
+    reference's polar write-back, replayed, misses by far more."""
+    tag = "mlt card vs cpu"
+    n, res = MLT_PARITY
+    scene, settings = caustic_cornell(dev, res)
+    cpu_scene, _ = caustic_cornell("cpu", res)
+    settings = loop_settings(settings, "mlt", res, 1, DEPTH, n_chains=n,
+                             p_manifold=MLT_P_MANIFOLD)
+    cfg = mlt.mlt_config(scene, settings)
+    pss = mlt._pss_cfg(cfg)
+    seed, t = settings.seed, 1
+    chain = torch.arange(n)
+    table = pssmlt._draw_table(chain, 0xFFFFFFFF, seed,
+                               pssmlt._n_blocks(pss), 0)
+    idx, u_aux = manifold_lanes(cfg, seed, t)
+    man = set(idx.tolist())
+    others = torch.tensor([i not in man for i in range(n)])
+    out = []
+    for sc in (scene, cpu_scene):
+        d = sc.device
+        prop, is_large, _ = mlt.mlt_step_tables(
+            table.to(d), u_aux.to(d), cfg, chain.to(d), t, seed, scene=sc)
+        info = {}
+        m_tab, m_corr, m_moved = manifold_call(sc, table, cfg, seed, t,
+                                               info)[1]()
+        out.append(dict(prop=prop.cpu(), large=is_large.cpu(), m_tab=m_tab,
+                        corr=m_corr.cpu(), moved=m_moved.cpu(), info=info))
+    a, b = out
+    diff = (a["prop"] - b["prop"]).abs()[others]
+    ulps = (torch.minimum(diff, 1.0 - diff) / 2.0 ** -24).max()
+    same_large = bool(torch.equal(a["large"], b["large"]))
+    moved_alike = float((a["moved"] == b["moved"]).float().mean())
+    both = a["moved"] & b["moved"]
+    corr_rel = float(((a["corr"] - b["corr"]).abs()
+                      / b["corr"].abs())[both].max()) if both.any() else 0.0
+    log(f"[{tag}] step {t}'s proposals of {n} chains: the {int(others.sum())}"
+        f" non-manifold lanes differ by at most {float(ulps):.1f} ulp on the "
+        f"circle, is_large equal {same_large}; the {len(idx)} manifold "
+        f"lanes: moved {int(a['moved'].sum())} / {int(b['moved'].sum())} "
+        f"(card / CPU), alike {moved_alike:.4f}, factor rel where both "
+        f"moved {corr_rel:.3e}; patterns card "
+        f"{pattern_counts(a['info'])}, CPU {pattern_counts(b['info'])}")
+    if ulps > 2 or not same_large or moved_alike < 0.99 or corr_rel > 1e-3:
+        raise AssertionError(f"[{tag}] proposals card vs CPU")
+    I_p = [pssmlt._eval(sc, a["prop"].to(sc.device), pss, res, res)[2].cpu()
+           for sc in (scene, cpu_scene)]
+    i_ok = float(((I_p[0] - I_p[1]).abs()
+                  <= 1e-4 * I_p[1].abs()).float().mean())
+    pos, color, I = pssmlt._eval(scene, table.to(dev), pss, res, res)
+    state = (table.to(dev), pos, color, I, I.sum(),
+             torch.tensor(float(n), device=dev))
+    acc = []
+    for sc in (scene, cpu_scene):
+        st = tuple(x.to(sc.device) for x in state)
+        img = torch.zeros((res, res, 3), device=sc.device)
+        _, new = mlt.mlt_run(sc, img, st, seed, t, cfg=cfg, width=res,
+                             height=res, n_steps=1, accumulate=True)
+        acc.append((new[0].cpu() != table).any(2).any(1))
+    acc_alike = float((acc[0] == acc[1]).float().mean())
+    log(f"[{tag}] I' of the card's proposals within rel 1e-4 on "
+        f"{i_ok:.5f} of the lanes; a step from the same state: accepted "
+        f"{int(acc[0].sum())} / {int(acc[1].sum())}, decisions alike "
+        f"{acc_alike:.5f}")
+    if i_ok < 0.995 or acc_alike < 0.995:
+        raise AssertionError(f"[{tag}] targets or acceptance card vs CPU")
+    sigma = cfg.manifold_sigma * float(scene.emitters.bsphere_radius)
+    miss, polar = replay_miss(scene, a["m_tab"], cfg, idx, a["info"])
+    near = float((miss < 0.1 * sigma).float().mean())
+    log(f"[{tag}] C3: {len(miss)} moved lanes replayed: the solved first "
+        f"specular vertex within sigma / 10 = {0.1 * sigma:.3e} on "
+        f"{near:.4f} of them (largest miss {float(miss.max()):.3e}); the "
+        f"reference's polar write-back replayed misses by a median "
+        f"{float(polar.median()):.3e} ({float(polar.median()) / sigma:.1f} "
+        f"sigma), within sigma / 10 on "
+        f"{float((polar < 0.1 * sigma).float().mean()):.4f}")
+    if near < 0.99 or float(polar.median()) < 10 * sigma:
+        raise AssertionError(f"[{tag}] the concentric write-back (C3)")
+    return dict(ulps=float(ulps), moved_alike=moved_alike, corr_rel=corr_rel,
+                i_ok=i_ok, acc_alike=acc_alike, near=near,
+                polar_median=float(polar.median()), sigma=sigma)
+
+
+def mlt_mean_phase(dev, smi):
+    """58. [mlt mean]: caustic_cornell at 128^2, mlt (131,072 chains, 64
+    mutations a pixel: 8 steps, p_manifold 0.15) against bdpt (8
+    passes): the image mean within 5%; each channel reported."""
+    tag = "mlt mean"
+    res, mut, chains, passes = MLT_MEAN
+    scene, settings = caustic_cornell(dev, res)
+    st = loop_settings(settings, "mlt", res, mut, DEPTH, n_chains=chains,
+                       p_manifold=MLT_P_MANIFOLD)
+    img = job.render(scene, st).cpu().numpy()
+    ref = job.render(scene, loop_settings(st, "bdpt", spp=passes)
+                     ).cpu().numpy()
+    rel = mean_against(tag, img, ref, 0.05)
+    log(f"[{tag}] channel means mlt {img.mean((0, 1))}, bdpt "
+        f"{ref.mean((0, 1))}")
+    return dict(rel=rel["image"], mlt=img.mean((0, 1)).tolist(),
+                bdpt=ref.mean((0, 1)).tolist())
+
+
+def mlt_large_phase(dev, smi):
+    """59. [mlt large]: mlt on the 1,120,504-triangle scene at 768^2,
+    depth 3, 65,536 chains, p_manifold 0.05 (the plugin's): the init and 4
+    steps, each step's manifold lanes' hier_closest launches counted around
+    their call and held to its matches (its diffuse mesh matches no
+    pattern: the eye walk's 3, no Newton walk), the rest to 5 hier_closest
+    and 5 hier_anyhit launches an evaluation; a step's time, its manifold
+    lanes' time inside it, device profile and splat time; both hierarchy
+    kernels bit for bit on the re-projection rays of the tenth iteration
+    of the Newton walk the reference runs on the manifold lanes of a
+    step."""
+    tag = "mlt large"
+    scene, settings = large_scene(dev)
+    settings = loop_settings(settings, "mlt", L_RES, 1, L_DEPTH,
+                             n_chains=MLT_CHAINS)
+    cfg = mlt.mlt_config(scene, settings)
+    seed = settings.seed
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img = torch.zeros((L_RES, L_RES, 3), device=dev)
+    box = {}
+
+    def run():
+        box["state"] = pssmlt.pssmlt_init(scene, seed, cfg=mlt._pss_cfg(cfg),
+                                          width=L_RES, height=L_RES)
+        box["img"], box["end"] = mlt.mlt_run(
+            scene, img, box["state"], seed, 1, cfg=cfg, width=L_RES,
+            height=L_RES, n_steps=4, accumulate=True)
+
+    with ManifoldSpy() as walks:
+        ms = cuda_ms(run, 1, warm=False)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walked = [c["launches"] for c in walks.calls]
+    want = {k: 0 for k in got}
+    want.update(hier_closest=12 * (2 * L_DEPTH - 1)
+                + walks.launches(tag, L_DEPTH),
+                hier_anyhit=12 * bidir_anyhit(L_DEPTH))
+    per_eval = ((got["hier_closest"] - sum(walked)) // 12,
+                got["hier_anyhit"] // 12)
+    log(f"[{tag}] init (8 luminance rounds) and 4 steps of {cfg.n_chains} "
+        f"chains: {ms:.3f} ms (CUDA events), launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        + f" (the manifold walks' {walked} by step), peak {peak:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"[{tag}] expected launches {want}, got {got}")
+    out_img = box["img"].cpu().numpy()
+    if not (np.isfinite(out_img).all() and out_img.sum() > 0):
+        raise AssertionError(f"[{tag}] splatted image")
+    state = box["end"]
+    meas = mlt_step_measures(tag, lambda k: mlt.mlt_run(
+        scene, img, state, seed, 1, cfg=cfg, width=L_RES, height=L_RES,
+        n_steps=k, accumulate=True), state)
+    man = manifold_measures(tag, scene, state[0], cfg, seed, [], L_DEPTH)
+    rays = intersect_calls(reference_walk(scene, state[0], cfg, seed, 1),
+                           [L_DEPTH + 1 + 9])
+    e, _, _ = check_hier(f"{tag} the reference walk's re-projection rays",
+                         scene.clusters, *rays[0])
+    return dict(ms=ms, launches=got, per_eval=per_eval, walk=man["launches"],
+                walked=walked, peak=peak, err=e, counts=man["counts"], **meas)
+
+
+def slice15_files_phase(dev, smi):
+    """60. [slice files]: tests/test_mcmc.py's caustic scene with
+    <integrator type="mlt"/> (the plugin's defaults: depth 8, 8,192
+    chains, p_manifold 0.05; 1 mutation a pixel: 8 steps) through the
+    command line on the card at 256^2: the EXR finite and its mean within
+    10% of the port's bdpt render of the same file (depth 8, 4 passes)."""
+    tag = "slice files"
+    res = MLT_FILE_RES
+    path = xml_file("caustic_mlt.xml", CAUSTIC_XML.format(res=res))
+    out = os.path.join(XML_DIR, "caustic_mlt.exr")
+    t0 = time.perf_counter()
+    run_cli(path, "-o", out)
+    seconds = time.perf_counter() - t0
+    img, _ = exr.read_exr(out)
+    if not (img.shape == (res, res, 3) and np.isfinite(img).all()):
+        raise AssertionError(f"[{tag}] the mlt EXR")
+    scene, settings = scene_xml.load_scene(path, device=dev)
+    ref = job.render(scene, loop_settings(settings, "bdpt", spp=4,
+                                          depth=8)).cpu().numpy()
+    log(f"[{tag}] caustic mlt through the command line {seconds:.2f} s")
+    rel = mean_against(tag, img, ref, 0.10)
+    return dict(seconds=seconds, rel=rel["image"])
+
+
+def slice15_phases(dev, smi):
+    """Phases 56-60."""
+    return [phase(dev, smi) for phase in (
+        mlt_cornell_phase, mlt_parity_phase, mlt_mean_phase,
+        mlt_large_phase, slice15_files_phase)]
+
+
+def slice15_summary(seconds, c, p, mean, large, files, smi):
+    """The ``[summary]`` line of phases 56-60."""
+    log(f"[summary] phases 56-60 {seconds:.1f} s: " + "; ".join(
+        f"{k} a step {v['step_ms']:.3f} ms, launches an evaluation "
+        f"{v['per_eval']} and {v['walk']} a step's manifold walks, splats "
+        f"{fmt(v['splat_ms'])} device ms a step, device ops "
+        f"{fmt(v['prof'] and v['prof']['ops'])}, idle "
+        f"{fmt(v['prof'] and v['prof']['idle'])}, peak {v['peak']:.3f} GiB"
+        for k, v in (("mlt cornell", c), ("mlt large", large)))
+        + f"; mlt cornell manifold lanes {c['man_ms']:.3f} ms of a step "
+        f"({c['man_ms'] / c['step_ms']:.3f}), patterns "
+        f"{c['counts']}, accepted {c['accepted']:.4f}; mlt large manifold "
+        f"lanes {large['man_ms']:.3f} ms of a step "
+        f"({large['man_ms'] / large['step_ms']:.3f}), patterns "
+        f"{large['counts']}; card vs CPU moves alike "
+        f"{p['moved_alike']:.4f}, decisions alike {p['acc_alike']:.5f}, C3 "
+        f"replay within sigma/10 {p['near']:.4f} (polar median "
+        f"{p['polar_median'] / p['sigma']:.1f} sigma); mean rel to bdpt "
+        f"{mean['rel']:.4f}; caustic file rel {files['rel']:.4f} ({smi})")
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None,
                   volume_launches=None, ptracer_launches=None,
                   bdpt_launches=None, photon_launches=None,
-                  slice14_launches=None):
+                  slice14_launches=None, slice15_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
@@ -4466,7 +5032,8 @@ def kernel_record(name, source, replaces, launches, err, timing, key,
                 ptracer_launches=ptracer_launches,
                 bdpt_launches=bdpt_launches,
                 photon_launches=photon_launches,
-                slice14_launches=slice14_launches)
+                slice14_launches=slice14_launches,
+                slice15_launches=slice15_launches)
 
 
 def light_tracing_phases(dev, smi):
@@ -4641,6 +5208,10 @@ def main():
     slice14_summary(time.perf_counter() - t0, s_c, s_g, s_l, p_c, p_l, e_c,
                     smi)
 
+    t0 = time.perf_counter()
+    m_c, m_p, m_m, m_l, m_f = slice15_phases(dev, smi)
+    slice15_summary(time.perf_counter() - t0, m_c, m_p, m_m, m_l, m_f, smi)
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
@@ -4650,7 +5221,8 @@ def main():
                                        sc["err"]["closest"],
                                        vc2["err"]["closest"],
                                        s_c["err"]["closest"],
-                                       p_c["err"]["closest"]),
+                                       p_c["err"]["closest"],
+                                       m_c["err"]["closest"]),
                       timing, "closest", grad_launches[0],
                       timing["closest_device"], x_launches[0],
                       vc["launches_per_pass"], pc["per_pass"][0],
@@ -4660,7 +5232,11 @@ def main():
                       dict(subsurface_cornell=s_c["per_pass"][0],
                            subsurface_grid=s_g["per_pass"][0],
                            pssmlt_cornell_per_eval=p_c["per_eval"][0],
-                           erpt_cornell_per_eval=e_c["per_eval"][0])),
+                           erpt_cornell_per_eval=e_c["per_eval"][0]),
+                      dict(mlt_cornell_per_eval=m_c["per_eval"][0],
+                           mlt_cornell_manifold_per_step=m_c["walk"],
+                           mlt_cornell_manifold_by_step=m_c["walked"],
+                           mlt_cornell_render=m_c["launches"]["closest"])),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], max(timing["anyhit_err"],
@@ -4669,7 +5245,8 @@ def main():
                                        sc["err"]["anyhit"],
                                        vc2["err"]["anyhit"],
                                        s_c["err"]["anyhit"],
-                                       p_c["err"]["anyhit"]),
+                                       p_c["err"]["anyhit"],
+                                       m_c["err"]["anyhit"]),
                       timing, "anyhit", grad_launches[1],
                       timing["anyhit_device"], x_launches[1], None,
                       pc["per_pass"][1], bc["per_pass"][1],
@@ -4680,19 +5257,26 @@ def main():
                            subsurface_grid=s_g["per_pass"][1],
                            subsurface_grid_table=s_g["build"]["anyhit"],
                            pssmlt_cornell_per_eval=p_c["per_eval"][1],
-                           erpt_cornell_per_eval=e_c["per_eval"][1])),
+                           erpt_cornell_per_eval=e_c["per_eval"][1]),
+                      dict(mlt_cornell_per_eval=m_c["per_eval"][1],
+                           mlt_cornell_render=m_c["launches"]["anyhit"])),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[0], max(err_h, vl["err"], bl["err"],
                                         sl["err"], s_l["dipole"]["err"],
                                         s_l["singlescatter"]["err"],
-                                        p_l["err"]), htiming,
+                                        p_l["err"], m_l["err"]), htiming,
                       "closest", hgrad_launches[0], htiming["closest_device"],
                       xl_launches[0], vl["launches_per_pass"], None,
                       bl["per_pass"][0], dict(sppm=sl["per_pass"][0]),
                       dict(subsurface_large_dipole=s_l["dipole"][
                           "per_pass"][0], subsurface_large_single=s_l[
                           "singlescatter"]["per_pass"][0],
-                          pssmlt_large_per_eval=p_l["per_eval"][0])),
+                          pssmlt_large_per_eval=p_l["per_eval"][0]),
+                      dict(mlt_large_per_eval=m_l["per_eval"][0],
+                           mlt_large_manifold_per_step=m_l["walk"],
+                           mlt_large_manifold_by_step=m_l["walked"],
+                           mlt_large_init_and_4_steps=m_l["launches"][
+                               "hier_closest"])),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],

@@ -9,10 +9,10 @@ runs the kernels' plain versions), rendered by ``render_film`` with the
 scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
 ``field`` or ``motion``), or by ``render`` through the render loop of
 ``ptracer``, ``bdpt``, ``sppm``/``ppm``/``photonmapper``, ``vpl``,
-``adaptive``, ``multichannel``, ``irrcache``, ``pssmlt`` or ``erpt``
-(which, as the reference's, take no ``-c``/``-z``/``-r``/``-S``; a
-multichannel EXR holds every child's layer; ``-s`` counts pssmlt's
-mutations and erpt's seeds a pixel), and written as EXR, or as a
+``adaptive``, ``multichannel``, ``irrcache``, ``pssmlt``, ``mlt`` or
+``erpt`` (which, as the reference's, take no ``-c``/``-z``/``-r``/``-S``;
+a multichannel EXR holds every child's layer; ``-s`` counts pssmlt's and
+mlt's mutations and erpt's seeds a pixel), and written as EXR, or as a
 tone-mapped PNG/PPM by the
 output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
 band by band into an out-of-core film (``film/tiled.py``, at its

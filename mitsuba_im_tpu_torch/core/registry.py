@@ -3,11 +3,7 @@ registered under ``(category, name)`` that turn a ``Properties`` bag into a
 host-side description (a record, an id, a sensor) for the scene builder.
 
 The port registers every name the JAX package registers (its ``utility``
-category, the ``mtsutil`` tools, is not ported).  A name whose plugin is
-not ported yet is registered all the same, with a factory that raises
-``NotImplementedError`` naming its ROADMAP item (:func:`register_unported`):
-creating it raises, importing never does, and nothing is substituted for
-it silently.
+category, the ``mtsutil`` tools, is not ported), each with its port.
 """
 from __future__ import annotations
 
@@ -46,18 +42,6 @@ def register(category: str, name: str):
         return fn
 
     return deco
-
-
-def register_unported(category: str, names, item: str) -> None:
-    """Register ``names`` of ``category`` as plugins that raise
-    ``NotImplementedError`` naming the ROADMAP entry ``item``."""
-    for name in names:
-        def fail(props: Properties, ctx=None, _name=name):
-            raise NotImplementedError(
-                f"{category} plugin '{_name}' is not ported yet "
-                f"(ROADMAP {item})")
-
-        _REGISTRY.setdefault(category, {})[name] = fail
 
 
 def warn_substitution(category: str, what: str) -> None:

@@ -280,6 +280,33 @@ def square_to_uniform_disk_concentric(u1: torch.Tensor, u2: torch.Tensor):
     return r * torch.cos(phi), r * torch.sin(phi)
 
 
+# the largest float32 below 1: the top of the sampler's uniforms
+ONE_MINUS_EPS = 1.0 - 2.0 ** -24
+
+
+def uniform_disk_concentric_to_square(x: torch.Tensor, y: torch.Tensor):
+    """The inverse of :func:`square_to_uniform_disk_concentric`, wedge by
+    wedge: a point of the right or left wedge (|x| > |y|, the forward
+    map's ``use_r1``) came from r1 = sign(x) rho, r2 = r1 (4 / pi)
+    atan(y / x); one of the top or bottom wedge (ties included, as the
+    forward map sends them there) from r2 = sign(y) rho, r1 = r2 (4 / pi)
+    atan(x / y).  Returns (u1, u2) in [0, 1), clamped below 1 as the
+    sampler's uniforms are; the centre maps to (1/2, 1/2).  The JAX
+    package has no such inverse (ROADMAP C3)."""
+    rho = torch.sqrt(x * x + y * y)
+    use_r1 = torch.abs(x) > torch.abs(y)
+    num = torch.where(use_r1, y, x)
+    den = torch.where(use_r1, x, y)
+    safe = torch.where(den == 0.0, 1.0, den)
+    r = torch.where(den < 0.0, -rho, rho)
+    r_other = r * torch.atan(num / safe) * (4.0 / PI)
+    r1 = torch.where(use_r1, r, r_other)
+    r2 = torch.where(use_r1, r_other, r)
+    u1 = torch.clamp((r1 + 1.0) * 0.5, 0.0, ONE_MINUS_EPS)
+    u2 = torch.clamp((r2 + 1.0) * 0.5, 0.0, ONE_MINUS_EPS)
+    return u1, u2
+
+
 def square_to_cosine_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> V3:
     """Concentric-disk lift."""
     px, py = square_to_uniform_disk_concentric(u1, u2)

@@ -3,9 +3,9 @@
 ``path``, ``volpath`` (and ``volpath_simple``, the same estimator),
 ``direct``, ``ao``, ``field``, ``motion``, ``ptracer``, ``bdpt``,
 ``adaptive``, ``multichannel``, ``irrcache``, ``sppm``, ``ppm`` and
-``photonmapper`` (recorded as ``sppm``), ``vpl``, ``pssmlt`` and ``erpt``
-record their name and
-parameters into the builder's render settings, which
+``photonmapper`` (recorded as ``sppm``), ``vpl``, ``pssmlt``, ``mlt`` and
+``erpt`` record their name and parameters into the builder's render
+settings, which
 ``render/job.py::integrator_fn`` turns into the integrator (the
 integrators of ``render/job.py::LOOP_INTEGRATORS`` render through their
 own loops, ``render/job.py::render``).  ``adaptive`` and ``irrcache``
@@ -23,7 +23,7 @@ without it their properties are the JAX factories' exactly.
 from __future__ import annotations
 
 from ..core.properties import Properties
-from ..core.registry import register, register_unported
+from ..core.registry import register
 
 
 def _mc_props(props: Properties) -> dict:
@@ -176,4 +176,15 @@ def _erpt(props: Properties, ctx=None):
     return _set(ctx, "erpt", _bidirectional(props, ip))
 
 
-register_unported("integrator", ("mlt",), "queue A item 7.8")
+@register("integrator", "mlt")
+def _mlt(props: Properties, ctx=None):
+    """Veach-style MLT with the lens, caustic, multi-chain, bidirectional
+    and manifold mutations (``integrators/mlt.py``)."""
+    ip = _mc_props(props)
+    ip["p_large"] = props.get_float("pLarge", 0.1)
+    ip["n_chains"] = props.get_int("chains", 8192)
+    ip["burn_in"] = props.get_int("burnIn", 64)
+    ip["p_lens"] = props.get_float("pLens", 0.35)
+    ip["p_caustic"] = props.get_float("pCaustic", 0.2)
+    ip["p_mchain"] = props.get_float("pMultiChain", 0.15)
+    return _set(ctx, "mlt", ip)

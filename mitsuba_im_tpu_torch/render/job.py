@@ -11,17 +11,16 @@ as the reference's ``render_film`` passes it.  The integrator comes from
 the settings (:func:`integrator_fn`, the reference's ``_integrator_fn``):
 ``path`` (``integrators/path.py``), ``volpath`` (``integrators/volpath.py``),
 and ``direct``, ``ao``, ``field`` and ``motion``
-(``integrators/simple.py``); the integrators still unported raise, naming
-their ROADMAP item.  :func:`render` returns the developed image of every
-integrator: ``ptracer`` (:func:`render_ptracer`, particles splatted into a
+(``integrators/simple.py``).  :func:`render` returns the developed image
+of every integrator: ``ptracer`` (:func:`render_ptracer`, particles splatted into a
 box film and normalized by the image plane), ``bdpt``
 (``integrators/bdpt.py::render_bdpt``), ``sppm``/``ppm``, ``vpl``,
 ``adaptive`` (its nested integrator's ``integrator_fn`` in rounds),
 ``multichannel``, ``irrcache``, ``pssmlt`` (``integrators/pssmlt.py``,
-mutations a pixel for ``spp``, ``progress_cb`` after each chunk of steps)
-and ``erpt`` (``integrators/erpt.py``, seeds a pixel) through loops of
-their own, the others through :func:`render_film`; ``mlt`` raises, naming
-its ROADMAP item.  A scene with
+mutations a pixel for ``spp``, ``progress_cb`` after each chunk of steps),
+``mlt`` (``integrators/mlt.py``, the same) and ``erpt``
+(``integrators/erpt.py``, seeds a pixel) through loops of their own, the
+others through :func:`render_film`.  A scene with
 deformable shapes renders each pass at one shutter time,
 ``shutter_open + shutter_time * u`` with ``u`` the pass index's golden-ratio
 word (:func:`shutter_time`), shared by the pass's wavefront.  The port
@@ -87,7 +86,7 @@ class RenderSettings:
 INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
 # integrators with render loops of their own (:func:`render`)
 LOOP_INTEGRATORS = ("ptracer", "bdpt", "sppm", "ppm", "vpl", "adaptive",
-                    "multichannel", "irrcache", "pssmlt", "erpt")
+                    "multichannel", "irrcache", "pssmlt", "mlt", "erpt")
 
 
 def path_config(settings: RenderSettings) -> PathConfig:
@@ -141,7 +140,8 @@ def integrator_fn(settings: RenderSettings):
         nested = dict(ip.get("nested", {"name": "path"}))
         return integrator_fn(RenderSettings(
             integrator=nested.pop("name", "path"), integrator_props=nested))
-    # an unported integrator's factory raises, naming its ROADMAP item
+    # an unknown name raises in the registry; the loop integrators render
+    # through render()
     create("integrator", Properties(name))
     raise NotImplementedError(
         f"integrator '{name}': render_film renders "
@@ -284,6 +284,10 @@ def render(scene: Scene, settings: RenderSettings, spp: int | None = None,
 
         return render_pssmlt(scene, settings, spp=spp,
                              progress_cb=progress_cb)
+    if name == "mlt":
+        from ..integrators.mlt import render_mlt
+
+        return render_mlt(scene, settings, spp=spp, progress_cb=progress_cb)
     if name == "erpt":
         from ..integrators.erpt import render_erpt
 

@@ -165,9 +165,9 @@ def make_geometry(tri_data: dict | None, spheres: dict | None = None,
     )
 
 
-def compute_interaction_v(geom: Geometry, o: V3, d: V3,
-                          hit: Hit) -> Interaction3:
-    """Expand a Hit into a shading-point record (o, d: V3)."""
+def _hit_geometry(geom: Geometry, o: V3, d: V3, hit: Hit) -> dict:
+    """The hit point and the parts of each kind's normal, shared by
+    :func:`compute_interaction_v` and :func:`hit_point_normal_v`."""
     is_tri = hit.kind == KIND_TRI
     is_sph = hit.kind == KIND_SPHERE
     tp = torch.where(is_tri, hit.prim, 0)
@@ -178,14 +178,12 @@ def compute_interaction_v(geom: Geometry, o: V3, d: V3,
 
     # --- triangle attributes: ONE packed row gather -----------------------
     row = geom.tri_shad[tp]
-    e1 = V3(row[:, 0], row[:, 1], row[:, 2])
-    e2 = V3(row[:, 3], row[:, 4], row[:, 5])
     n0 = V3(row[:, 6], row[:, 7], row[:, 8])
     n1 = V3(row[:, 9], row[:, 10], row[:, 11])
     n2 = V3(row[:, 12], row[:, 13], row[:, 14])
-    ng_tri = e1.cross(e2).normalized()
     w = 1.0 - hit.u - hit.v
     ns_tri = (n0 * w + n1 * hit.u + n2 * hit.v).normalized()
+    rot_v3 = None
     if geom.instanced:
         # BLAS-local normals to world space, per instance
         rot = geom.inst_rot.reshape(-1, 9)
@@ -197,19 +195,49 @@ def compute_interaction_v(geom: Geometry, o: V3, d: V3,
                       rc[3] * n.x + rc[4] * n.y + rc[5] * n.z,
                       rc[6] * n.x + rc[7] * n.y + rc[8] * n.z).normalized()
 
-        ng_tri = rot_v3(ng_tri)
         ns_tri = rot_v3(ns_tri)
+
+    # --- sphere attributes ---
+    ns_sph = (p - v.gather_v3(geom.sph_center, sp)).normalized()
+    dn = v.gather_v3(geom.disk_n, dp)
+    return dict(is_tri=is_tri, is_sph=is_sph, dp=dp, p=p, row=row, w=w,
+                ns_tri=ns_tri, rot_v3=rot_v3, ns_sph=ns_sph, dn=dn)
+
+
+def _shading_normal(g: dict) -> V3:
+    return v.where(g["is_tri"], g["ns_tri"],
+                   v.where(g["is_sph"], g["ns_sph"], g["dn"]))
+
+
+def hit_point_normal_v(geom: Geometry, o: V3, d: V3, hit: Hit):
+    """(p, ns) of :func:`compute_interaction_v`'s record alone, the same
+    values without the frames, uvs and geometric normal."""
+    g = _hit_geometry(geom, o, d, hit)
+    return g["p"], _shading_normal(g)
+
+
+def compute_interaction_v(geom: Geometry, o: V3, d: V3,
+                          hit: Hit) -> Interaction3:
+    """Expand a Hit into a shading-point record (o, d: V3)."""
+    g = _hit_geometry(geom, o, d, hit)
+    is_tri, is_sph, dp, p, row, w = (g[k] for k in ("is_tri", "is_sph", "dp",
+                                                    "p", "row", "w"))
+    e1 = V3(row[:, 0], row[:, 1], row[:, 2])
+    e2 = V3(row[:, 3], row[:, 4], row[:, 5])
+    ng_tri = e1.cross(e2).normalized()
+    if g["rot_v3"] is not None:
+        ng_tri = g["rot_v3"](ng_tri)
     uvu_tri = row[:, 15] * w + row[:, 17] * hit.u + row[:, 19] * hit.v
     uvv_tri = row[:, 16] * w + row[:, 18] * hit.u + row[:, 20] * hit.v
 
     # --- sphere attributes ---
-    ns_sph = (p - v.gather_v3(geom.sph_center, sp)).normalized()
+    ns_sph = g["ns_sph"]
     theta, phi = v.spherical_coordinates(ns_sph)
     uvu_sph = phi / (2 * PI)
     uvv_sph = theta / PI
 
     # --- disk attributes ---
-    dn = v.gather_v3(geom.disk_n, dp)
+    dn = g["dn"]
     local = p - v.gather_v3(geom.disk_center, dp)
     lx = local.dot(v.gather_v3(geom.disk_s, dp))
     ly = local.dot(v.gather_v3(geom.disk_t, dp))
@@ -219,7 +247,7 @@ def compute_interaction_v(geom: Geometry, o: V3, d: V3,
     phi_d = torch.where(phi_d < 0, phi_d + 2 * PI, phi_d)
 
     ng = v.where(is_tri, ng_tri, v.where(is_sph, ns_sph, dn))
-    ns = v.where(is_tri, ns_tri, v.where(is_sph, ns_sph, dn))
+    ns = _shading_normal(g)
     uv_u = torch.where(is_tri, uvu_tri, torch.where(is_sph, uvu_sph, r_))
     uv_v = torch.where(is_tri, uvv_tri,
                        torch.where(is_sph, uvv_sph, phi_d / (2 * PI)))

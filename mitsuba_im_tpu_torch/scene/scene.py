@@ -31,7 +31,8 @@ from ..emitter.table import EmitterTable
 from ..media.medium import MediumTable
 from ..sensor.table import Sensor
 from ..texture.texture import TextureTable, eval_texture_v
-from .geometry import Geometry, Hit, Interaction3, compute_interaction_v
+from .geometry import (Geometry, Hit, Interaction3, compute_interaction_v,
+                       hit_point_normal_v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,14 @@ class Scene:
         if self.bsdfs.has_bump:
             it = self._perturb_frame_v(it, d)
         return it
+
+    def point_normal_v(self, o, d, hit: Hit):
+        """(p, ns) of :meth:`interaction_v`'s record, without the rest of it
+        where no bump or normal map tilts the frame."""
+        if self.bsdfs.has_bump:
+            it = self.interaction_v(o, d, hit)
+            return it.p, it.ns
+        return hit_point_normal_v(self.geom, o, d, hit)
 
     def _perturb_frame_v(self, it: Interaction3, d) -> Interaction3:
         """Bump and normal mapping (``bumpmap.cpp``, ``normalmap.cpp``): tilt

@@ -13,8 +13,8 @@ sampling it), at rtol 1e-4; which pixels stop in which round is the
 reference's.  The multichannel stack's path layer passes the image gate
 against the reference's, its field layer is equal, and the layered EXR
 reads back with the reference's channel names.  Every new integrator
-name loads from a scene file into the reference's settings, and ``mlt``
-raises naming its queue A item.
+name loads from a scene file into the reference's settings, ``mlt``
+included.
 """
 import dataclasses
 
@@ -195,19 +195,14 @@ def test_factories_match_reference(case, tmp_path):
                                        ("erpt", "7.8"),
                                        ("singlescatter", "7.7")])
 def test_later_items_still_raise(name, item, tmp_path):
-    """``mlt`` still raises naming its item; ``pssmlt``, ``erpt`` and
-    ``singlescatter``, ported since (the cases are kept), load into the
-    reference's settings and records."""
+    """``pssmlt``, ``mlt``, ``erpt`` and ``singlescatter`` raised naming
+    their item before they were ported (the cases are kept); they load into
+    the reference's settings and records."""
     category = "subsurface" if name == "singlescatter" else "integrator"
     path = str(tmp_path / "scene.xml")
     with open(path, "w") as f:
         f.write(f'<scene version="0.6.0"><{category} type="{name}"/>'
                 '</scene>')
-    if name == "mlt":
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP queue A item {item}\)"):
-            tload(path, device="cpu")
-        return
     scene, pset = tload(path, device="cpu")
     jscene, rset = jload(path)
     assert (pset.integrator, pset.integrator_props) == (

@@ -26,7 +26,9 @@ VPL rays through both kernel families against the plain versions; the
 subsurface scenes (dense and grid dipoles, single scatter) on the card
 against the CPU with their launch counts, their shadow and refracted
 rays through both kernel families, and pssmlt and erpt on the card
-against the CPU.
+against the CPU; an mlt step of the caustic Cornell box on the card
+against the CPU with its launches, and the manifold walk's re-projection
+rays through both kernel families.
 """
 import dataclasses
 
@@ -904,3 +906,125 @@ def test_mcmc_card_vs_cpu(cuda, integrator):
            for x in (imgs["cuda"], imgs["cpu"])]
     assert np.isfinite(imgs["cuda"]).all() and lum[0] > 0
     assert abs(lum[0] - lum[1]) / lum[1] < 0.02
+
+
+def test_mlt_card_vs_cpu(cuda):
+    """One mlt step of ``caustic_cornell`` at 64^2 (1,024 chains, depth 5,
+    p_manifold 0.15) on the card and the CPU from the same tables:
+    ``chip_smoke.py`` phase 57's gates (the other mutations' proposals to
+    2 ulp on the circle, the manifold moves alike on >= 99% and their
+    factors within rel 1e-3, the targets within rel 1e-4 on >= 99.5%, the
+    acceptance decisions alike on >= 99.5%), and the card's launches: 9 +
+    14 an evaluation and the manifold walks' closest hits by the patterns
+    their lanes matched (``chip_smoke.walk_launches``)."""
+    from chip_smoke import manifold_lanes, walk_launches
+    from mitsuba_im_tpu_torch.integrators import mlt, pssmlt
+    from mitsuba_im_tpu_torch.render.job import RenderSettings
+    from mitsuba_im_tpu_torch.scenes import caustic_cornell
+
+    n, res, seed, t = 1024, 64, 3, 1
+    settings = RenderSettings(width=res, height=res, spp=1,
+                              integrator="mlt", integrator_props=dict(
+                                  max_depth=5, n_chains=n, p_manifold=0.15))
+    scenes = [caustic_cornell(d, res)[0] for d in (cuda, "cpu")]
+    cfg = mlt.mlt_config(scenes[0], settings)
+    pss = mlt._pss_cfg(cfg)
+    chain = torch.arange(n)
+    table = pssmlt._draw_table(chain, 0xFFFFFFFF, seed,
+                               pssmlt._n_blocks(pss), 0)
+    idx, u_aux = manifold_lanes(cfg, seed, t)
+    others = torch.ones(n, dtype=torch.bool)
+    others[idx] = False
+    out = []
+    for sc in scenes:
+        d = sc.device
+        ci.reset_launch_counts()
+        prop, large, _ = mlt.mlt_step_tables(table.to(d), u_aux.to(d), cfg,
+                                             chain.to(d), t, seed, scene=sc)
+        walks = ci.closest_tris_v.launches
+        info = {}
+        m = mlt._manifold_tables(sc, table.to(d)[idx.to(d)], cfg,
+                                 u_aux.to(d)[idx.to(d), 1:3],
+                                 chain=idx.to(d), info=info)
+        I_p = pssmlt._eval(sc, prop, pss, res, res)[2]
+        out.append([x.cpu() for x in (prop, large, m[1], m[2], I_p)])
+        if d.type == "cuda":
+            walk = walk_launches(cfg.max_depth, info)
+            assert walks == walk
+            pos, color, I = pssmlt._eval(sc, table.to(d), pss, res, res)
+            state = (table, pos.cpu(), color.cpu(), I.cpu(), I.sum().cpu(),
+                     torch.tensor(float(n)))
+    (pa, la, ca, ma, Ia), (pb, lb, cb, mb, Ib) = out
+    diff = (pa - pb).abs()[others]
+    assert torch.minimum(diff, 1.0 - diff).max() <= 2 * 2.0 ** -24
+    assert torch.equal(la, lb)
+    assert (ma == mb).float().mean() >= 0.99
+    both = ma & mb
+    assert ((ca - cb).abs() / cb.abs())[both].max() <= 1e-3 if both.any() \
+        else True
+    assert ((Ia - Ib).abs() <= 1e-4 * Ib.abs()).float().mean() >= 0.995
+    acc = []
+    for sc in scenes:
+        d = sc.device
+        ci.reset_launch_counts()
+        _, new = mlt.mlt_run(sc, torch.zeros((res, res, 3), device=d),
+                             tuple(x.to(d) for x in state), seed, t, cfg=cfg,
+                             width=res, height=res, n_steps=1,
+                             accumulate=True)
+        if d.type == "cuda":
+            assert (ci.closest_tris_v.launches,
+                    ci.anyhit_tris_v.launches) == (9 + walk, 14)
+        acc.append((new[0].cpu() != table).any(2).any(1))
+    assert (acc[0] == acc[1]).float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("which", ["cornell", "large"])
+def test_manifold_reprojection_rays_both_families(cuda, which):
+    """The Newton walk's re-projection rays of a manifold step (each
+    chain length's, on caustic_cornell; on the large scene, where no lane
+    matches, the walk the reference runs on the manifold lanes) through
+    both kernel families against their plain versions, bit for bit."""
+    from chip_smoke import manifold_lanes, reference_walk, walk_launches
+    from mitsuba_im_tpu_torch.integrators import mlt, pssmlt
+    from mitsuba_im_tpu_torch.scenes import caustic_cornell
+
+    if which == "cornell":
+        scene, _ = caustic_cornell(cuda, 64)
+        depth = 5
+    else:
+        scene, _ = large_scene(cuda, 64)
+        depth = 3
+    cfg = mlt.MLTConfig(max_depth=depth, n_chains=2048, p_manifold=0.15)
+    table = pssmlt._draw_table(torch.arange(2048), 0xFFFFFFFF, 5,
+                               pssmlt._n_blocks(mlt._pss_cfg(cfg)), 0)
+    idx, u_aux = manifold_lanes(cfg, 5, 1)
+    seen, orig, info = [], isect.intersect_v, {}
+
+    def spy(geom, o, d, tmin, tmax, **kw):
+        seen.append((o, d, tmin, tmax))
+        return orig(geom, o, d, tmin, tmax, **kw)
+
+    isect.intersect_v = spy
+    try:
+        if which == "cornell":
+            mlt._manifold_tables(scene, table.to(cuda)[idx.to(cuda)], cfg,
+                                 u_aux.to(cuda)[idx.to(cuda), 1:3],
+                                 chain=idx.to(cuda), info=info)
+        else:
+            reference_walk(scene, table, cfg, 5, 1)()
+    finally:
+        isect.intersect_v = orig
+    assert len(seen) == (walk_launches(depth, info) if which == "cornell"
+                         else depth + 21)
+    assert len(seen) > depth
+    for o, d, tmin, tmax in seen[depth::7]:
+        if which == "cornell":
+            g = scene.geom
+            tris = (g.tri_p0, g.tri_e1, g.tri_e2)
+            assert _same(ci.closest_tris_v(*tris, o, d, tmin, tmax),
+                         ci.closest_tris_plain(*tris, o, d, tmin, tmax))
+        else:
+            h = scene.clusters
+            k = ch.hier_closest(h, o, d, tmin, tmax)
+            p, _ = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax)
+            assert all(torch.equal(a, b) for a, b in zip(k, p))

@@ -16,9 +16,9 @@ jitted MCMC functions run eagerly (``jax.disable_jit``), a step or two,
 never a whole render, with 64 chains on the 16^2 Cornell box at depth 3;
 their ``fori_loop`` bodies get the int32 index that tracing gives them
 (:func:`_eager`).
-Scene files with ``pssmlt`` (bidirectional and not) and ``erpt`` load
-into the reference's settings and render through the command line;
-``mlt`` raises naming its item.
+Scene files with ``pssmlt`` (bidirectional and not), ``mlt`` and ``erpt``
+load into the reference's settings and render through the command line
+and ``render``.
 """
 import contextlib
 
@@ -272,6 +272,9 @@ FILES = {
     "erpt": '<integrator type="erpt"><integer name="maxDepth" value="3"/>'
             '<integer name="chainLength" value="4"/><float name="numChains" '
             'value="2"/></integrator>',
+    "mlt": '<integrator type="mlt"><integer name="maxDepth" value="3"/>'
+           '<integer name="chains" value="64"/><integer name="burnIn" '
+           'value="4"/></integrator>',
 }
 
 
@@ -296,9 +299,3 @@ def test_scene_file_renders(case, tmp_path):
     np.testing.assert_allclose(img, npy(tjob.render(scene, pset)),
                                rtol=1e-3, atol=1e-4)
 
-
-def test_mlt_still_raises(tmp_path):
-    path = _scene_file(tmp_path, '<integrator type="mlt"/>')
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue A item 7\.8\)"):
-        tload(path, device="cpu")

@@ -507,9 +507,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_plugins_raise(case, tmp_path):
-    """``mlt``, the one name here still unported, raises naming its ROADMAP
-    item; the others, which raised before they were ported (the name and
-    the cases are kept), load into the reference's tables and settings:
+    """Every name here raised naming its ROADMAP item before it was ported
+    (the name and the cases are kept); each loads into the reference's
+    tables and settings:
     a top-level ``singlescatter`` gives a table without points, a
     ``dipole`` that no triangle carries none (ROADMAP C21)."""
     path = str(tmp_path / "scene.xml")
@@ -518,11 +518,6 @@ def test_unported_plugins_raise(case, tmp_path):
     with open(path, "w") as f:
         f.write(f'<scene version="0.6.0">{UNPORTED[case]}<shape '
                 'type="rectangle"/></scene>')
-    if case == "mlt":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 7.8"):
-            tload(path, device="cpu")
-        return
     port, pset = tload(path, device="cpu")
     ref, rset = jload(path)
     assert_same_scene(port, bridged(ref))
