@@ -116,7 +116,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    ``texture.atlas`` and d sum(Li)/d ``emitter.radiance``; 5 + 4 launches
    forward and 9 + 8 with the replay; finite; non-zero on the bitmap's
    texels; radiance linearity (the area light is the only emitter); peak
-   device memory; the fwd+bwd pass time (one pass timed after the peak's)
+   device memory; the fwd+bwd pass time (the peak's pass, timed)
    and its ratio to phase 17's pass; the share of a pass's device time in
    the gathers' backward
    (``index_put``/``indexing_backward``); card vs CPU atlas gradient at
@@ -342,7 +342,32 @@ Phases, in order; any failure raises and the run exits non-zero:
    share, both hierarchy kernels bit for bit on the re-projection rays;
 60. ``[slice files]``: tests/test_mcmc.py's caustic scene under
    ``<integrator type="mlt"/>`` through the command line at 256^2, its
-   mean within 10% of the port's bdpt.
+   mean within 10% of the port's bdpt;
+61. ``[sharded cornell]``: a one-rank ``nccl`` group
+   (``parallel/mesh.py::init_distributed`` on a free loopback port);
+   ``render_sharded`` on the Cornell box at 1024^2, depth 5, 4 spp (5 + 4
+   launches and one ``all_reduce`` a pass) and on the large scene at
+   768^2, depth 3, 2 spp (3 + 2 hierarchy launches a pass), each against
+   ``render_film`` under the gate; the sharded pass time against
+   ``render_film``'s from differencing two pass counts;
+62. ``[nodes cornell]``: ``render_distributed`` over two ``mtssrv -ls``
+   nodes sharing the card and this process (Cornell 1024^2, depth 5, 8
+   spp, units of 2) against ``render_film`` under the gate, every worker
+   with at least one unit and no error; the nodes' start, the resource's
+   bytes and seconds to ship, each worker's units and seconds a unit; an
+   ``exec:false`` node's error listed and its share rendered here; the
+   same through the command line's ``--nodes`` at 256^2;
+63. ``[interactive cornell]``: ``RenderActor`` on the Cornell box at
+   512^2, depth 5, ``preview_scale`` 4: the seconds to the first 128^2
+   revision and each full pass; after 8 passes the film bit for bit
+   ``render_film``'s 8-spp film; pause stops the count; a ``FlyCamera``
+   move restarts with a preview (its seconds); ``frame_to_ansi`` at 80 x
+   24; 5 + 4 launches a pass;
+64. ``[subsurface grad]``: d sum(Li)/d refl through ``subsurface_cornell``
+   at 128^2, depth 5, card vs CPU (max rel < 5e-3), 13 + 8 launches
+   forward and 25 + 16 with the replay, the fwd+bwd pass time and peak;
+65. ``[motion animation]``: the motion integrator with an
+   ``AnimatedTransform`` sensor at 64^2, card vs CPU under the gate.
 
 Every phase logs its seconds (``[seconds] name: s``).  The next-to-last
 line is the kernels' JSON record, the last line
@@ -357,6 +382,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -378,7 +404,8 @@ from mitsuba_im_tpu_torch.diff.optimize import get_params, render_rays, \
 from mitsuba_im_tpu_torch.core.transform import Transform
 from mitsuba_im_tpu_torch.emitter.table import (EM_DIRECTIONAL,
                                                 eval_environment_v)
-from mitsuba_im_tpu_torch.film.film import F_BOX, FILTER_NAMES, develop
+from mitsuba_im_tpu_torch.film.film import (F_BOX, FILTER_NAMES, develop,
+                                           make_film)
 from mitsuba_im_tpu_torch.io import bitmap, exr, png
 from mitsuba_im_tpu_torch.integrators import (adaptive, erpt, irrcache,
                                               mlt, pssmlt, sppm, vpl)
@@ -782,9 +809,9 @@ def pass_time(scene, settings, k_lo, k_hi, rays, tag="main"):
     def run(k):
         return lambda: render_film(scene, settings, spp=k)
 
-    run(1)()  # warm up once; each count is then timed twice
-    t_lo = min(cuda_ms(run(k_lo), 1, warm=False) for _ in range(2))
-    t_hi = min(cuda_ms(run(k_hi), 1, warm=False) for _ in range(2))
+    run(1)()  # warm up once; each count is then timed once
+    t_lo = cuda_ms(run(k_lo), 1, warm=False)
+    t_hi = cuda_ms(run(k_hi), 1, warm=False)
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
     log(f"[{tag}] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
         f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
@@ -1311,8 +1338,10 @@ def cornell_grad_phase(dev, fwd_ms):
     if not all(r < 1e-5 for r in rels.values()):
         raise AssertionError(f"the remat modes disagree: {rels}")
     rays = RES * RES * (1 + 2 * n_iters)
-    per_pass = grad_pass_time(scene, settings, cfg, G_LABELS, 1, 3, rays,
-                              "grad")
+    # one timed pass after the remat modes' (~2.8 s each, device-bound on
+    # the gathers' backward scatter: the enqueue's fixed cost is nothing)
+    per_pass = grad_pass_time(scene, settings, cfg, G_LABELS, 0, 1, rays,
+                              "grad", warm=False)
     log(f"[grad] fwd+bwd pass / forward pass (phase 4) "
         f"{per_pass:.3f} / {fwd_ms:.3f} ms = {per_pass / fwd_ms:.3f}")
     return launches
@@ -1365,8 +1394,10 @@ def large_grad_phase(scene, settings):
     if not bool((alpha != 0).all()):
         raise AssertionError("no alpha gradient on the mesh's BSDF")
     check_linearity("large grad", grads, li, scene.emitters.radiance)
-    grad_pass_time(scene, settings, cfg, labels, 1, 3,
-                   L_RES * L_RES * (1 + 2 * n_iters), "large grad")
+    # one timed pass after grad_peak's (~1 s, device-bound)
+    grad_pass_time(scene, settings, cfg, labels, 0, 1,
+                   L_RES * L_RES * (1 + 2 * n_iters), "large grad",
+                   warm=False)
     return launches
 
 
@@ -1547,9 +1578,10 @@ def material_grad_phase(dev):
         raise AssertionError(f"card vs CPU gradient parity failed: {rels}")
     if not all(gh[k].abs().max() > 0 for k in M_LABELS):
         raise AssertionError("a gradient of material_cornell is zero")
-    return grad_pass_time(card_scene, card_settings, cfg, M_LABELS, 1, 3,
+    # one timed pass after the card's (~2.4 s of eager enqueue a pass)
+    return grad_pass_time(card_scene, card_settings, cfg, M_LABELS, 0, 1,
                           M_GRAD_RES * M_GRAD_RES * (1 + 2 * (DEPTH - 1)),
-                          "materials grad")
+                          "materials grad", warm=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1746,7 +1778,15 @@ def texture_grad_phase(dev, fwd_ms):
 
     ci.reset_launch_counts()
     ch.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     grads, li, fwd, peak = grad_peak(scene, settings, cfg, T_LABELS, counts)
+    stop.record()
+    torch.cuda.synchronize()
+    # the peak's pass is the timed one (~7 s, 97% of it device time in
+    # indexing_backward, so its first-call costs are nothing)
+    per_pass = start.elapsed_time(stop)
     launches = counts()
     log(f"[texture grad] {RES}x{RES} depth {DEPTH} remat_group 4: launches "
         f"forward {fwd}, forward+backward {launches}; peak device memory "
@@ -1770,10 +1810,9 @@ def texture_grad_phase(dev, fwd_ms):
     check_linearity("texture grad", grads, li, scene.emitters.radiance)
     del grads, li, g
     rays = RES * RES * (1 + 2 * n_iters)
-    # one timed pass after grad_peak's (each is ~7 s, 97% of it device
-    # time in indexing_backward, so the enqueue's fixed cost is nothing)
-    per_pass = grad_pass_time(scene, settings, cfg, T_LABELS, 0, 1, rays,
-                              "texture grad", warm=False)
+    log(f"[texture grad] fwd+bwd pass time {per_pass:.3f} ms (the peak's "
+        f"pass); {rays} rays per pass; {rays / (per_pass * 1e-3):.4e} "
+        f"rays/s")
     log(f"[texture grad] fwd+bwd pass / forward pass (phase 17) "
         f"{per_pass:.3f} / {fwd_ms:.3f} ms = {per_pass / fwd_ms:.3f}")
     share = scatter_share("texture grad", lambda: grad_pass(
@@ -5017,11 +5056,394 @@ def slice15_summary(seconds, c, p, mean, large, files, smi):
         f"{mean['rel']:.4f}; caustic file rel {files['rel']:.4f} ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# slice 16: rendering across processes and nodes, the interactive actor,
+# the subsurface gradient and the sensor animation (phases 61-65)
+# ---------------------------------------------------------------------------
+
+def free_port():
+    """A free loopback TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tri_counts():
+    return ci.closest_tris_v.launches, ci.anyhit_tris_v.launches
+
+
+def cornell_at(dev, res, spp, depth=DEPTH):
+    scene, settings = tiny_cornell(dev)
+    settings.width = settings.height = res
+    settings.spp = spp
+    settings.integrator_props = dict(max_depth=depth)
+    return scene, settings
+
+
+def sharded_passes_ms(run, scene, settings, k_lo, k_hi):
+    """Per-pass ms of a sharded pass function from differencing two pass
+    counts (CUDA events), as ``pass_time``."""
+    def passes(k):
+        def go():
+            film = make_film(settings.width, settings.height,
+                             settings.rfilter, settings.rfilter_radius,
+                             device=scene.device)
+            for s in range(k):
+                run(scene, film, s, settings.seed)
+        return go
+
+    with torch.no_grad():
+        passes(1)()
+        t_lo = cuda_ms(passes(k_lo), 1, warm=False)
+        t_hi = cuda_ms(passes(k_hi), 1, warm=False)
+    return (t_hi - t_lo) / (k_hi - k_lo)
+
+
+def sharded_cornell_phase(dev, smi):
+    """61. [sharded cornell]: a one-rank nccl group; render_sharded on the
+    Cornell box (1024^2, depth 5, 4 spp) and the large scene (768^2,
+    depth 3, 2 spp) against render_film under the gate, the launches a
+    pass and one all_reduce a pass; the sharded pass time against
+    render_film's."""
+    import torch.distributed as tdist
+
+    from mitsuba_im_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                  device=dev)
+    if mesh.group is None or tdist.get_backend() != "nccl":
+        raise AssertionError("no nccl group at world size 1")
+    reduces = []
+    orig = pmesh.dist.all_reduce
+
+    def counted(*a, **kw):
+        reduces.append(1)
+        return orig(*a, **kw)
+
+    out = {}
+    pmesh.dist.all_reduce = counted
+    try:
+        scene, settings = cornell_at(dev, RES, SPP)
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        img = pmesh.render_sharded(mesh, scene, settings)
+        torch.cuda.synchronize()
+        launches = tri_counts()
+        want = (DEPTH * SPP, (DEPTH - 1) * SPP)
+        log(f"[sharded cornell] render_sharded {RES}x{RES} depth {DEPTH} "
+            f"spp {SPP} on {mesh.size} nccl rank: launches {launches}, "
+            f"all_reduce calls {len(reduces)}")
+        if launches != want or len(reduces) != SPP:
+            raise AssertionError(f"expected {want} launches and {SPP} "
+                                 f"all_reduce calls")
+        ref = develop(render_film(scene, settings))
+        log(f"[sharded cornell] against render_film: "
+            f"{film_diff(img.cpu().numpy(), ref.cpu().numpy())}")
+        parity_gate("sharded cornell vs render_film",
+                    img.sum(-1).cpu().numpy(), ref.sum(-1).cpu().numpy())
+        run = pmesh.render_pass_sharded(mesh, scene, settings)
+        rays = RES * RES * (1 + 2 * (DEPTH - 1))
+        sharded = sharded_passes_ms(run, scene, settings, 2, 6)
+        plain = pass_time(scene, settings, 2, 6, rays, "sharded cornell")
+        log(f"[sharded cornell] pass time sharded {sharded:.3f} ms, "
+            f"render_film {plain:.3f} ms in the same call ({smi})")
+        out.update(launches=launches, pass_ms=sharded, plain_ms=plain,
+                   reduces=len(reduces))
+
+        scene, settings = large_scene(dev)
+        settings.spp = L_SPP
+        ci.reset_launch_counts()
+        ch.reset_launch_counts()
+        reduces.clear()
+        img = pmesh.render_sharded(mesh, scene, settings)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = dict(closest=0, anyhit=0, hier_closest=L_DEPTH * L_SPP,
+                    hier_anyhit=(L_DEPTH - 1) * L_SPP, motion_closest=0,
+                    motion_anyhit=0)
+        log(f"[sharded cornell] large scene {L_RES}^2 depth {L_DEPTH} spp "
+            f"{L_SPP}: launches {got}, all_reduce calls {len(reduces)}")
+        if got != want or len(reduces) != L_SPP:
+            raise AssertionError(f"expected {want} launches")
+        ref = develop(render_film(scene, settings))
+        parity_gate("sharded large vs render_film",
+                    img.sum(-1).cpu().numpy(), ref.sum(-1).cpu().numpy())
+        out["large_launches"] = (got["hier_closest"], got["hier_anyhit"])
+        del scene
+    finally:
+        pmesh.dist.all_reduce = orig
+        tdist.destroy_process_group()
+    return out
+
+
+def node_argv():
+    return [sys.executable, "-m", "mitsuba_im_tpu_torch.cli.mtssrv", "-ls",
+            "-q"]
+
+
+def nodes_cornell_phase(dev, smi):
+    """62. [nodes cornell]: render_distributed over two mtssrv -ls nodes
+    sharing the card and this process (Cornell 1024^2, depth 5, 8 spp,
+    units of 2) against render_film under the gate, every worker with a
+    unit and no error; a node that dies at once (exec:false) re-queued
+    onto the local worker; the same through --nodes at 256^2."""
+    from mitsuba_im_tpu_torch.parallel import remote
+
+    scene, settings = cornell_at(dev, RES, 8)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        nodes = list(pool.map(lambda _: remote.RemoteNode(node_argv()),
+                              range(2)))
+    log(f"[nodes cornell] two nodes up in {time.perf_counter() - t0:.2f} s "
+        f"(process start, imports and CUDA initialisation): "
+        + ", ".join(f"{n.seconds:.2f} s ({n.platform}, {n.devices} card)"
+                    for n in nodes))
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    t0 = time.perf_counter()
+    job_ = remote.render_distributed(scene, settings, nodes, unit_spp=2)
+    wall = time.perf_counter() - t0
+    local = tri_counts()
+    for name, w in job_.workers.items():
+        log(f"[nodes cornell] worker {name}: {w.units} units, {w.spp} spp, "
+            "seconds a unit " + ", ".join(f"{s:.3f}" for s in w.unit_seconds)
+            + (f", connect {w.connect_seconds:.2f} s, resource shipped in "
+               f"{w.ship_seconds:.4f} s" if w.connect_seconds else ""))
+    log(f"[nodes cornell] resource {job_.resource_bytes} bytes; 8 spp in "
+        f"{wall:.3f} s; this process's launches {local} ({smi})")
+    if job_.errors or any(w.units < 1 for w in job_.workers.values()):
+        raise AssertionError(f"a worker failed or rendered nothing: "
+                             f"{job_.errors}")
+    want = job_.workers["local"].spp
+    if local != (DEPTH * want, (DEPTH - 1) * want):
+        raise AssertionError(f"local launches {local} for {want} spp")
+    ref = develop(render_film(scene, settings))
+    parity_gate("nodes cornell vs render_film", job_.image.sum(-1).cpu()
+                .numpy(), ref.sum(-1).cpu().numpy())
+
+    failed = remote.render_distributed(scene, settings, ["exec:false"],
+                                       unit_spp=2)
+    log(f"[nodes cornell] exec:false: errors {failed.errors}, local units "
+        f"{failed.workers['local'].units}")
+    if len(failed.errors) != 1 or failed.workers["local"].spp != 8:
+        raise AssertionError("the dead node's error or units went missing")
+    parity_gate("nodes exec:false vs render_film", failed.image.sum(-1)
+                .cpu().numpy(), ref.sum(-1).cpu().numpy())
+
+    path = xml_file("nodes.xml", CORNELL_XML.format(max_depth=DEPTH, spp=8,
+                                                    res=256))
+    out = os.path.join(XML_DIR, "nodes.npy")
+    t0 = time.perf_counter()
+    run_cli(path, "--nodes", ";".join(["exec:" + " ".join(node_argv())] * 2),
+            "-o", out, "--device", dev)
+    cli_s = time.perf_counter() - t0
+    x_scene, x_settings = scene_xml.load_scene(path, device=dev)
+    parity_gate("nodes command line 256^2 vs render_film",
+                np.load(out).sum(-1),
+                develop(render_film(x_scene, x_settings)).sum(-1).cpu()
+                .numpy())
+    log(f"[nodes cornell] --nodes at 256^2 with two nodes: {cli_s:.2f} s")
+    return dict(workers={k: w.units for k, w in job_.workers.items()},
+                wall=wall, resource=job_.resource_bytes, local=local,
+                connect=[n.seconds for n in nodes], cli_s=cli_s)
+
+
+def interactive_cornell_phase(dev, smi):
+    """63. [interactive cornell]: RenderActor on the Cornell box at 512^2,
+    depth 5, preview_scale 4: seconds to the first (128^2) revision and
+    each full pass; after 8 passes its film bit for bit render_film's 8-spp
+    film; pause stops the count; a FlyCamera move restarts with a preview
+    (its seconds); frame_to_ansi at 80 x 24; 5 + 4 launches a pass."""
+    from mitsuba_im_tpu_torch.interactive.actor import RenderActor
+    from mitsuba_im_tpu_torch.interactive.shell import FlyCamera, frame_to_ansi
+
+    res = 512
+    scene, settings = cornell_at(dev, res, 8)
+    revs = []
+
+    class Actor(RenderActor):
+        def _publish(self, film, spp, scale):
+            super()._publish(film, spp, scale)
+            revs.append((time.perf_counter(), self.latest()))
+
+    def wait(cond, what):
+        deadline = time.perf_counter() + 120
+        while not cond():
+            if actor.error is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"[interactive] {what}: {actor.error}")
+            time.sleep(0.002)
+
+    actor = Actor(scene, settings, preview_scale=4)
+    ci.reset_launch_counts()
+    ch.reset_launch_counts()
+    t0 = time.perf_counter()
+    actor.start()
+    try:
+        wait(lambda: revs, "first revision")
+        first = revs[0]
+        wait(lambda: actor.spp_done >= 8, "8 passes")
+        actor.pause(True)
+        if not actor.parked.wait(timeout=60):
+            raise AssertionError("[interactive] pause did not park")
+        n, g = actor.spp_done, actor.latest().generation
+        launches = tri_counts()
+        time.sleep(0.5)
+        if (actor.spp_done, actor.latest().generation) != (n, g):
+            raise AssertionError("[interactive] the count ran on in pause")
+        want = ((n + 1) * DEPTH, (n + 1) * (DEPTH - 1))
+        log(f"[interactive] first revision {first[1].image.shape[1]}^2 "
+            f"(scale {first[1].resolution_scale}) after "
+            f"{first[0] - t0:.4f} s; full passes "
+            + ", ".join(f"{s * 1e3:.3f}" for s in actor.pass_times)
+            + f" ms; paused at {n} spp, generation {g}; launches {launches} "
+            f"({smi})")
+        if first[1].resolution_scale != 4 or first[1].image.shape != (
+                settings.height // 4, settings.width // 4, 3) \
+                or launches != want:
+            raise AssertionError(f"[interactive] preview or launches "
+                                 f"{launches} (want {want})")
+        eight = next(r for _, r in revs if r.spp == 8
+                     and r.resolution_scale == 1)
+        ref = develop(render_film(scene, settings, spp=8)).cpu().numpy()
+        diff = film_diff(eight.image, ref)
+        log(f"[interactive] 8 passes against render_film's 8 spp: {diff}")
+        if diff != "bit for bit":
+            raise AssertionError("[interactive] film is not render_film's")
+
+        cam = FlyCamera(scene.sensor.to_world.cpu().numpy())
+        cam.move(dz=1.0)
+        t = cam.to_world()
+        moved = dataclasses.replace(scene, sensor=dataclasses.replace(
+            scene.sensor, to_world=torch.tensor(t.m, dtype=torch.float32,
+                                                device=dev),
+            to_camera=torch.tensor(t.inv, dtype=torch.float32, device=dev)))
+        k = len(revs)
+        t1 = time.perf_counter()
+        actor.update_scene(moved)
+        actor.pause(False)
+        wait(lambda: len(revs) > k, "preview after the move")
+        when, rev = revs[k]
+        restarted = actor.spp_done
+        log(f"[interactive] camera move: preview revision after "
+            f"{when - t1:.4f} s, generation {g} -> {rev.generation}, scale "
+            f"{rev.resolution_scale}, spp_done {n} -> {restarted} ({smi})")
+        if not (rev.generation > g and rev.resolution_scale == 4
+                and restarted < n):
+            raise AssertionError("[interactive] the move did not restart")
+        frame = frame_to_ansi(rev.image, 80, 24, status="smoke")
+        lines = frame.split("\n")
+        ok = (len(lines) == 24 and frame.startswith("\x1b[H")
+              and all(ln.count("▀") == 80 and ln.endswith("\x1b[0m")
+                      for ln in lines[:-1]) and lines[-1].endswith("smoke"))
+        log(f"[interactive] frame_to_ansi 80 x 24: {len(frame)} characters, "
+            f"{'well formed' if ok else 'MALFORMED'}")
+        if not ok:
+            raise AssertionError("[interactive] frame_to_ansi malformed")
+    finally:
+        actor.stop()
+    return dict(first_s=first[0] - t0, move_s=when - t1,
+                pass_ms=[s * 1e3 for s in actor.pass_times],
+                launches=launches, passes=n + 1)
+
+
+def subsurface_grad_phase(dev, smi):
+    """64. [subsurface grad]: d sum(Li)/d refl through subsurface_cornell
+    at 128^2, depth 5 (per-bounce remat), card vs CPU under the gradient
+    gate; launches forward 13 + 8 and with the replay 25 + 16; the fwd+bwd
+    pass time and its peak memory (ROADMAP C1)."""
+    cfg = PathConfig(max_depth=DEPTH, remat=True)
+    g = {}
+    for where in ("cpu", dev):
+        scene, settings = subsurface_cornell(where, 128)
+        if where == dev:
+            ci.reset_launch_counts()
+            grads, _, fwd, peak = grad_peak(scene, settings, cfg,
+                                            ("bsdf.refl",), tri_counts)
+            launches = tri_counts()
+        else:
+            grads = grad_pass(scene, settings, cfg, ("bsdf.refl",), 0)[0]
+        g[str(where)] = grads["bsdf.refl"].cpu()
+    check_finite("subsurface grad", {"refl": g[str(dev)]})
+    rays = 128 * 128 * (1 + 2 * (DEPTH - 1))
+    per_pass = grad_pass_time(scene, settings, cfg, ("bsdf.refl",), 0, 1,
+                              rays, "subsurface grad", warm=False)
+    card, cpu = g[str(dev)], g["cpu"]
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"[subsurface grad] 128^2 depth {DEPTH}: launches forward {fwd}, "
+        f"forward+backward {launches}; peak {peak:.3f} GiB; d sum(Li)/d "
+        f"refl card {card.sum().item():.6e} cpu {cpu.sum().item():.6e} max "
+        f"rel {rel:.3e} {'OK' if rel < 5e-3 else 'FAIL'} ({smi})")
+    if (fwd, launches) != ((13, 8), (25, 16)):
+        raise AssertionError("expected 13 + 8 launches forward, 25 + 16 "
+                             "with the replay")
+    if not (rel < 5e-3 and cpu.abs().max() > 0):
+        raise AssertionError("card vs CPU subsurface gradient parity failed")
+    return dict(launches=launches, fwd=fwd, pass_ms=per_pass, peak=peak,
+                rel=rel)
+
+
+def motion_animation_phase(dev, smi):
+    """65. [motion animation]: the motion integrator with an
+    AnimatedTransform sensor (prev = anim.eval(-time_delta)) at 64^2,
+    card vs CPU; 1 + 0 launches a pass."""
+    from mitsuba_im_tpu_torch.core.track import AnimatedTransform
+
+    imgs = {}
+    for where in ("cpu", dev):
+        scene, settings = tiny_cornell(where)
+        settings.width = settings.height = 64
+        settings.spp = 2
+        m = scene.sensor.to_world.cpu().double().numpy()
+        anim = AnimatedTransform([-0.5, 0.0], [
+            Transform(m @ Transform.translate([0.1, -0.05, 0.2]).m),
+            Transform(m)])
+        settings.integrator = "motion"
+        settings.integrator_props = {"sensor_animation": anim,
+                                     "time_delta": 0.25}
+        ci.reset_launch_counts()
+        imgs[str(where)] = develop(render_film(scene, settings)).cpu().numpy()
+    launches = tri_counts()
+    card, cpu = imgs[str(dev)], imgs["cpu"]
+    log(f"[motion animation] 64^2 2 spp: launches {launches}, max |vector| "
+        f"{np.abs(cpu).max():.4f}")
+    if launches != (2, 0) or not np.abs(cpu[..., :2]).max() > 0.1:
+        raise AssertionError("[motion animation] launches or no motion")
+    parity_gate("motion animation 64^2", np.abs(card).sum(-1),
+                np.abs(cpu).sum(-1))
+    return dict(launches=launches)
+
+
+def slice16_phases(dev, smi):
+    """Phases 61-65."""
+    return [phase(dev, smi) for phase in (
+        sharded_cornell_phase, nodes_cornell_phase,
+        interactive_cornell_phase, subsurface_grad_phase,
+        motion_animation_phase)]
+
+
+def slice16_summary(seconds, sh, nd, ia, sg, smi):
+    """The ``[summary]`` line of phases 61-65."""
+    log(f"[summary] phases 61-65 {seconds:.1f} s: sharded cornell pass "
+        f"{sh['pass_ms']:.3f} ms (render_film {sh['plain_ms']:.3f} ms), "
+        f"launches {sh['launches']}, large {sh['large_launches']}; nodes "
+        f"units {nd['workers']}, 8 spp in {nd['wall']:.3f} s, node start "
+        + ", ".join(f"{s:.2f}" for s in nd["connect"])
+        + f" s, resource {nd['resource']} bytes, --nodes 256^2 "
+        f"{nd['cli_s']:.2f} s; interactive first preview "
+        f"{ia['first_s']:.4f} s, after a move {ia['move_s']:.4f} s, full "
+        f"passes median {statistics.median(ia['pass_ms']):.3f} ms; "
+        f"subsurface fwd+bwd {sg['pass_ms']:.3f} ms, peak {sg['peak']:.3f} "
+        f"GiB, card vs CPU {sg['rel']:.3e} ({smi})")
+
+
 def kernel_record(name, source, replaces, launches, err, timing, key,
                   grad_launches, device_ms=None, xml_launches=None,
                   volume_launches=None, ptracer_launches=None,
                   bdpt_launches=None, photon_launches=None,
-                  slice14_launches=None, slice15_launches=None):
+                  slice14_launches=None, slice15_launches=None,
+                  slice16_launches=None):
     bnd = timing[key + "_bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=timing[key],
@@ -5033,7 +5455,8 @@ def kernel_record(name, source, replaces, launches, err, timing, key,
                 bdpt_launches=bdpt_launches,
                 photon_launches=photon_launches,
                 slice14_launches=slice14_launches,
-                slice15_launches=slice15_launches)
+                slice15_launches=slice15_launches,
+                slice16_launches=slice16_launches)
 
 
 def light_tracing_phases(dev, smi):
@@ -5212,6 +5635,20 @@ def main():
     m_c, m_p, m_m, m_l, m_f = slice15_phases(dev, smi)
     slice15_summary(time.perf_counter() - t0, m_c, m_p, m_m, m_l, m_f, smi)
 
+    t0 = time.perf_counter()
+    sh, nd, ia, sg, ma = slice16_phases(dev, smi)
+    slice16_summary(time.perf_counter() - t0, sh, nd, ia, sg, smi)
+
+    def s16(k):
+        """Phases 61-65's launches of brute-force kernel ``k`` (0 closest,
+        1 any hit): each counted around its run."""
+        return dict(sharded_cornell_per_pass=sh["launches"][k] // SPP,
+                    nodes_cornell_local=nd["local"][k],
+                    interactive_cornell_per_pass=ia["launches"][k]
+                    // ia["passes"],
+                    subsurface_grad_fwd_bwd=sg["launches"][k],
+                    motion_animation_2spp=ma["launches"][k])
+
     kernels = [
         kernel_record("tri_closest", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:79",
@@ -5236,7 +5673,8 @@ def main():
                       dict(mlt_cornell_per_eval=m_c["per_eval"][0],
                            mlt_cornell_manifold_per_step=m_c["walk"],
                            mlt_cornell_manifold_by_step=m_c["walked"],
-                           mlt_cornell_render=m_c["launches"]["closest"])),
+                           mlt_cornell_render=m_c["launches"]["closest"]),
+                      s16(0)),
         kernel_record("tri_anyhit", TRI_SOURCE,
                       "mitsuba_im_tpu/accel/pallas_intersect.py:130",
                       launches[1], max(timing["anyhit_err"],
@@ -5259,7 +5697,8 @@ def main():
                            pssmlt_cornell_per_eval=p_c["per_eval"][1],
                            erpt_cornell_per_eval=e_c["per_eval"][1]),
                       dict(mlt_cornell_per_eval=m_c["per_eval"][1],
-                           mlt_cornell_render=m_c["launches"]["anyhit"])),
+                           mlt_cornell_render=m_c["launches"]["anyhit"]),
+                      s16(1)),
         kernel_record("hier_closest", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[0], max(err_h, vl["err"], bl["err"],
                                         sl["err"], s_l["dipole"]["err"],
@@ -5276,7 +5715,9 @@ def main():
                            mlt_large_manifold_per_step=m_l["walk"],
                            mlt_large_manifold_by_step=m_l["walked"],
                            mlt_large_init_and_4_steps=m_l["launches"][
-                               "hier_closest"])),
+                               "hier_closest"]),
+                      dict(sharded_large_per_pass=sh["large_launches"][0]
+                           // L_SPP)),
         kernel_record("hier_anyhit", HIER_SOURCE, HIER_REPLACES,
                       hlaunches[1], err_ha, htiming, "anyhit",
                       hgrad_launches[1], htiming["anyhit_device"],
@@ -5287,7 +5728,9 @@ def main():
                           "dipole"]["build"]["hier_anyhit"],
                           subsurface_large_single=s_l["singlescatter"][
                               "per_pass"][1],
-                          pssmlt_large_per_eval=p_l["per_eval"][1])),
+                          pssmlt_large_per_eval=p_l["per_eval"][1]),
+                      None, dict(sharded_large_per_pass=sh["large_launches"]
+                                 [1] // L_SPP)),
         kernel_record("hier_closest_motion", HIER_SOURCE,
                       HIER_MOTION_REPLACES, ml["launches"][0], ml["err"], mt,
                       "motion_closest", None, mt["motion_closest_device"]),

@@ -7,24 +7,28 @@ layout, so every stage can be held against the reference on the same
 inputs.  It imports ``torch`` and never ``jax``, directly or through
 ``mitsuba_im_tpu``.
 
-Covered so far: the forward wavefront path tracer
-(``integrators/path.py::path_li_v`` driven by ``render/job.py::render_film``)
-with every BSDF family but IRAWAN, the MASK and BLEND wrappers, textured
-parameters (constant, bitmap with MIP/anisotropic filtering through ray
-differentials, checker, grid, scale, vertexcolors), bump and normal maps,
-every emitter (area lights on meshes, spheres and disks; point, spot,
-directional, collimated; the sun; the constant environment and the
-lat-long environment map, given as pixels or baked from the Hosek-Wilkie
-or the Preetham sky), every sampler kind (``core/qmc.py``), every sensor
-and every reconstruction filter, with the plugins' keyword factories, on
-the
-Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and on
-large scenes (the two-level cluster hierarchy, ``csrc/hier_traverse.cu``),
-both through hand-written CUDA kernels; its reverse-mode gradients with
+Covered: every integrator of the JAX package (``path`` through
+``render/job.py::render_film``; ``volpath``, ``direct``, ``ao``, ``field``
+and ``motion`` beside it; the light tracers, photon mapping, VPL, the
+irradiance cache, adaptive sampling, multichannel output and the three
+Metropolis integrators through ``render/job.py::render``) with every BSDF
+family (IRAWAN included), the MASK and BLEND wrappers, textured
+parameters, bump and normal maps, every emitter, sampler kind, sensor and
+reconstruction filter, participating media and subsurface scattering, on
+the Cornell box (brute-force intersection, ``csrc/tri_intersect.cu``) and
+on large scenes (the two-level cluster hierarchy,
+``csrc/hier_traverse.cu``), both through hand-written CUDA kernels; the
+scene files and the command line (``cli/main.py``), rendering across
+processes (``parallel/mesh.py``, a ``torch.distributed`` group) and across
+render nodes (``parallel/remote.py``, ``cli/mtssrv.py``), the interactive
+renderer (``interactive/``); reverse-mode gradients of ``path`` with
 respect to BSDF, texture-atlas and emitter parameters by path replay
-(``torch.utils.checkpoint``) and the inverse-rendering loop
-(``diff/optimize.py``).  Everything else raises ``NotImplementedError``.
-Public entry points run on the card unless the CPU is asked for.
+(``torch.utils.checkpoint``), subsurface scenes included, and the
+inverse-rendering loop (``diff/optimize.py``).  Not ported: the host tools
+``mtsutil``, ``mtsimport`` and their libraries (``ROADMAP.md`` queue A
+item 8); a coating over a non-diffuse substrate raises
+``NotImplementedError``.  Public entry points run on the card unless the
+CPU is asked for.
 """
 
 __version__ = "0.1.0"

@@ -5,26 +5,34 @@
 
 Each scene file is loaded (``scene/xml.py``), built on ``--device`` (the
 card by default; without one the command raises, and ``--device cpu``
-runs the kernels' plain versions), rendered by ``render_film`` with the
-scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
-``field`` or ``motion``), or by ``render`` through the render loop of
-``ptracer``, ``bdpt``, ``sppm``/``ppm``/``photonmapper``, ``vpl``,
-``adaptive``, ``multichannel``, ``irrcache``, ``pssmlt``, ``mlt`` or
-``erpt`` (which, as the reference's, take no ``-c``/``-z``/``-r``/``-S``;
-a multichannel EXR holds every child's layer; ``-s`` counts pssmlt's and
-mlt's mutations and erpt's seeds a pixel), and written as EXR, or as a
-tone-mapped PNG/PPM by the
-output's extension.  A ``tiledhdrfilm`` scene with an EXR output renders
-band by band into an out-of-core film (``film/tiled.py``, at its
-default band height, as the reference's command line), without
-``-c``/``-z``/``-r``/``-S``.  Flags: ``-D
-key=value`` substitution, ``-o`` output, ``-s`` samples per pixel, ``-r``
-a partial image every N seconds, ``-S`` a numbered image every N samples
-per pixel, ``-x`` skip a scene whose output exists, ``-c`` a checkpoint
-after each pass, ``-z`` resume from one, ``-j`` load the next scenes on
-host threads while the device renders, ``-q``/``-v``,
-``--width``/``--height``.  ``-m``, ``--nodes`` and
-``-i`` raise ``NotImplementedError``.
+runs the kernels' plain versions) and rendered in the reference's order
+of dispatch (its ``cli/main.py:146-163``): with ``--nodes`` across render
+nodes (``parallel/remote.py``: ``host[:port]`` or ``exec:CMD`` nodes
+separated by ``;``, e.g. ``exec:python -m mitsuba_im_tpu_torch.cli.mtssrv
+-ls``, and this process unless ``--no-local-worker``); by ``render``
+through the render loop of ``ptracer``, ``bdpt``,
+``sppm``/``ppm``/``photonmapper``, ``vpl``, ``adaptive``,
+``multichannel``, ``irrcache``, ``pssmlt``, ``mlt`` or ``erpt`` (which,
+as the reference's, take no ``-c``/``-z``/``-r``/``-S``; a multichannel
+EXR holds every child's layer; ``-s`` counts pssmlt's and mlt's mutations
+and erpt's seeds a pixel); with ``-m`` sharded over a ``torch.distributed``
+group (``parallel/mesh.py``: under torchrun's ``RANK``/``WORLD_SIZE``
+every rank renders its share of the pixels and rank 0 writes the output;
+without them a world of one); a ``tiledhdrfilm`` scene with an EXR output
+band by band into an out-of-core film (``film/tiled.py``, at its default
+band height, as the reference's command line); else by ``render_film``
+with the scene's integrator (``path``, ``volpath``, ``direct``, ``ao``,
+``field`` or ``motion``).  The image is written as EXR, or as a
+tone-mapped PNG/PPM by the output's extension.  ``--nodes``, ``-m`` and
+the tiled film take no ``-c``/``-z``/``-r``/``-S``, as in the reference.
+Flags: ``-D key=value`` substitution, ``-o`` output, ``-s`` samples per
+pixel, ``-r`` a partial image every N seconds, ``-S`` a numbered image
+every N samples per pixel, ``-x`` skip a scene whose output exists,
+``-c`` a checkpoint after each pass, ``-z`` resume from one, ``-j`` load
+the next scenes on host threads while the device renders, ``-q``/``-v``,
+``--width``/``--height``.  As the reference's, the command line has no
+``-i``: the interactive shell is ``python -m
+mitsuba_im_tpu_torch.interactive scene.xml``.
 """
 from __future__ import annotations
 
@@ -66,22 +74,20 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     ap.add_argument("-m", dest="multichip", action="store_true",
-                    help="not ported (ROADMAP queue A item 7.9)")
+                    help="shard the render over a torch.distributed group "
+                         "(torchrun's environment, else a world of one)")
     ap.add_argument("--nodes", dest="nodes", default=None,
-                    help="not ported (ROADMAP queue A item 7.9)")
-    ap.add_argument("-i", dest="interactive", action="store_true",
-                    help="not ported (ROADMAP queue A item 7.10)")
+                    help="semicolon-separated render nodes: host[:port] or "
+                         "'exec:CMD' (e.g. exec:ssh host python -m "
+                         "mitsuba_im_tpu_torch.cli.mtssrv -ls)")
+    ap.add_argument("--local-worker", dest="local_worker",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="with --nodes: also render in this process")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    for flag, on, item in (("-m", args.multichip, "7.9"),
-                           ("--nodes", args.nodes, "7.9"),
-                           ("-i", args.interactive, "7.10")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue A item {item})")
     params = {}
     for d in args.defines:
         if "=" not in d:
@@ -90,14 +96,43 @@ def main(argv=None) -> int:
         params[k] = v
 
     from ..core.types import entry_device
+
+    mesh = None
+    joined = False
+    if args.multichip and not args.nodes:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import init_distributed
+
+        joined = not dist.is_initialized()
+        mesh = init_distributed(device=args.device)
+        joined = joined and mesh.group is not None
+        device = mesh.device
+    else:
+        device = entry_device(args.device)
+    say = (lambda *a: None) if args.quiet or (mesh and mesh.rank) else (
+        lambda *a: print(*a, flush=True))
+    try:
+        _render_scenes(args, params, device, mesh, say)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return 0
+
+
+def _render_scenes(args, params, device, mesh, say) -> None:
+    """Load, render and write each scene file; under ``-m`` every rank
+    renders and rank 0 alone writes."""
     from ..film.film import develop
-    from ..render.job import (LOOP_INTEGRATORS, render, render_film,
-                              save_render)
+    from ..render.job import LOOP_INTEGRATORS, render, render_film
+    from ..render.job import save_render as _save
     from ..scene.xml import load_scene
 
-    device = entry_device(args.device)
-    say = (lambda *a: None) if args.quiet else (
-        lambda *a: print(*a, flush=True))
+    def save_render(*a, **kw):
+        if mesh is None or mesh.rank == 0:
+            _save(*a, **kw)
 
     pending = None
     if args.jobs > 1 and len(args.scenes) > 1:
@@ -128,6 +163,24 @@ def main(argv=None) -> int:
             f"integrator={settings.integrator} on {device} "
             f"({time.perf_counter() - t0:.3f}s)")
 
+        if args.nodes:
+            from ..parallel.remote import render_distributed
+
+            t1 = time.perf_counter()
+            job = render_distributed(
+                scene, settings, args.nodes.split(";"),
+                include_local=args.local_worker, log=say)
+            wall = time.perf_counter() - t1
+            for e in job.errors:
+                print(f"[cluster] {e}", file=sys.stderr, flush=True)
+            save_render(out, job.image.cpu().numpy(), settings, metadata={
+                "renderTime": f"{wall:.3f}s",
+                "renderer": "mitsuba_im_tpu_torch"})
+            say(f"[done] {out}  {wall:.3f}s (" + ", ".join(
+                f"{k} {w.units} units" for k, w in job.workers.items())
+                + ")")
+            continue
+
         if settings.integrator in LOOP_INTEGRATORS:
             t1 = time.perf_counter()
             img = render(scene, settings).cpu().numpy()
@@ -136,6 +189,20 @@ def main(argv=None) -> int:
                 "renderTime": f"{wall:.3f}s",
                 "renderer": "mitsuba_im_tpu_torch"})
             say(f"[done] {out}  {wall:.3f}s ({settings.integrator})")
+            continue
+
+        if mesh is not None:
+            from ..parallel.mesh import render_sharded, replicate_to_mesh
+
+            t1 = time.perf_counter()
+            img = render_sharded(mesh, replicate_to_mesh(scene, mesh),
+                                 settings).cpu().numpy()
+            wall = time.perf_counter() - t1
+            save_render(out, img, settings, metadata={
+                "renderTime": f"{wall:.3f}s",
+                "renderer": "mitsuba_im_tpu_torch"})
+            say(f"[done] {out}  {wall:.3f}s (sharded over {mesh.size} "
+                f"rank(s))")
             continue
 
         if settings.tiled and out.endswith(".exr"):
@@ -188,7 +255,6 @@ def main(argv=None) -> int:
                                                       - start_spp)
         rate = n_paths / max(wall, 1e-9)
         say(f"[done] {out}  {wall:.3f}s ({rate / 1e6:.2f} Mpaths/s)")
-    return 0
 
 
 if __name__ == "__main__":

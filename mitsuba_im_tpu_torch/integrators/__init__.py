@@ -11,10 +11,10 @@ integrators of ``render/job.py::LOOP_INTEGRATORS`` render through their
 own loops, ``render/job.py::render``).  ``adaptive`` and ``irrcache``
 keep their nested integrator's record, ``multichannel`` its children's.
 ``motion`` records only ``timeDelta``, as the reference's, so from a scene
-file its previous sensor pose is the current one (ROADMAP C13).  Every
-other integrator the JAX package registers (``mlt``) is registered here
-too and raises ``NotImplementedError`` naming its ROADMAP queue A item 7
-entry when a scene asks for it: nothing renders it with ``path`` instead.
+file its previous sensor pose is the current one (ROADMAP C13); from
+code, ``integrator_props["sensor_animation"]`` (a
+``core/track.py::AnimatedTransform``) gives it one.  These are every
+integrator the JAX package registers.
 ``pssmlt`` and ``erpt`` also read the reference Mitsuba's
 ``bidirectional`` flag where a scene file sets it (the JAX factories drop
 it, so there pssmlt is always bidirectional and erpt never; ROADMAP C23);

@@ -31,9 +31,11 @@ after that selection draw and before NEE, as the reference does
 with a singlescatter record in the scene, the refracted-ray estimator
 (``eval_lo_single``) on a block of its own, drawn on every bounce so that
 the sampler's dimension is the reference's, the peeled first bounce
-included.  Reverse mode through such a scene raises: the points'
-irradiance is a build-time table that no gradient reaches, so a gradient
-would be silently short of its term.
+included.  Under reverse mode the table's leaves are detached
+(:func:`subsurface.detached`): its points' irradiance is traced when the
+scene is built, outside the differentiated function, and is a constant
+there, as the reference's ``SubsurfaceTable`` pytree is; the gradient
+reaches the LoSub terms through the throughput.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from ..emitter import table as em
 from ..render.raydiff import uv_differentials
 from ..scene.geometry import Interaction3
 from ..scene.scene import Scene
-from ..subsurface import eval_lo, eval_lo_single
+from ..subsurface import detached, eval_lo, eval_lo_single
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +94,8 @@ def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
     the graph to every scene or ray tensor that requires grad."""
     wants_grad = torch.is_grad_enabled() and _requires_grad(scene, o, d)
     if wants_grad and scene.subsurface is not None:
-        raise NotImplementedError(
-            "path_li_v: gradients through a scene with subsurface "
-            "scattering (its irradiance table is not differentiated)")
+        scene = dataclasses.replace(scene,
+                                    subsurface=detached(scene.subsurface))
     remat = cfg.remat and wants_grad
     use_duv = (dddx is not None and dddy is not None
                and scene.textures.has_mip)

@@ -27,9 +27,11 @@ word (:func:`shutter_time`), shared by the pass's wavefront.  The port
 computes it on the host in float32, one rounding per operation, so that
 the hierarchy kernel takes it as a number; the reference computes it on
 the device, where XLA may contract it into one fused multiply-add (the
-two agree whenever the shutter opens at 0).  A ``sensor_animation`` in
-the motion integrator's properties raises: no factory of either package
-sets one (ROADMAP C13) and animated transforms are not ported.
+two agree whenever the shutter opens at 0).  A ``sensor_animation`` (a
+``core/track.py::AnimatedTransform``) in the motion integrator's
+properties gives its previous pose, the animation at ``-time_delta``, as
+the reference's ``_integrator_fn`` does; no factory of either package sets
+one (ROADMAP C13).
 
 :func:`render_band` is one pass over a band of rows of a tiled film
 (``film/tiled.py``; the reference's ``_render_band``, job.py:130-157).  It
@@ -130,9 +132,8 @@ def integrator_fn(settings: RenderSettings):
     if name == "motion":
         prev = ip.get("prev_to_world")
         if prev is None and ip.get("sensor_animation") is not None:
-            raise NotImplementedError(
-                "a sensor animation for the motion integrator: animated "
-                "transforms are not ported")
+            anim = ip["sensor_animation"]  # core/track.py::AnimatedTransform
+            prev = anim.eval(-ip.get("time_delta", 1.0 / 24.0)).m
         return lambda scene, s, o, d, **kw: simple.motion_li_v(
             scene, s, o, d, prev_to_world=prev, width=settings.width,
             height=settings.height)
@@ -185,12 +186,19 @@ def _camera_sample(scene: Scene, pix: torch.Tensor, width: int,
 
 
 def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
-                li_fn, kind: int, spp: int) -> Film:
+                li_fn, kind: int, spp: int,
+                pix: torch.Tensor | None = None) -> Film:
     """One sample-per-pixel pass over the full image, splatted into film;
     ``li_fn`` is the integrator (:func:`integrator_fn`), ``kind`` and
-    ``spp`` set the sampler."""
+    ``spp`` set the sampler.  ``pix`` renders those flat pixel lanes alone
+    (``parallel/mesh.py``'s share of a padded image): a lane past the
+    image's last pixel splats nothing."""
     W, H = film.width, film.height
-    pix = torch.arange(W * H, dtype=torch.int64, device=scene.device)
+    active = None
+    if pix is None:
+        pix = torch.arange(W * H, dtype=torch.int64, device=scene.device)
+    else:
+        active = pix < W * H
     scene, sampler, px, py, (o, d, w_sensor), blk0 = _camera_sample(
         scene, pix, W, H, sample_idx, seed, kind, spp)
     diffs = {}
@@ -202,7 +210,7 @@ def render_pass(scene: Scene, film: Film, sample_idx: int, seed: int,
     li, _ = li_fn(scene, sampler, o, d, **diffs)
     li = V3(*(torch.nan_to_num(c, nan=0.0, posinf=0.0, neginf=0.0) * w_sensor
               for c in li))
-    return splat(film, px, py, li)
+    return splat(film, px, py, li, active=active)
 
 
 def render_band(scene: Scene, band: Film, sample_idx: int, seed: int,

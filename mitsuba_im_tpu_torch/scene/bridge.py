@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..core.types import entry_device, host_tensor
 from ..accel import hierarchy as hy
@@ -42,40 +43,52 @@ _EMITTER_SRC = {"select_pmf": ("select", "pmf"),
                 **{"env_" + k: ("env_dist", k) for k in em.ENV_DIST_LEAVES}}
 
 
+def _np(x) -> np.ndarray:
+    """A leaf of either package's scene as numpy (a port tensor is copied
+    to the host)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def export_tables(src) -> tuple[dict, dict]:
-    """(arrays, statics) of a ``mitsuba_im_tpu`` Scene."""
+    """(arrays, statics) of a ``mitsuba_im_tpu`` Scene, or of the port's
+    own Scene (``parallel/remote.py`` ships a scene to a render node so)."""
     arrays = {}
     for k in GEOMETRY_LEAVES:
-        arrays[f"geom.{k}"] = np.asarray(getattr(src.geom, k))
+        arrays[f"geom.{k}"] = _np(getattr(src.geom, k))
     for k in bc.BSDF_LEAVES:
-        arrays[f"bsdfs.{k}"] = np.asarray(getattr(src.bsdfs, k))
+        arrays[f"bsdfs.{k}"] = _np(getattr(src.bsdfs, k))
     for k in tx.TEXTURE_LEAVES:
-        arrays[f"textures.{k}"] = np.asarray(getattr(src.textures, k))
+        arrays[f"textures.{k}"] = _np(getattr(src.textures, k))
     for k in em.EMITTER_LEAVES:
         obj = src.emitters
-        for attr in _EMITTER_SRC.get(k, (k,)):
-            obj = getattr(obj, attr)
-        arrays[f"emitters.{k}"] = np.asarray(obj)
+        if not isinstance(src, Scene):
+            for attr in _EMITTER_SRC.get(k, (k,)):
+                obj = getattr(obj, attr)
+        else:
+            obj = getattr(obj, k)
+        arrays[f"emitters.{k}"] = _np(obj)
     for k in SENSOR_LEAVES:
-        arrays[f"sensor.{k}"] = np.asarray(getattr(src.sensor, k))
+        arrays[f"sensor.{k}"] = _np(getattr(src.sensor, k))
     for k in SCENE_LEAVES:
-        arrays[f"scene.{k}"] = np.asarray(getattr(src, k))
-    arrays["bsdfs.weave_id"] = np.asarray(src.bsdfs.weave_id)
+        arrays[f"scene.{k}"] = _np(getattr(src, k))
+    arrays["bsdfs.weave_id"] = _np(src.bsdfs.weave_id)
     for k in med.MEDIUM_LEAVES:
-        arrays[f"media.{k}"] = np.asarray(getattr(src.media, k))
+        arrays[f"media.{k}"] = _np(getattr(src.media, k))
     h = src.clusters
     if h is not None:
         for k in hy.HIERARCHY_LEAVES:
-            arrays[f"clusters.{k}"] = np.asarray(getattr(h, k))
+            arrays[f"clusters.{k}"] = _np(getattr(h, k))
         if h.has_motion:
-            arrays["clusters.blocks1"] = np.asarray(h.blocks1)
+            arrays["clusters.blocks1"] = _np(h.blocks1)
     if src.motion is not None:
         for k, a in src.motion.items():
-            arrays[f"motion.{k}"] = np.asarray(a)
+            arrays[f"motion.{k}"] = _np(a)
     sub = src.subsurface
     if sub is not None:
         for k in ss.SUBSURFACE_LEAVES:
-            arrays[f"subsurface.{k}"] = np.asarray(getattr(sub, k))
+            arrays[f"subsurface.{k}"] = _np(getattr(sub, k))
     g, b, e = src.geom, src.bsdfs, src.emitters
     statics = {
         "geom.n_tris": g.n_tris, "geom.n_spheres": g.n_spheres,

@@ -197,6 +197,14 @@ def table_from_arrays(arrays: dict, statics: dict,
         **{k: statics[k] for k in SUBSURFACE_STATICS})
 
 
+def detached(table: SubsurfaceTable) -> SubsurfaceTable:
+    """The table with every tensor leaf detached: the constants a gradient
+    through the path integrator sees (the reference's table is a constant
+    pytree, ``integrators/path.py:128-141``)."""
+    return dataclasses.replace(table, **{
+        k: getattr(table, k).detach() for k in SUBSURFACE_LEAVES})
+
+
 def sample_surface_points(builder_tri: dict, shape_ids: list[int],
                           n_points: int, rng: np.random.Generator):
     """Area-weighted triangle sampling over the given shapes (host):

@@ -129,14 +129,28 @@ def test_png_output_and_skip_existing(cornell):
     assert os.path.getmtime(png) == before - 100
 
 
-def test_cli_device_and_unported_flags(cornell):
+def test_cli_device_and_unported_flags(cornell, monkeypatch, capsys):
+    """The card is the default device (also under -m); -m (a world of one
+    without torchrun's variables) and --nodes (a node that dies at once,
+    its units rendered here) render the command line's image; -i is
+    rejected, as the reference's argparse rejects it."""
     d, path = cornell
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     if not torch.cuda.is_available():  # the card is the default device
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            main([path, "-D", "depth=2", "-o", str(d / "x.exr")])
-    for flag in (["-m"], ["--nodes", "a;b"], ["-i"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            _cli(path, *flag)
+        for extra in ([], ["-m"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                main([path, "-D", "depth=2", "-o", str(d / "x.exr"), *extra])
+    _cli(path, "-D", "depth=2", "-s", 1, "-o", d / "plain.npy")
+    plain = np.load(d / "plain.npy")
+    _cli(path, "-D", "depth=2", "-s", 1, "-m", "-o", d / "m.npy")
+    np.testing.assert_array_equal(np.load(d / "m.npy"), plain)
+    _cli(path, "-D", "depth=2", "-s", 1, "--nodes", "exec:false", "-o",
+         d / "nodes.npy")
+    np.testing.assert_array_equal(np.load(d / "nodes.npy"), plain)
+    assert "[cluster] exec:false: ConnectionError" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        _cli(path, "-i")
     with pytest.raises(KeyError, match=r"\$depth"):
         _cli(path, "-o", d / "y.exr")
 

@@ -28,7 +28,11 @@ against the CPU with their launch counts, their shadow and refracted
 rays through both kernel families, and pssmlt and erpt on the card
 against the CPU; an mlt step of the caustic Cornell box on the card
 against the CPU with its launches, and the manifold walk's re-projection
-rays through both kernel families.
+rays through both kernel families; ``render_sharded`` on a one-rank
+``nccl`` group and an ``mtssrv`` node on the card against ``render_film``,
+the interactive actor's film bit for bit ``render_film``'s, the gradient
+through a subsurface scene and the motion integrator's sensor animation
+on the card against the CPU.
 """
 import dataclasses
 
@@ -1028,3 +1032,119 @@ def test_manifold_reprojection_rays_both_families(cuda, which):
             k = ch.hier_closest(h, o, d, tmin, tmax)
             p, _ = hy.intersect_hierarchy_plain(h, o, d, tmin, tmax)
             assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cornell(dev, res, spp):
+    scene, settings = tiny_cornell(dev)
+    settings.width = settings.height = res
+    settings.spp = spp
+    settings.integrator_props = dict(max_depth=5)
+    return scene, settings
+
+
+def test_sharded_render_on_one_nccl_rank(cuda):
+    """``render_sharded`` on a one-rank ``nccl`` group: 5 + 4 launches a
+    pass, the image within parity_check.py's gate of ``render_film``'s."""
+    import torch.distributed as tdist
+
+    from mitsuba_im_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                  device=cuda)
+    try:
+        assert tdist.get_backend() == "nccl" and mesh.group is not None
+        scene, settings = _cornell(cuda, 64, 2)
+        ci.reset_launch_counts()
+        img = pmesh.render_sharded(mesh, scene, settings)
+        assert (ci.closest_tris_v.launches,
+                ci.anyhit_tris_v.launches) == (10, 8)
+        ref = develop(render_film(scene, settings))
+        assert _gate_ok(img.sum(-1).cpu().numpy().ravel(),
+                        ref.sum(-1).cpu().numpy().ravel())
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_render_node_on_the_card(cuda):
+    """An ``mtssrv -ls`` node on the card and this process share a 64^2
+    render: each renders a unit, no error, the image within the gate of
+    ``render_film``'s."""
+    import sys
+
+    from mitsuba_im_tpu_torch.parallel import remote
+
+    scene, settings = _cornell(cuda, 64, 4)
+    node = remote.RemoteNode([sys.executable, "-m",
+                              "mitsuba_im_tpu_torch.cli.mtssrv", "-ls",
+                              "-q"])
+    assert node.platform == "cuda"
+    job = remote.render_distributed(scene, settings, [node], unit_spp=1)
+    assert not job.errors
+    assert all(w.units >= 1 for w in job.workers.values()), job.workers
+    ref = develop(render_film(scene, settings))
+    assert job.image.device == ref.device
+    assert _gate_ok(job.image.sum(-1).cpu().numpy().ravel(),
+                    ref.sum(-1).cpu().numpy().ravel())
+
+
+def test_actor_film_is_render_film_on_card(cuda):
+    """The interactive actor's film after 3 passes on the card is
+    ``render_film``'s 3-spp film bit for bit (the box splat's
+    ``index_put_``), 5 + 4 launches a pass with the preview's."""
+    from mitsuba_im_tpu_torch.interactive.actor import RenderActor
+
+    scene, settings = _cornell(cuda, 64, 3)
+    ci.reset_launch_counts()
+    actor = RenderActor(scene, settings, preview_scale=4, max_spp=3).start()
+    actor._thread.join(timeout=120)
+    assert actor.error is None and actor.spp_done == 3
+    assert (ci.closest_tris_v.launches,
+            ci.anyhit_tris_v.launches) == (20, 16)
+    ref = develop(render_film(scene, settings, spp=3)).cpu().numpy()
+    np.testing.assert_array_equal(actor.latest().image, ref)
+
+
+def test_subsurface_gradient_card_vs_cpu(cuda):
+    """d sum(Li)/d refl through ``subsurface_cornell`` (ROADMAP C1) at
+    32^2, depth 3: the card's within the gradient gate (5e-3) of the
+    CPU's."""
+    g = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = subsurface_cornell(dev, 32)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in get_params(scene, ["bsdf.refl"]).items()}
+        li = render_rays(set_params(scene, params), settings,
+                         PathConfig(max_depth=3), torch.arange(
+                             32 * 32, device=dev), 0, 0)
+        li.sum().backward()
+        g.append(params["bsdf.refl"].grad.cpu())
+    assert torch.isfinite(g[0]).all() and g[1].abs().max() > 0
+    assert ((g[0] - g[1]).abs().max() / g[1].abs().max()).item() < 5e-3
+
+
+def test_motion_sensor_animation_card_vs_cpu(cuda):
+    """The motion integrator's previous pose from an ``AnimatedTransform``
+    on the card against the CPU at 32^2."""
+    from mitsuba_im_tpu_torch.core.track import AnimatedTransform
+    from mitsuba_im_tpu_torch.core.transform import Transform
+
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, settings = _cornell(dev, 32, 1)
+        m = scene.sensor.to_world.cpu().double().numpy()
+        settings.integrator = "motion"
+        settings.integrator_props = {"sensor_animation": AnimatedTransform(
+            [-0.5, 0.0], [Transform(m @ Transform.translate(
+                [0.1, -0.05, 0.2]).m), Transform(m)]), "time_delta": 0.25}
+        imgs.append(develop(render_film(scene, settings)).cpu().numpy())
+    assert np.abs(imgs[1][..., :2]).max() > 0.1
+    assert _gate_ok(np.abs(imgs[0]).sum(-1).ravel(),
+                    np.abs(imgs[1]).sum(-1).ravel())

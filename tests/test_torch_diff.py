@@ -56,6 +56,16 @@ torch.set_num_threads(2)
 
 GRAD_TOL = 1e-4
 SAMPLE = 7  # parity_check._grad_cornell's sample index
+# XLA's cheaper CPU backend pipeline for the reference's compiles, most of
+# these tests' time: its numbers are the same within float32 rounding
+# (rel ~1e-7), and the port is held to them at GRAD_TOL
+QUICK = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
+
+def jit_quick(fn, *args):
+    """fn(*args), jitted and compiled with :data:`QUICK`."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=QUICK)(*args)
 
 
 def rel_err(a, b) -> float:
@@ -88,7 +98,7 @@ def jax_sum_li(jscene, cfg, W):
 def jax_grads(jscene, cfg, W, labels, forward_mode=False):
     params = jopt.get_params(jscene, labels)
     diff = jax.jacfwd if forward_mode else jax.grad
-    g = jax.jit(diff(jax_sum_li(jscene, cfg, W)))(params)
+    g = jit_quick(diff(jax_sum_li(jscene, cfg, W)), params)
     return {k: np.asarray(v) for k, v in g.items()}
 
 
@@ -374,7 +384,7 @@ def test_sphere_t_live_triangle_t_detached():
         p, _, t = j_run(a)
         return sum((c * m_sph).sum() for c in p), (t * m_tri).sum()
 
-    ref, ref_tri_t = jax.jit(jax.jacfwd(j_sums))(jnp.asarray(a0))
+    ref, ref_tri_t = jit_quick(jax.jacfwd(j_sums), jnp.asarray(a0))
     assert rel_err(g_sph, ref) < GRAD_TOL, (npy(g_sph), ref)
     # the reference's CPU branch differentiates the triangle t (C6)
     assert np.abs(np.asarray(ref_tri_t)).sum() > 0
@@ -410,6 +420,7 @@ def test_train_steps_match_optax(cornell):
         tgrey, ts, tpath.PathConfig(**cfg_kw), torch.from_numpy(target),
         ("bsdf.refl",), lr=5e-2)
     jst, tst = jinit(), tinit()
+    jstep = jstep.lower(jst, jnp.uint32(0)).compile(compiler_options=QUICK)
     for _ in range(5):
         jst, jloss = jstep(jst, jnp.uint32(0))
         tst, tloss = tstep(tst, 0)
@@ -461,8 +472,11 @@ def test_texture_atlas_and_other_samplers_raise(cornell):
     jsettings = JSettings(width=8, height=8, spp=9, sampler="stratified")
     out = topt.render_rays(tscene, settings, tpath.PathConfig(max_depth=2),
                            torch.arange(64), 5, 0)
-    ref = jopt.render_rays(jscene, jsettings, jpath.PathConfig(max_depth=2),
-                           jnp.arange(64, dtype=jnp.uint32), 5, 0)
+    # jitted: one compile of the whole estimate, a third of the time of its
+    # primitives dispatched one by one; the same numbers here
+    ref = jit_quick(lambda sc, pix: jopt.render_rays(
+        sc, jsettings, jpath.PathConfig(max_depth=2), pix, 5, 0),
+        jscene, jnp.arange(64, dtype=jnp.uint32))
     np.testing.assert_allclose(npy(out), npy(ref), rtol=1e-5, atol=1e-6)
 
 
@@ -521,7 +535,7 @@ def test_bsdf_gradients_match_reference():
             tev.bsdf_pdf_v(p, tv3(wi), tv3(wo)),
             tev.bsdf_sample_v(p, tv3(wi), *(torch.from_numpy(a) for a in u))
             ).backward()
-    ref = jax.jacfwd(j_loss)({k: getattr(jt, k) for k in cols})
+    ref = jit_quick(jax.jacfwd(j_loss), {k: getattr(jt, k) for k in cols})
     for k in cols:
         g = npy(params[k].grad)
         assert np.isfinite(g).all() and np.abs(g).max() > 0, k

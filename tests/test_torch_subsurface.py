@@ -231,8 +231,14 @@ def test_eval_lo_single_matches_reference(cornell):
 def test_path_image_matches_reference(cornell):
     """``path_li_v`` over a 16^2 image of the scene with both records
     (depth 4): radiance per lane (rtol 1e-4), the sampler's dimension
-    equal, the image under the parity gate; a gradient request through the
-    scene raises."""
+    equal, the image under the parity gate; and d sum(Li)/d ``bsdf.refl``
+    through the scene against the reference's reverse mode (ROADMAP C1),
+    the same under every remat mode.  The reference's radiance and its
+    gradient come from one eager ``jax.vjp`` of the same rays (its
+    primitives compile once): the gradient over all 256 rays at depth 4,
+    a superset of the 64 rays at depth 3 of ROADMAP C1's check."""
+    from mitsuba_im_tpu.diff import optimize as jopt
+
     jscene, _, tscene = cornell
     o, d = _camera(tscene, jscene)
     cfg = tpath.PathConfig(max_depth=4, remat=False)
@@ -240,12 +246,19 @@ def test_path_image_matches_reference(cornell):
     li, s2 = tpath.path_li_v(tscene, s, o, d, cfg)
     js = jrng.make_sampler_v(jnp.arange(N, dtype=jnp.uint32),
                              jnp.uint32(0), jnp.uint32(5))
+    jo, jd = (JV3(*(jnp.asarray(npy(c)) for c in vv)) for vv in (o, d))
+
+    def j_li(params):
+        out, js2 = jpath.path_li_v(jopt.set_params(jscene, params), js, jo,
+                                   jd, jpath.PathConfig(max_depth=4,
+                                                        remat=False))
+        return out, js2.dim
+
     with jax.disable_jit():
-        jli, js2 = jpath.path_li_v(
-            jscene, js, *(JV3(*(jnp.asarray(npy(c)) for c in vv))
-                          for vv in (o, d)),
-            jpath.PathConfig(max_depth=4, remat=False))
-    np.testing.assert_array_equal(npy(s2.dim), np.asarray(js2.dim))
+        jli, j_vjp, jdim = jax.vjp(
+            j_li, jopt.get_params(jscene, ["bsdf.refl"]), has_aux=True)
+    jgrad = jax.jit(j_vjp)(JV3(*(jnp.ones(N, jnp.float32),) * 3))[0]
+    np.testing.assert_array_equal(npy(s2.dim), np.asarray(jdim))
     _close(li, jli)
     gate = parity_gate(_a(li), _a(jli))
     assert gate["ok"], gate
@@ -253,9 +266,35 @@ def test_path_image_matches_reference(cornell):
     li0, _ = tpath.path_li_v(no_sub, trng.make_sampler_v(torch.arange(N), 0,
                                                          5), o, d, cfg)
     assert _a(li).sum() > _a(li0).sum()
-    d_req = V3(*(c.clone().requires_grad_(True) for c in d))
-    with pytest.raises(NotImplementedError, match="subsurface"):
-        tpath.path_li_v(tscene, s, o, d_req, cfg)
+    _subsurface_gradient(tscene, o, d, _a(jli).sum(),
+                         np.asarray(jgrad["bsdf.refl"]))
+
+
+def _subsurface_gradient(tscene, o, d, jval, ref):
+    """C1: the table is a constant of the differentiated function in both
+    packages; the gradient reaches the LoSub terms through the throughput
+    of the lanes on each block."""
+    from mitsuba_im_tpu_torch.diff import optimize as topt
+
+    hit = tscene.interaction_v(o, d, tscene.ray_intersect_v(o, d))
+    rec = npy(tscene.subsurface_at(hit.shape, hit.valid))
+    assert (rec == 0).sum() > 8 and (rec == 1).sum() > 8, rec
+    assert np.isfinite(ref).all() and np.abs(ref).max() > 0
+    grads = []
+    for kw in (dict(remat=False), dict(), dict(remat_group=2)):
+        refl = tscene.bsdfs.refl.detach().clone().requires_grad_(True)
+        sc = topt.set_params(tscene, {"bsdf.refl": refl})
+        li, _ = tpath.path_li_v(
+            sc, trng.make_sampler_v(torch.arange(N), 0, 5), o, d,
+            tpath.PathConfig(max_depth=4, **kw))
+        loss = li.x.sum() + li.y.sum() + li.z.sum()
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), jval, rtol=RTOL)
+        grads.append(npy(refl.grad))
+    for g in grads[1:]:
+        np.testing.assert_array_equal(g, grads[0])
+    err = np.abs(grads[0] - ref).max() / np.abs(ref).max()
+    assert err < 1e-4, (err, grads[0], ref)
 
 
 XML = """<scene version="0.6.0">
