@@ -348,8 +348,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    ``render_sharded`` on the Cornell box at 1024^2, depth 5, 4 spp (5 + 4
    launches and one ``all_reduce`` a pass) and on the large scene at
    768^2, depth 3, 2 spp (3 + 2 hierarchy launches a pass), each against
-   ``render_film`` under the gate; the sharded pass time against
-   ``render_film``'s from differencing two pass counts;
+   ``render_film`` under the gate; the sharded and ``render_film``'s pass
+   times in turns (medians and spread of 5 rounds, each differencing two
+   pass counts) and the film delta's clone, ``all_reduce`` and add alone;
 62. ``[nodes cornell]``: ``render_distributed`` over two ``mtssrv -ls``
    nodes sharing the card and this process (Cornell 1024^2, depth 5, 8
    spp, units of 2) against ``render_film`` under the gate, every worker
@@ -462,6 +463,7 @@ HIER_MOTION_REPLACES = ("mitsuba_im_tpu/accel/hierarchy.py:573 (the lerp "
 L_RES = 768  # the large scene
 L_DEPTH = 3
 L_SPP = 2
+S_ROUNDS = 5  # rounds of the sharded and plain pass times in turns
 G_LABELS = ("bsdf.refl", "emitter.radiance")  # the Cornell gradients
 M_LABELS = ("bsdf.refl", "bsdf.spec", "bsdf.alpha", "emitter.radiance")
 M_GRAD_RES = 128  # the material_cornell gradient
@@ -803,15 +805,23 @@ def luminance(img):
         + 0.072169 * img[..., 2]
 
 
-def pass_time(scene, settings, k_lo, k_hi, rays, tag="main"):
-    """Per-pass ms from differencing two pass counts (cancels the fixed
-    costs), as bench.py does."""
-    def run(k):
-        return lambda: render_film(scene, settings, spp=k)
+def differenced_ms(fn, k_lo, k_hi):
+    """(ms of k_lo passes, ms of k_hi passes) of ``fn(k)``, which renders
+    k passes, each count timed once with CUDA events and no warm-up; their
+    difference over k_hi - k_lo is a pass's time without the fixed costs,
+    as bench.py takes it."""
+    return (cuda_ms(lambda: fn(k_lo), 1, warm=False),
+            cuda_ms(lambda: fn(k_hi), 1, warm=False))
 
-    run(1)()  # warm up once; each count is then timed once
-    t_lo = cuda_ms(run(k_lo), 1, warm=False)
-    t_hi = cuda_ms(run(k_hi), 1, warm=False)
+
+def pass_time(scene, settings, k_lo, k_hi, rays, tag="main"):
+    """Per-pass ms of render_film from differencing two pass counts after
+    one warm pass."""
+    def run(k):
+        return render_film(scene, settings, spp=k)
+
+    run(1)
+    t_lo, t_hi = differenced_ms(run, k_lo, k_hi)
     per_pass = (t_hi - t_lo) / (k_hi - k_lo)
     log(f"[{tag}] pass time {per_pass:.3f} ms ({k_lo} passes {t_lo:.3f} ms, "
         f"{k_hi} passes {t_hi:.3f} ms); {rays} rays per pass; "
@@ -1903,19 +1913,17 @@ def with_options(settings, sampler=None, rfilter=None):
     return dataclasses.replace(settings, **kw)
 
 
-def pass_times_in_turns(scene, variants, k_lo, k_hi, rounds=1):
-    """{name: [per-pass ms, ...]} of each settings variant, differencing
-    k_lo and k_hi passes, the variants in turns (``rounds`` times in
-    order)."""
-    order = list(variants) * rounds
-    out = {k: [] for k in variants}
-    for k in variants:  # warm up
-        render_film(scene, variants[k], spp=1)
-    for k in order:
-        def run(n, st=variants[k]):
-            return lambda: render_film(scene, st, spp=n)
-        out[k].append((cuda_ms(run(k_hi), 1) - cuda_ms(run(k_lo), 1))
-                      / (k_hi - k_lo))
+def pass_times_in_turns(fns, k_lo, k_hi, rounds=1):
+    """{name: [per-pass ms, ...]} of each pass function (``fn(k)`` renders
+    k passes, :func:`differenced_ms`), the functions in turns, ``rounds``
+    rounds after one warm pass each."""
+    out = {k: [] for k in fns}
+    for fn in fns.values():
+        fn(1)
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t_lo, t_hi = differenced_ms(fn, k_lo, k_hi)
+            out[k].append((t_hi - t_lo) / (k_hi - k_lo))
     return out
 
 
@@ -1973,7 +1981,9 @@ def lights_path_phase(dev):
     variants = {f"{smp}+{flt}": with_options(settings, smp,
                                              FILTER_NAMES[flt])
                 for smp, flt in pairs}
-    times = pass_times_in_turns(scene, variants, 1, 2)
+    times = pass_times_in_turns(
+        {k: lambda n, st=st: render_film(scene, st, spp=n)
+         for k, st in variants.items()}, 1, 2)
     costs = {}
     for k, st in variants.items():
         # profiled: the samplers' extremes and the filter's saving
@@ -5082,25 +5092,6 @@ def cornell_at(dev, res, spp, depth=DEPTH):
     return scene, settings
 
 
-def sharded_passes_ms(run, scene, settings, k_lo, k_hi):
-    """Per-pass ms of a sharded pass function from differencing two pass
-    counts (CUDA events), as ``pass_time``."""
-    def passes(k):
-        def go():
-            film = make_film(settings.width, settings.height,
-                             settings.rfilter, settings.rfilter_radius,
-                             device=scene.device)
-            for s in range(k):
-                run(scene, film, s, settings.seed)
-        return go
-
-    with torch.no_grad():
-        passes(1)()
-        t_lo = cuda_ms(passes(k_lo), 1, warm=False)
-        t_hi = cuda_ms(passes(k_hi), 1, warm=False)
-    return (t_hi - t_lo) / (k_hi - k_lo)
-
-
 def sharded_cornell_phase(dev, smi):
     """61. [sharded cornell]: a one-rank nccl group; render_sharded on the
     Cornell box (1024^2, depth 5, 4 spp) and the large scene (768^2,
@@ -5138,19 +5129,40 @@ def sharded_cornell_phase(dev, smi):
         if launches != want or len(reduces) != SPP:
             raise AssertionError(f"expected {want} launches and {SPP} "
                                  f"all_reduce calls")
+        out.update(launches=launches, reduces=len(reduces))
         ref = develop(render_film(scene, settings))
         log(f"[sharded cornell] against render_film: "
             f"{film_diff(img.cpu().numpy(), ref.cpu().numpy())}")
         parity_gate("sharded cornell vs render_film",
                     img.sum(-1).cpu().numpy(), ref.sum(-1).cpu().numpy())
-        run = pmesh.render_pass_sharded(mesh, scene, settings)
-        rays = RES * RES * (1 + 2 * (DEPTH - 1))
-        sharded = sharded_passes_ms(run, scene, settings, 2, 6)
-        plain = pass_time(scene, settings, 2, 6, rays, "sharded cornell")
-        log(f"[sharded cornell] pass time sharded {sharded:.3f} ms, "
-            f"render_film {plain:.3f} ms in the same call ({smi})")
-        out.update(launches=launches, pass_ms=sharded, plain_ms=plain,
-                   reduces=len(reduces))
+        # the two pass functions in turns, then the sharded pass's own
+        # extra work alone: the film's clone, the delta, its all_reduce
+        # and the add back on a film of this size
+        turns = pass_times_in_turns({
+            "sharded": lambda k: pmesh.render_sharded(mesh, scene, settings,
+                                                      spp=k),
+            "render_film": lambda k: render_film(scene, settings, spp=k)},
+            2, 6, rounds=S_ROUNDS)
+        data = make_film(RES, RES, settings.rfilter, settings.rfilter_radius,
+                         device=dev).data
+
+        def reduce_step():
+            film0 = data.clone()
+            delta = data - film0
+            orig(delta, group=mesh.group)
+            data.copy_(film0 + delta)
+
+        red = median_ms_in_turns({"reduce": reduce_step}, 20)["reduce"]
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        log(f"[sharded cornell] pass time in {S_ROUNDS} rounds in turns "
+            "(2 - 6 passes differenced): " + "; ".join(
+                f"{k} median {med[k]:.3f} ms, min {min(v):.3f}, max "
+                f"{max(v):.3f} ({', '.join(f'{t:.3f}' for t in v)})"
+                for k, v in turns.items())
+            + f"; the film delta's clone, all_reduce and add alone "
+            f"{red:.4f} ms (median of 20) ({smi})")
+        out.update(pass_ms=med["sharded"], plain_ms=med["render_film"],
+                   turns=turns, reduce_ms=red)
 
         scene, settings = large_scene(dev)
         settings.spp = L_SPP
@@ -5426,8 +5438,9 @@ def slice16_phases(dev, smi):
 def slice16_summary(seconds, sh, nd, ia, sg, smi):
     """The ``[summary]`` line of phases 61-65."""
     log(f"[summary] phases 61-65 {seconds:.1f} s: sharded cornell pass "
-        f"{sh['pass_ms']:.3f} ms (render_film {sh['plain_ms']:.3f} ms), "
-        f"launches {sh['launches']}, large {sh['large_launches']}; nodes "
+        f"{sh['pass_ms']:.3f} ms (render_film {sh['plain_ms']:.3f} ms, "
+        f"medians in turns; the delta's all_reduce {sh['reduce_ms']:.4f} "
+        f"ms), launches {sh['launches']}, large {sh['large_launches']}; nodes "
         f"units {nd['workers']}, 8 spp in {nd['wall']:.3f} s, node start "
         + ", ".join(f"{s:.2f}" for s in nd["connect"])
         + f" s, resource {nd['resource']} bytes, --nodes 256^2 "

@@ -35,7 +35,8 @@ included.  Under reverse mode the table's leaves are detached
 (:func:`subsurface.detached`): its points' irradiance is traced when the
 scene is built, outside the differentiated function, and is a constant
 there, as the reference's ``SubsurfaceTable`` pytree is; the gradient
-reaches the LoSub terms through the throughput.
+reaches the LoSub terms through the throughput, and none reaches the
+emitters or the subsurface records through the table.
 """
 from __future__ import annotations
 
@@ -91,7 +92,12 @@ def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
     the first hit's bitmaps when the scene has MIP pyramids.
 
     Returns (radiance V3 of (N,) components, sampler); the radiance carries
-    the graph to every scene or ray tensor that requires grad."""
+    the graph to every scene or ray tensor that requires grad, but for the
+    subsurface table: its leaves are detached, so a gradient through a
+    subsurface scene with respect to ``emitters.radiance`` or a subsurface
+    leaf lacks the LoSub term's share (the table's irradiance, traced from
+    the emitters when the scene is built), as the reference's does; BSDF,
+    texture and ray parameters get their whole gradient."""
     wants_grad = torch.is_grad_enabled() and _requires_grad(scene, o, d)
     if wants_grad and scene.subsurface is not None:
         scene = dataclasses.replace(scene,

@@ -19,7 +19,7 @@ at those indices (``render/job.py::render_film`` with its
 ``sample_offset``) and returns the film's accumulation (the filter weight
 included), so merging is a sum and the counter-based sampler makes the
 image independent of how the samples were split.  The scene crosses the
-wire as its tables (``scene/bridge.py::export_tables``: numpy arrays and
+wire as its tables (``scene/bridge.py::export_scene``: numpy arrays and
 static values) and each node rebuilds it on its own device
 (``scene_from_numpy``); tensors never cross it.
 
@@ -32,8 +32,8 @@ keeps at most ``units // workers`` units in flight (at least one, at most
 ``BACKLOG``), so that one node does not take a job of a few units alone.
 
 Trust model: the reference's.  The protocol authenticates nothing and is
-meant for a trusted render farm; unpickling admits this package's classes,
-numpy arrays and a few builtins (:class:`_RestrictedUnpickler`).
+meant for a trusted render farm; unpickling admits only the few globals a
+resource names (:class:`_RestrictedUnpickler`).
 """
 from __future__ import annotations
 
@@ -99,39 +99,49 @@ def recv_msg(rfile):
 # resources: a scene's tables and its settings, pickled
 # ---------------------------------------------------------------------------
 
-_NUMPY_MODULES = ("numpy", "numpy._core.multiarray", "numpy.core.multiarray",
-                  "numpy._core.numeric", "numpy.core.numeric", "numpy.dtypes")
+# the globals a resource's pickle names (HIGHEST_PROTOCOL): its settings,
+# a motion integrator's sensor animation, numpy's array, dtype and scalar
+# reconstructors, and the builtin containers
+_ALLOWED = {
+    (f"{PACKAGE}.render.job", "RenderSettings"),
+    (f"{PACKAGE}.core.track", "AnimatedTransform"),
+    (f"{PACKAGE}.core.track", "AnimationTrack"),
+    ("numpy", "dtype"), ("numpy", "ndarray"),
+    *((m, n) for m in ("numpy._core.multiarray", "numpy.core.multiarray")
+      for n in ("_reconstruct", "scalar")),
+    ("numpy._core.numeric", "_frombuffer"),
+    ("numpy.core.numeric", "_frombuffer"),
+    *(("builtins", n) for n in ("dict", "list", "tuple", "set", "frozenset",
+                                "complex")),
+}
 
 
 class _RestrictedUnpickler(pickle.Unpickler):
-    """Admits this package's classes, numpy's array and scalar
-    reconstructors and a few builtins, by plain (undotted) name, and
-    refuses everything else: the JAX package's classes, ``torch``'s and any
-    callable (Mitsuba's registered-class-only unserialization,
-    ``include/mitsuba/core/class.h``).  The reference's
-    ``startswith("mitsuba_im_tpu")`` would admit both packages."""
-
-    _SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "complex"}
+    """Admits only the globals a resource carries (``_ALLOWED``): the
+    settings and sensor animation of this package, numpy's reconstructors
+    and the builtin containers, by exact module and name (Mitsuba's
+    registered-class-only unserialization, ``include/mitsuba/core/class.h``).
+    Every other global is refused: any other class of this package (a
+    ``RemoteNode`` starts a process in its constructor), the JAX package's
+    classes, ``torch``'s, and numpy's functions (``numpy.load`` reads a file).
+    The reference's ``startswith("mitsuba_im_tpu")`` admits both packages
+    whole."""
 
     def find_class(self, module, name):
-        if "." not in name:
-            if module == PACKAGE or module.startswith(PACKAGE + "."):
-                obj = super().find_class(module, name)
-                if (isinstance(obj, type)
-                        and obj.__module__.split(".")[0] == PACKAGE):
-                    return obj
-            elif module in _NUMPY_MODULES:
-                return super().find_class(module, name)
-            elif module == "builtins" and name in self._SAFE_BUILTINS:
-                return super().find_class(module, name)
+        if (module, name) in _ALLOWED:
+            return super().find_class(module, name)
+        if module == "numpy.dtypes" and "." not in name:  # dtype classes
+            obj = getattr(getattr(np, "dtypes", None), name, None)
+            if isinstance(obj, type) and issubclass(obj, np.dtype):
+                return obj
         raise pickle.UnpicklingError(f"blocked class {module}.{name}")
 
 
 def dumps_resource(scene, settings) -> bytes:
-    """The scene's tables (``export_tables``) and its settings, pickled."""
-    from ..scene.bridge import export_tables
+    """The scene's tables (``export_scene``) and its settings, pickled."""
+    from ..scene.bridge import export_scene
 
-    arrays, statics = export_tables(scene)
+    arrays, statics = export_scene(scene)
     return pickle.dumps({"arrays": arrays, "statics": statics,
                          "settings": settings},
                         protocol=pickle.HIGHEST_PROTOCOL)

@@ -51,9 +51,18 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def export_tables(src) -> tuple[dict, dict]:
-    """(arrays, statics) of a ``mitsuba_im_tpu`` Scene, or of the port's
-    own Scene (``parallel/remote.py`` ships a scene to a render node so)."""
+def _reference_emitter_leaf(emitters, k: str):
+    """The reference's emitter table keeps its selection and environment
+    distributions in sub-records (``_EMITTER_SRC``)."""
+    for attr in _EMITTER_SRC.get(k, (k,)):
+        emitters = getattr(emitters, attr)
+    return emitters
+
+
+def export_tables(src, emitter_leaf=_reference_emitter_leaf
+                  ) -> tuple[dict, dict]:
+    """(arrays, statics) of a ``mitsuba_im_tpu`` Scene (:func:`export_scene`
+    exports the port's own)."""
     arrays = {}
     for k in GEOMETRY_LEAVES:
         arrays[f"geom.{k}"] = _np(getattr(src.geom, k))
@@ -62,13 +71,7 @@ def export_tables(src) -> tuple[dict, dict]:
     for k in tx.TEXTURE_LEAVES:
         arrays[f"textures.{k}"] = _np(getattr(src.textures, k))
     for k in em.EMITTER_LEAVES:
-        obj = src.emitters
-        if not isinstance(src, Scene):
-            for attr in _EMITTER_SRC.get(k, (k,)):
-                obj = getattr(obj, attr)
-        else:
-            obj = getattr(obj, k)
-        arrays[f"emitters.{k}"] = _np(obj)
+        arrays[f"emitters.{k}"] = _np(emitter_leaf(src.emitters, k))
     for k in SENSOR_LEAVES:
         arrays[f"sensor.{k}"] = _np(getattr(src.sensor, k))
     for k in SCENE_LEAVES:
@@ -122,6 +125,12 @@ def export_tables(src) -> tuple[dict, dict]:
                         "clusters.time": (float(np.asarray(h.time))
                                           if h.has_motion else 0.0)})
     return arrays, statics
+
+
+def export_scene(scene: Scene) -> tuple[dict, dict]:
+    """(arrays, statics) of the port's own Scene, its tensors copied to the
+    host (``parallel/remote.py`` ships a scene to a render node so)."""
+    return export_tables(scene, emitter_leaf=getattr)
 
 
 def _sub(arrays: dict, prefix: str) -> dict:

@@ -3,8 +3,9 @@
 line's ``-m`` and ``--nodes``), on the CPU over loopback and pipes.
 
 The framing is the reference's byte for byte; the restricted unpickler
-refuses what the reference's refuses and also the JAX package's classes
-and ``torch``'s; a scene's resource round-trips bit for bit.  A node's
+refuses what the reference's refuses and also the JAX package's classes,
+``torch``'s, numpy's functions and this package's classes but the few a
+resource carries; a scene's resource round-trips bit for bit.  A node's
 work unit is ``render_film``'s film at its ``sample_offset`` bit for bit;
 a distributed render (a stdio node and the local worker, or a loopback
 TCP node alone) and two
@@ -36,6 +37,8 @@ from mitsuba_im_tpu.parallel.mesh import render_sharded as jrender_sharded
 from mitsuba_im_tpu.scene.xml import load_scene as jload
 from mitsuba_im_tpu_torch import scenes
 from mitsuba_im_tpu_torch.cli.main import main
+from mitsuba_im_tpu_torch.core.track import AnimatedTransform, AnimationTrack
+from mitsuba_im_tpu_torch.core.transform import Transform
 from mitsuba_im_tpu_torch.film.film import develop
 from mitsuba_im_tpu_torch.parallel import mesh as tmesh
 from mitsuba_im_tpu_torch.parallel import remote
@@ -103,25 +106,51 @@ def _load(data: bytes):
     return remote._RestrictedUnpickler(io.BytesIO(data)).load()
 
 
-def test_unpickler_refusals():
+def _call(module: str, name: str, *args: str) -> bytes:
+    """A protocol-4 pickle that calls ``module.name(*args)`` (GLOBAL and
+    REDUCE, string arguments)."""
+    def u(x):
+        b = x.encode()
+        return b"\x8c" + bytes([len(b)]) + b
+    return (b"\x80\x04" + u(module) + u(name) + b"\x93"
+            + b"(" + b"".join(u(a) for a in args) + b"tR.")
+
+
+def test_unpickler_refusals(tmp_path):
     """As tests/test_remote.py:46, and the JAX package's classes, torch's,
-    and a callable reached through a dotted name inside the package."""
+    numpy's functions and every class of this package but the few a
+    resource carries: a ``RemoteNode('exec:CMD')`` would start CMD."""
     from mitsuba_im_tpu.scene.build import RenderSettings as JSettings
 
     for evil in (pickle.dumps(os.system), pickle.dumps(JSettings()),
-                 pickle.dumps(torch.zeros(2)), pickle.dumps(subprocess.Popen)):
+                 pickle.dumps(torch.zeros(2)), pickle.dumps(subprocess.Popen),
+                 pickle.dumps(remote.RemoteNode),
+                 pickle.dumps(remote.StreamBackend), pickle.dumps(np.load)):
         with pytest.raises(pickle.UnpicklingError, match="blocked"):
             _load(evil)
-    mod, name = b"mitsuba_im_tpu_torch.parallel.remote", b"subprocess.Popen"
-    dotted = (b"\x80\x04\x8c" + bytes([len(mod)]) + mod + b"\x8c"
-              + bytes([len(name)]) + name + b"\x93.")
-    with pytest.raises(pickle.UnpicklingError, match="blocked"):
-        _load(dotted)
-    ok = {"s": RenderSettings(width=3), "a": np.arange(4, dtype=np.float32),
-          "t": (1, 2.5, "x"), "f": np.float32(2)}
+    mod = "mitsuba_im_tpu_torch.parallel.remote"
+    mark = tmp_path / "started"
+    for evil in (_call(mod, "subprocess.Popen", "true"),
+                 _call(mod, "RemoteNode", f"exec:touch {mark}"),
+                 _call(mod, "StreamBackend", "r", "w"),
+                 _call("numpy", "load", str(mark)),
+                 _call("numpy.dtypes", "np.load", str(mark))):
+        with pytest.raises(pickle.UnpicklingError, match="blocked"):
+            _load(evil)
+    assert not mark.exists()
+    anim = AnimatedTransform([0.0, 1.0], [Transform(np.eye(4)),
+                                          Transform(np.diag([2, 1, 1, 1]))])
+    ok = {"s": RenderSettings(width=3, integrator_props={
+              "sensor_animation": anim, "track": AnimationTrack([0], [1])}),
+          "a": np.arange(4, dtype=np.float32), "t": (1, 2.5, "x"),
+          "f": np.float32(2), "d": np.dtype(np.int64)}
     got = _load(pickle.dumps(ok, protocol=pickle.HIGHEST_PROTOCOL))
-    assert got["s"] == ok["s"] and got["t"] == ok["t"]
+    assert got["t"] == ok["t"] and got["d"] == ok["d"]
+    assert got["s"].width == 3 and got["f"] == ok["f"]
     np.testing.assert_array_equal(got["a"], ok["a"])
+    np.testing.assert_array_equal(
+        got["s"].integrator_props["sensor_animation"].eval(0.5).m,
+        anim.eval(0.5).m)
 
 
 @pytest.mark.parametrize("make", ["tiny_cornell", "subsurface_cornell"])
